@@ -1,0 +1,56 @@
+"""Carry weights and engine state across from numpy.
+
+The JAX package's parameters and ``EngineState`` convert to numpy with
+``jax.tree.map(np.asarray, ...)``; these functions turn that numpy form into
+the port's tensors on ``device`` (None means ``cuda``, as everywhere in the
+port). They read fields by name and import nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import EngineState
+from repro_torch.core.flat import FlatCommState
+from repro_torch.device import resolve_device
+from repro_torch.optim.fused import FusedState
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """One numpy array (bf16 arrays included) as a tensor on ``device``."""
+    device = resolve_device(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """A (nested) dict of numpy arrays as a dict of tensors."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def engine_state_from_numpy(state, device=None) -> EngineState:
+    """The JAX engine's flat-plane ``EngineState`` (numpy leaves) as the
+    port's :class:`EngineState`, ``FlatCommState`` extras included (CADA1's
+    snapshot and δ̃ plane, CADA2's ring, slots and versions)."""
+    device = resolve_device(device)
+    opt, comm = state.opt_state, state.comm
+    return EngineState(
+        step=int(state.step),
+        params=params_from_numpy(state.params, device),
+        opt_state=FusedState(count=int(opt.count),
+                             h=tensor_from_numpy(opt.h, device),
+                             vhat=tensor_from_numpy(opt.vhat, device)),
+        comm=FlatCommState(
+            nabla=tensor_from_numpy(comm.nabla, device),
+            worker_grads=tensor_from_numpy(comm.worker_grads, device),
+            staleness=tensor_from_numpy(comm.staleness, device),
+            diff_hist=tensor_from_numpy(comm.diff_hist, device),
+            extras=params_from_numpy(dict(comm.extras), device)),
+        params_flat=tensor_from_numpy(state.params_flat, device),
+    )

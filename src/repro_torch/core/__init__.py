@@ -1,0 +1,11 @@
+"""Algorithm 1 on the flat plane: rules, strategies, the round, the engine."""
+from repro_torch.core.comm import (CommStrategy, register, strategy_for,
+                                   strategy_kinds)
+from repro_torch.core.engine import CADAEngine, EngineState, make_sampler
+from repro_torch.core.rules import RULES, CommRule
+
+__all__ = [
+    "CADAEngine", "EngineState", "make_sampler",
+    "CommRule", "RULES",
+    "CommStrategy", "register", "strategy_for", "strategy_kinds",
+]

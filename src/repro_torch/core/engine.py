@@ -1,0 +1,166 @@
+"""Server/worker engine for CADA (the paper's Algorithm 1) on the dense
+flat plane.
+
+A (virtual) server and M workers: worker gradients are a ``torch.func.vmap``
+over the worker axis of ``grad_and_value(loss_fn)``, the communication
+round is :func:`repro_torch.core.flat.flat_comm_round`, and the server step
+is the fused AMSGrad kernel, whose free ||Δθ||² feeds the RHS ring.
+
+The engine runs on the card unless the caller asks for the CPU
+(``device="cpu"``); with no CUDA device and no ``device`` it raises.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import flat as F
+from repro_torch.core.comm import strategy_for
+from repro_torch.core.rules import CommRule
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.optim.fused import FusedAMSGrad, FusedState
+
+
+class EngineState(NamedTuple):
+    step: int                    # k
+    params: dict                 # θ^k (server copy, dict form)
+    opt_state: FusedState        # server-optimizer state
+    comm: F.FlatCommState
+    params_flat: torch.Tensor    # θ^k packed fp32
+
+
+class CADAEngine:
+    """Server + M workers running Algorithm 1 (or distributed Adam).
+
+    Args:
+      loss_fn: scalar loss ``loss_fn(params, (x, y))`` for ONE worker batch.
+      optimizer: the server optimizer, :class:`FusedAMSGrad` (the paper's
+        AMSGrad form). Default ``FusedAMSGrad(lr=1e-3)``.
+      rule: the communication rule (a kind ported in core/comm.py).
+      n_workers: M.
+      fuse_evals: stack the rule's per-worker second gradient evaluation
+        onto the fresh one in one vmapped call (default on, as in the
+        reference).
+      impl: dispatch override of kernels/ops.py (None on the main path).
+      device: where the state lives; None means ``cuda``.
+    """
+
+    def __init__(self, loss_fn: Callable,
+                 optimizer: FusedAMSGrad | None = None,
+                 rule: CommRule | None = None, n_workers: int = 1, *,
+                 fuse_evals: bool | None = None, impl=None, device=None):
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.rule = CommRule() if rule is None else rule
+        self.strategy = strategy_for(self.rule)
+        optimizer = FusedAMSGrad(lr=1e-3) if optimizer is None else optimizer
+        if not isinstance(optimizer, FusedAMSGrad):
+            raise TypeError("the flat-plane engine takes a FusedAMSGrad "
+                            "server optimizer (protocol optimizers are not "
+                            "ported yet)")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        self.optimizer = optimizer
+        self.m = n_workers
+        self._fuse_evals = True if fuse_evals is None else fuse_evals
+        self._impl = impl
+        self._layout: F.FlatLayout | None = None
+        grad_and_value = torch.func.grad_and_value(loss_fn)
+
+        def value_and_grad(params, batch):
+            g, v = grad_and_value(params, batch)
+            return v, g
+
+        self._vgrad = torch.func.vmap(value_and_grad, in_dims=(None, 0))
+        self._vgrad_per = torch.func.vmap(value_and_grad, in_dims=(0, 0))
+
+    # ------------------------------------------------------------- state
+    def init(self, params: dict) -> EngineState:
+        params = F.tree_map(lambda p: p.to(self.device), params)
+        layout = F.layout_of(params)
+        self._layout = layout
+        params_flat = layout.pack(params)
+        # comm storage follows the param dtype when it is uniform
+        grad_dtype = (layout.dtypes[0] if len(set(layout.dtypes)) == 1
+                      else torch.float32)
+        return EngineState(
+            step=0,
+            params=params,
+            opt_state=self.optimizer.init_flat(layout.n_flat,
+                                               device=self.device),
+            comm=F.init_flat_comm_state(self.strategy, layout, params,
+                                        self.m, grad_dtype=grad_dtype,
+                                        params_flat=params_flat),
+            params_flat=params_flat,
+        )
+
+    # -------------------------------------------------------------- step
+    def step(self, state: EngineState, batch, participation=None
+             ) -> tuple[EngineState, dict]:
+        """One iteration of Algorithm 1. ``batch`` is an (x, y) pair with
+        leading axis M; ``participation`` an optional (M,) bool mask."""
+        if state.params_flat.device != self.device:
+            raise ValueError(f"the state lies on {state.params_flat.device}, "
+                             f"the engine on {self.device}")
+        if batch[0].device != self.device:
+            raise ValueError(f"the batch lies on {batch[0].device}, the "
+                             f"engine on {self.device}")
+        k = state.step
+        if self._layout is None:
+            self._layout = F.layout_of(state.params)
+        layout = self._layout
+        out = F.flat_comm_round(
+            self.strategy, layout, state.comm, state.params,
+            state.params_flat, batch, k, vgrad=self._vgrad,
+            vgrad_per=self._vgrad_per, fuse_evals=self._fuse_evals,
+            impl=self._impl, participation=participation)
+
+        # Lines 16-17: server AMSGrad step driven by ∇^k (eqs. 2a-2c).
+        theta, opt_state, dsq = self.optimizer.apply_flat(
+            state.params_flat, state.opt_state, F.nabla_f32(out.comm),
+            impl=self._impl)
+        theta = layout.cast_roundtrip(theta)
+        comm = F.record_progress(out.comm, dsq, k)
+        new_state = EngineState(step=k + 1, params=layout.unpack(theta),
+                                opt_state=opt_state, comm=comm,
+                                params_flat=theta)
+        return new_state, {"loss": out.losses.mean(), **out.metrics}
+
+    # --------------------------------------------------------------- run
+    def run(self, state: EngineState, batches, participation=None
+            ) -> tuple[EngineState, dict]:
+        """Step over pre-sampled batches: an (x, y) pair with leading axes
+        (steps, M, ...). ``participation`` is an optional (steps, M) bool
+        tensor. Returns the last state and each metric stacked over steps."""
+        steps = batches[0].shape[0]
+        rows: list[dict] = []
+        for i in range(steps):
+            state, metrics = self.step(
+                state, tuple(b[i] for b in batches),
+                None if participation is None else participation[i])
+            rows.append(metrics)
+        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def make_sampler(x, y, shard_index, batch_size: int, device=None):
+    """Per-worker minibatch sampler over a (M, n_pad) shard-index matrix.
+
+    Returns ``sample(generator) -> (xb, yb)`` with shapes (M, b, ...) and
+    (M, b), drawn on ``device`` (None means ``cuda``) from a
+    ``torch.Generator`` on that device.
+    """
+    dev = resolve_device(device)
+    xd = torch.as_tensor(x, device=dev)
+    yd = torch.as_tensor(y, device=dev)
+    idx = torch.as_tensor(shard_index, device=dev)
+    m, n_pad = idx.shape
+
+    def sample(generator: torch.Generator):
+        pos = torch.randint(0, n_pad, (m, batch_size), generator=generator,
+                            device=dev)
+        rows = torch.gather(idx, 1, pos)          # (M, b) global ids
+        return xd[rows], yd[rows]
+
+    return sample

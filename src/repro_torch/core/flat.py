@@ -1,0 +1,323 @@
+"""Flat-buffer state plane: Algorithm 1's per-iteration math on contiguous
+buffers instead of per-leaf dicts (the dense part of the JAX package's
+``core/flat.py``).
+
+  * :class:`FlatLayout` — the static flat layout of a parameter dict
+    (per-leaf offsets/sizes/shapes/dtypes, padded length ``n_flat``) with
+    exact ``pack``/``unpack``. Leaves are ordered by SORTED key, the order
+    ``jax.tree.flatten`` gives a dict, so a port plane and a JAX plane line
+    up element for element;
+  * :class:`FlatCommState` — the Algorithm-1 communication state with ∇ as
+    one (n_flat,) buffer and every per-worker quantity as one (M, n_flat)
+    plane;
+  * :func:`flat_comm_round` — one round of Algorithm 1 (lines 4-15) as
+    whole-plane ops, the rule LHS norms through the batched kernel.
+
+Rule-specific behaviour lives in the strategy objects of
+:mod:`repro_torch.core.comm`. State is never updated in place: every round
+returns new tensors, so a state may be kept and stepped again.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+# Minimal flat-buffer alignment (the reference's PAD_ALIGN): every row of an
+# (M, n_flat) plane starts 32-byte aligned in fp32.
+PAD_ALIGN = 8
+
+
+# ------------------------------------------------------------ dict trees
+
+def tree_paths(tree, prefix=()) -> list[tuple]:
+    """Key paths of a nested dict's leaves, keys sorted at every level."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                            prefix + (k,))]
+    return [prefix]
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(f, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(f, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return f(tree, *rest)
+
+
+def tree_unflatten(paths, leaves) -> dict:
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+# ------------------------------------------------------------------- layout
+
+@dataclass(frozen=True)
+class FlatLayout:
+    """Static flat layout of a parameter dict: one contiguous padded buffer.
+
+    ``n`` is the true scalar count, ``n_flat`` the padded buffer length (a
+    multiple of ``PAD_ALIGN``); padding lanes stay zero through every op.
+    """
+    paths: tuple
+    shapes: tuple
+    dtypes: tuple
+    sizes: tuple
+    offsets: tuple
+    n: int
+    n_flat: int
+
+    def pack(self, tree, dtype=torch.float32) -> torch.Tensor:
+        """Dict -> (n_flat,) buffer in ``dtype`` (zero-padded tail)."""
+        flat = torch.cat([l.reshape(-1).to(dtype) for l in tree_leaves(tree)])
+        return F.pad(flat, (0, self.n_flat - self.n))
+
+    def pack_worker(self, tree, dtype=torch.float32) -> torch.Tensor:
+        """M-leading dict -> (M, n_flat) plane in ``dtype``."""
+        leaves = tree_leaves(tree)
+        m = leaves[0].shape[0]
+        flat = torch.cat([l.reshape(m, -1).to(dtype) for l in leaves], dim=1)
+        return F.pad(flat, (0, self.n_flat - self.n))
+
+    def unpack(self, buf, dtypes=None) -> dict:
+        """(n_flat,) buffer -> dict (leaves cast to the layout dtypes)."""
+        dtypes = dtypes or self.dtypes
+        outs = [buf[o:o + s].reshape(shp).to(dt)
+                for o, s, shp, dt in zip(self.offsets, self.sizes,
+                                         self.shapes, dtypes)]
+        return tree_unflatten(self.paths, outs)
+
+    @property
+    def all_f32(self) -> bool:
+        return all(dt == torch.float32 for dt in self.dtypes)
+
+    def cast_roundtrip(self, buf: torch.Tensor) -> torch.Tensor:
+        """Round-trip a (n_flat,) fp32 buffer through the per-leaf storage
+        dtypes, so ``buf == pack(unpack(buf))`` holds exactly even for
+        reduced-precision leaves. No-op for all-fp32 layouts."""
+        if self.all_f32:
+            return buf
+        parts = [buf[o:o + s].to(dt).to(buf.dtype)
+                 for o, s, dt in zip(self.offsets, self.sizes, self.dtypes)]
+        parts.append(buf[self.n:])
+        return torch.cat(parts)
+
+
+def layout_of(tree, align: int = PAD_ALIGN) -> FlatLayout:
+    """The :class:`FlatLayout` of a dict of tensors (only shapes and dtypes
+    are read)."""
+    leaves = tree_leaves(tree)
+    shapes = tuple(tuple(l.shape) for l in leaves)
+    sizes = tuple(int(l.numel()) for l in leaves)
+    offsets, off = [], 0
+    for s in sizes:
+        offsets.append(off)
+        off += s
+    n_flat = off + ((-off) % align)
+    return FlatLayout(paths=tuple(tree_paths(tree)), shapes=shapes,
+                      dtypes=tuple(l.dtype for l in leaves), sizes=sizes,
+                      offsets=tuple(offsets), n=off,
+                      n_flat=max(n_flat, align))
+
+
+# -------------------------------------------------------------- comm state
+
+class FlatCommState(NamedTuple):
+    """Algorithm-1 communication state on the flat plane."""
+    nabla: torch.Tensor         # (n_flat,) storage dtype
+    worker_grads: torch.Tensor  # (M, n_flat) storage dtype
+    staleness: torch.Tensor     # (M,) int32
+    diff_hist: torch.Tensor     # (d_max,) fp32 RHS ring buffer
+    extras: dict                # strategy-owned flat slices
+
+
+class FlatCommContext(NamedTuple):
+    """What a strategy's flat hooks may consult. ``fresh`` is the packed
+    (M, n_flat) fp32 fresh-gradient plane; ``second`` the packed gradients
+    at the strategy's second evaluation points (None if it has none)."""
+    params: Any               # θ^k dict
+    fresh: torch.Tensor
+    second: torch.Tensor | None
+    comm: FlatCommState
+    step: int
+    m: int
+    impl: Any = None          # dispatch override of kernels/ops.py
+
+
+class FlatCommRoundResult(NamedTuple):
+    losses: torch.Tensor
+    comm: FlatCommState       # diff_hist NOT yet updated (record_progress)
+    upload: torch.Tensor
+    metrics: dict
+
+
+def init_flat_comm_state(strategy, layout: FlatLayout, params, m: int,
+                         grad_dtype=torch.float32,
+                         params_flat=None) -> FlatCommState:
+    """Fresh flat CommState: τ_m starts at D so iteration 0 uploads."""
+    r = strategy.rule
+    if params_flat is None:
+        params_flat = layout.pack(params)
+    dev = params_flat.device
+    return FlatCommState(
+        nabla=torch.zeros((layout.n_flat,), dtype=grad_dtype, device=dev),
+        worker_grads=torch.zeros((m, layout.n_flat), dtype=grad_dtype,
+                                 device=dev),
+        staleness=torch.full((m,), r.max_delay, dtype=torch.int32,
+                             device=dev),
+        diff_hist=torch.zeros((r.d_max,), dtype=torch.float32, device=dev),
+        extras=strategy.init_flat_extras(layout, params, params_flat, m,
+                                         grad_dtype),
+    )
+
+
+# ------------------------------------------------------------ two-point eval
+
+def stacked_two_point_eval(layout: FlatLayout, params, pts, batch, m: int,
+                           vgrad_per):
+    """Fresh and second gradients from ONE vmapped call: the 2-way eval axis
+    is an outer vmap level over which the batch is broadcast, not copied.
+    Returns (losses, fresh, second) with the planes packed."""
+    stacked = tree_map(
+        lambda p, w: torch.stack([p.expand((m,) + p.shape), w.to(p.dtype)]),
+        params, pts)
+    losses2, grads2 = torch.func.vmap(vgrad_per, in_dims=(0, None))(
+        stacked, batch)
+    fresh = layout.pack_worker(tree_map(lambda g: g[0], grads2))
+    second = layout.pack_worker(tree_map(lambda g: g[1], grads2))
+    return losses2[0], fresh, second
+
+
+def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
+                   batch, m: int, *, vgrad, vgrad_per=None,
+                   fuse_evals: bool = False):
+    """The two-point eval dispatch. Returns ``(losses, fresh, second)``
+    packed planes (``second`` is None for single-eval rules).
+
+    The strategy's INDEXED family (``second_eval_indexed``) decides the
+    form: ``slot=None`` is the degenerate one-row ring, a point shared by
+    every worker (CADA1's snapshot), evaluated in the broadcast form; a real
+    slot vector gathers ``ring[slot]`` (R → M rows) and evaluates either
+    per worker (``vgrad_per``) or, with ``fuse_evals``, stacked onto the
+    fresh evaluation in one call (:func:`stacked_two_point_eval`).
+    """
+    indexed = strategy.second_eval_indexed(extras)
+    if indexed is None:
+        losses, fresh_tree = vgrad(params, batch)
+        return losses, layout.pack_worker(fresh_tree), None
+    ring, slot = indexed
+    if slot is None:
+        shared_pt = tree_map(lambda x: x[0], ring)
+        losses, fresh_tree = vgrad(params, batch)
+        _, second_tree = vgrad(shared_pt, batch)
+        return (losses, layout.pack_worker(fresh_tree),
+                layout.pack_worker(second_tree))
+    idx = slot.long()
+    pts = tree_map(lambda x: x.index_select(0, idx), ring)
+    if fuse_evals:
+        return stacked_two_point_eval(layout, params, pts, batch, m,
+                                      vgrad_per)
+    losses, fresh_tree = vgrad(params, batch)
+    _, second_tree = vgrad_per(pts, batch)
+    return (losses, layout.pack_worker(fresh_tree),
+            layout.pack_worker(second_tree))
+
+
+# ------------------------------------------------------------- shared round
+
+def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
+                    params, params_flat, batch, k: int, *, vgrad,
+                    vgrad_per: Callable | None = None,
+                    fuse_evals: bool = True, impl=None,
+                    participation=None) -> FlatCommRoundResult:
+    """One communication round of Algorithm 1 (lines 4-15) on flat buffers.
+
+    ``participation`` ((M,) bool or None) models partial participation: a
+    non-participating worker never uploads this round, not even when its
+    staleness is capped, and its staleness keeps growing.
+    """
+    r = strategy.rule
+    m = comm.staleness.shape[0]
+
+    # Line 4 (rule-owned): e.g. CADA1 snapshot refresh every D iterations.
+    extras = strategy.flat_pre_step(comm.extras, params, params_flat, k)
+
+    # Lines 6/8: fresh gradients at θ^k, plus the rule's second evaluation.
+    losses, fresh, second = eval_two_point(
+        strategy, layout, extras, params, batch, m, vgrad=vgrad,
+        vgrad_per=vgrad_per, fuse_evals=fuse_evals)
+    ctx = FlatCommContext(params=params, fresh=fresh, second=second,
+                          comm=comm._replace(extras=extras), step=k, m=m,
+                          impl=impl)
+
+    # Lines 7/9: rule LHS vs the shared recent-progress RHS.
+    lhs, cache = strategy.flat_lhs(ctx, extras)
+    rhs = r.rhs(comm.diff_hist)
+    # Line 10: upload if the condition is VIOLATED or staleness capped.
+    upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
+    if participation is not None:
+        upload = upload & participation
+
+    # Eq. (3): innovation delta, masked wire and aggregation, whole planes.
+    wg32 = comm.worker_grads.float()
+    delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
+    wire = torch.where(upload[:, None], delta, 0.0).to(
+        comm.worker_grads.dtype)
+    # Order-fixed row accumulation: masked zero rows are exact no-ops.
+    nabla = (comm.nabla.float() + kops.eq3_row_mean(wire, m)).to(
+        comm.nabla.dtype)
+    worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
+
+    staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)
+    extras = strategy.flat_post_upload(extras, cache, upload, ctx)
+
+    uploads = upload.sum(dtype=torch.int32)
+    # offline workers evaluate nothing — charge grad evals to participants
+    n_active = (torch.tensor(m, dtype=torch.int32, device=upload.device)
+                if participation is None
+                else participation.sum(dtype=torch.int32))
+    metrics = {
+        "uploads": uploads,
+        "skip_rate": 1.0 - uploads.float() / n_active,
+        "upload_mask": upload,
+        "staleness": staleness,
+        "rhs": rhs,
+        "lhs": lhs,
+        "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
+        "max_staleness": staleness.max(),
+        "grad_evals": n_active * strategy.grad_evals_per_iter,
+        "bytes_up": uploads.float() * strategy.bytes_per_upload(layout.n),
+    }
+    new_comm = FlatCommState(nabla=nabla, worker_grads=worker_grads,
+                             staleness=staleness, diff_hist=comm.diff_hist,
+                             extras=extras)
+    return FlatCommRoundResult(losses=losses, comm=new_comm, upload=upload,
+                               metrics=metrics)
+
+
+def record_progress(comm: FlatCommState, dtheta_sq, k: int) -> FlatCommState:
+    """Push ||θ^{k+1} − θ^k||² into the RHS ring buffer (line 17's tail)."""
+    diff_hist = comm.diff_hist.clone()
+    diff_hist[k % diff_hist.shape[0]] = dtheta_sq
+    return comm._replace(diff_hist=diff_hist)
+
+
+def nabla_f32(comm: FlatCommState) -> torch.Tensor:
+    """∇^k, which drives the server update, as an fp32 flat buffer
+    (line 16)."""
+    return comm.nabla.float()

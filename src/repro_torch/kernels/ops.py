@@ -1,0 +1,56 @@
+"""Dispatch of the flat ops between a CUDA kernel and its plain version.
+
+A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``).
+A tensor on the card goes to the CUDA kernel (``kernels/cada_update.py``),
+which launches or raises: there is no fallback. ``impl="plain"`` forces the
+plain version on any device; it exists so a comparison on the card can run
+both, and the engine's main path never passes it. ``impl="kernel"`` asks
+for the kernel and raises on a CPU tensor.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import cada_update as _cu
+from repro_torch.kernels import ref as _ref
+
+IMPLS = (None, "plain", "kernel")
+
+
+def use_kernel(t, impl=None) -> bool:
+    """True where ``t`` goes to the CUDA kernel, False where to the plain
+    version; raises where neither applies."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "plain":
+        return False
+    if t.device.type == "cuda":
+        return True
+    if impl == "kernel":
+        raise RuntimeError(f"impl='kernel' needs a CUDA tensor, got one on "
+                           f"{t.device}")
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain route for device {t.device}")
+
+
+def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
+                       eps=1e-8, impl=None):
+    """Fused AMSGrad/CADA step over (n,) buffers of any length:
+    (θ', h', v̂', Σupd²). Moments keep their storage dtype."""
+    f = (_cu.fused_amsgrad_flat if use_kernel(theta, impl)
+         else _ref.amsgrad_ref)
+    return f(theta, h, vhat, grad, lr, b1=b1, b2=b2, eps=eps)
+
+
+def batched_diff_sq_norm(a, b, *, impl=None):
+    """(R,) per-row ||a_r − b_r||² over (R, n) planes (the rule LHS for all
+    workers in one pass). A row's value depends on neither R nor any other
+    row."""
+    if use_kernel(a, impl):
+        return _cu.batched_diff_sq_norm_flat(a, b)
+    return _ref.batched_diff_sq_norm_ref(a, b)
+
+
+def eq3_row_mean(plane, m_total: int):
+    """Eq. (3) aggregate increment, order-fixed (see ``ref.eq3_row_mean_ref``).
+    The same plain loop runs on both devices until its kernel is ported."""
+    return _ref.eq3_row_mean_ref(plane, m_total)

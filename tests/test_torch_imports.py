@@ -1,0 +1,100 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro``."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + SCRIPTS
+
+
+def _modules():
+    mods = []
+    for f in sorted(PORT.rglob("*.py")):
+        parts = f.relative_to(ROOT / "src").with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _refused(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_no_jax_or_repro_import_in_the_source():
+    """Every import statement of the port and its scripts, read from the
+    syntax tree."""
+    for f in _port_files():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad = [n for n in names if _refused(n)]
+            where = f"{f.relative_to(ROOT)}:{node.lineno}"
+            assert not bad, f"{where} imports {bad}"
+
+
+def test_every_module_imports_with_jax_and_repro_refused():
+    """In a fresh interpreter whose import hook refuses jax, jaxlib and
+    repro (but not repro_torch), every port module and both scripts import.
+    The scripts are imported as modules, so their ``__main__`` code does not
+    run."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.util, sys
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError("refused: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path.insert(0, {str(ROOT / "src")!r})
+        for mod in {_modules()!r}:
+            importlib.import_module(mod)
+        for i, path in enumerate({[str(s) for s in SCRIPTS]!r}):
+            spec = importlib.util.spec_from_file_location(f"script{{i}}", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not loaded, loaded
+        print("ok", len({_modules()!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
+        tmp_path):
+    """chip_smoke.py exits non-zero with no result line when it finds no
+    CUDA device, and when it is alone in a directory without the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,83 @@
+"""The port's ``CommRule`` against the reference's, and its refusal of the
+rule kinds and options that are not ported yet."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.rules import CommRule as JaxRule
+from repro_torch.core import comm
+from repro_torch.core.rules import CommRule
+
+torch.set_num_threads(1)
+
+BAD = [
+    dict(kind="nope"), dict(d_max=0), dict(max_delay=0), dict(c=-1.0),
+    dict(quantize_bits=1), dict(quantize_bits=32), dict(topk_frac=0.0),
+    dict(topk_frac=1.5), dict(period_min=0), dict(period_max=-1),
+    dict(period_min=5, period_max=3), dict(local_steps=0),
+    dict(local_lr=0.0), dict(local_beta=1.0), dict(server_lr=0.0),
+    dict(local_steps_min=0), dict(local_steps_min=4, local_steps_max=2),
+    dict(kind="cada2", local_steps=2),
+    dict(kind="lag", adapt_local_steps=True),
+]
+GOOD = [dict(), dict(kind="always"), dict(kind="lag", c=1.8, d_max=2),
+        dict(kind="cada1", max_delay=1), dict(kind="cinn", quantize_bits=4),
+        dict(kind="avp", period_min=2, period_max=9),
+        dict(kind="fedadam", local_steps=4, adapt_local_steps=True)]
+
+
+def test_same_fields_and_defaults():
+    ours = [(f.name, f.default) for f in dataclasses.fields(CommRule)]
+    ref = [(f.name, f.default) for f in dataclasses.fields(JaxRule)]
+    assert ours == ref
+
+
+@pytest.mark.parametrize("kw", BAD, ids=lambda kw: repr(kw))
+def test_same_value_errors(kw):
+    with pytest.raises(ValueError) as ref_err:
+        JaxRule(**kw)
+    with pytest.raises(ValueError) as our_err:
+        CommRule(**kw)
+    assert str(our_err.value) == str(ref_err.value)
+
+
+@pytest.mark.parametrize("kw", GOOD, ids=lambda kw: repr(kw))
+def test_same_accepted_rules(kw):
+    assert dataclasses.asdict(CommRule(**kw)) == dataclasses.asdict(
+        JaxRule(**kw))
+    assert CommRule(**kw).resolved_period_max == \
+        JaxRule(**kw).resolved_period_max
+    assert CommRule(**kw).resolved_local_steps_max == \
+        JaxRule(**kw).resolved_local_steps_max
+
+
+def test_rhs_matches_reference():
+    import jax.numpy as jnp
+    hist = np.array([0.25, 1e-3, 7.5], np.float32)
+    rule_kw = dict(c=0.6, d_max=3)
+    ours = CommRule(**rule_kw).rhs(torch.from_numpy(hist))
+    ref = JaxRule(**rule_kw).rhs(jnp.asarray(hist))
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(float(ours), float(ref), rtol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["always", "lag", "cada1", "cada2"])
+def test_ported_kinds_build_their_strategy(kind):
+    rule = CommRule(kind=kind)
+    s = comm.strategy_for(rule)
+    assert s.kind == kind and s.rule is rule
+    assert rule.grad_evals_per_iter == JaxRule(kind=kind).grad_evals_per_iter
+
+
+@pytest.mark.parametrize("kind", ["cinn", "laq", "topk", "avp",
+                                  "local_momentum", "fedadam"])
+def test_unported_kinds_are_refused_by_name(kind):
+    with pytest.raises(ValueError, match="not yet ported"):
+        comm.strategy_for(CommRule(kind=kind))
+
+
+def test_quantized_wire_is_refused():
+    with pytest.raises(ValueError, match="not yet ported"):
+        comm.strategy_for(CommRule(kind="cada2", quantize_bits=8))
