@@ -2,7 +2,8 @@
 
 Ten workers with heterogeneous (label-skewed) data fit a logistic
 regression. CADA2 skips the uninformative uploads; distributed Adam uploads
-every worker every step. Runs on the card by default:
+every worker every step; LAQ gates on the energy of an 8-bit quantized
+innovation and sends 8 bits per entry. Runs on the card by default:
 
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 """
@@ -29,6 +30,8 @@ def main(device=None) -> None:
         ("distributed Adam", CommRule(kind="always")),
         ("CADA2           ", CommRule(kind="cada2", c=0.6, d_max=10,
                                       max_delay=100)),
+        ("LAQ, 8-bit wire ", CommRule(kind="laq", c=0.6, d_max=10,
+                                      max_delay=100)),
     ]:
         engine = CADAEngine(logreg_loss, FusedAMSGrad(lr=0.01), rule,
                             n_workers=M, device=device)
@@ -39,8 +42,10 @@ def main(device=None) -> None:
         state, metrics = engine.run(state, batches)
         loss = float(metrics["loss"][-20:].mean())
         uploads = int(metrics["uploads"].sum())
+        sent = float(metrics["bytes_up"].sum())
         print(f"{name}  final loss {loss:.4f}   worker uploads "
-              f"{uploads:5d} / {ITERS * M}   ({engine.device})")
+              f"{uploads:5d} / {ITERS * M}   {sent / 1e3:7.1f} kB up   "
+              f"({engine.device})")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.core.flat import FlatCommState
 from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamState
 from repro_torch.optim.fused import FusedState
+from repro_torch.optim.sgd import MomentumState
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -34,18 +36,36 @@ def params_from_numpy(tree, device=None):
     return tensor_from_numpy(tree, device)
 
 
+def opt_state_from_numpy(opt, device=None):
+    """A server-optimizer state of the JAX package (numpy leaves) as the
+    port's, read by field names: ``FusedState`` (count, h, vhat),
+    ``AdamState`` (count, h, v, vhat), ``MomentumState`` (count, momentum),
+    or SGD's bare step count."""
+    device = resolve_device(device)
+    fields = getattr(opt, "_fields", None)
+    if fields is None:
+        return int(opt)
+    tree = {f: getattr(opt, f) for f in fields if f != "count"}
+    kind = {("count", "h", "vhat"): FusedState,
+            ("count", "h", "v", "vhat"): AdamState,
+            ("count", "momentum"): MomentumState}.get(tuple(fields))
+    if kind is None:
+        raise ValueError(f"unknown optimizer state with fields {fields}")
+    return kind(count=int(opt.count), **params_from_numpy(tree, device))
+
+
 def engine_state_from_numpy(state, device=None) -> EngineState:
     """The JAX engine's flat-plane ``EngineState`` (numpy leaves) as the
-    port's :class:`EngineState`, ``FlatCommState`` extras included (CADA1's
-    snapshot and δ̃ plane, CADA2's ring, slots and versions)."""
+    port's :class:`EngineState`: the server optimizer's state, and the
+    ``FlatCommState`` with every rule's extras (CADA1's snapshot and δ̃
+    plane, CADA2's ring, slots and versions, laq/topk's residual, avp's
+    periods)."""
     device = resolve_device(device)
-    opt, comm = state.opt_state, state.comm
+    comm = state.comm
     return EngineState(
         step=int(state.step),
         params=params_from_numpy(state.params, device),
-        opt_state=FusedState(count=int(opt.count),
-                             h=tensor_from_numpy(opt.h, device),
-                             vhat=tensor_from_numpy(opt.vhat, device)),
+        opt_state=opt_state_from_numpy(state.opt_state, device),
         comm=FlatCommState(
             nabla=tensor_from_numpy(comm.nabla, device),
             worker_grads=tensor_from_numpy(comm.worker_grads, device),

@@ -3,33 +3,58 @@
 A :class:`CommStrategy` subclass owns what is specific to one rule: its
 extra state (:meth:`~CommStrategy.init_flat_extras`), its LHS given fresh
 gradients (:meth:`~CommStrategy.flat_lhs`), its post-upload transition
-(:meth:`~CommStrategy.flat_post_upload`) and its accounting.
-:func:`repro_torch.core.flat.flat_comm_round` owns what every rule shares.
+(:meth:`~CommStrategy.flat_post_upload`), its wire format
+(:meth:`~CommStrategy.flat_wire_delta`, :meth:`~CommStrategy.flat_sparse_wire`)
+and its accounting. :func:`repro_torch.core.flat.flat_comm_round` owns what
+every rule shares.
 
   ==========  =======================  ====================================
   eq. (5)     :class:`LAGStrategy`     naive stochastic LAG (§2.1 baseline)
   eq. (7)     :class:`CADA1Strategy`   SVRG-style snapshot innovation
   eq. (10)    :class:`CADA2Strategy`   same-sample two-iterate difference
   —           :class:`AlwaysStrategy`  threshold never satisfied ⇒ Adam
+  beyond      :class:`CompressedInnovationStrategy`  quantized-innovation
+  paper                                gating (``cinn``)
+  beyond      :class:`LAQStrategy`     LAQ: error-feedback residual +
+  paper                                quantized wire
+  beyond      :class:`TopKStrategy`    top-k sparsified innovation with
+  paper                                error feedback
+  beyond      :class:`AVPStrategy`     per-worker variance-adaptive upload
+  paper                                period
   ==========  =======================  ====================================
 
-The reference's other kinds (cinn, laq, topk, avp and the delta-payload
-rules) and its b-bit wire quantizer are not ported yet:
-:func:`strategy_for` refuses them by name.
+``quantize_bits`` puts the b-bit wire quantizer under any kind. The
+reference's delta-payload rules (``local_momentum``, ``fedadam``) are not
+ported yet: :func:`strategy_for` refuses them by name.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.flat import tree_map
-from repro_torch.core.rules import CommRule
+from repro_torch.core.flat import (per_worker_quantize_dequantize_flat,
+                                   per_worker_topk_extract_flat,
+                                   per_worker_topk_sparsify_flat)
+from repro_torch.core.quantize import ef_correct, ef_residual, topk_count
+from repro_torch.core.rules import CommRule, LOCAL_RULES
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.trees import tree_map
+
+
+def adapt_period(period, grow, p_min, p_max):
+    """Integer cadence adaptation: ±1, clipped to [p_min, p_max], int32.
+    avp's per-worker upload periods GROW while the innovation energy stays
+    under the shared RHS and shrink when it clears it."""
+    period = torch.as_tensor(period, dtype=torch.int32)
+    nxt = torch.where(grow, period + 1, period - 1)
+    return torch.clamp(nxt, p_min, p_max).to(torch.int32)
 
 
 class CommStrategy:
     """Base class: one instance per rule. Defaults: no extra state, no
-    second evaluation, the raw innovation on the wire at 32 bits per entry,
-    one gradient evaluation per iteration."""
+    second evaluation, the innovation on the wire at 32 bits per entry (or
+    at ``quantize_bits``), one gradient evaluation per iteration."""
 
     kind: str = "?"
     #: worker-side gradient evaluations per iteration (paper §2.2)
@@ -76,14 +101,45 @@ class CommStrategy:
         del cache, upload, ctx
         return extras
 
-    def flat_wire_delta(self, ctx, extras: dict, cache, delta):
-        """The innovation that rides the wire: the raw fp32 δ (the b-bit
-        quantizer of the reference is not ported yet)."""
-        del ctx, extras, cache
+    def transform_delta_flat(self, layout, delta):
+        """Wire format of the uploaded innovation on the (M, n_flat) plane:
+        the b-bit round trip at :attr:`bits_per_entry` below 32 (one scale
+        per worker and leaf segment), else the raw δ. Both sides apply it,
+        so the server's stale worker copies stay what each worker sent."""
+        if self.bits_per_entry < 32:
+            return per_worker_quantize_dequantize_flat(
+                layout, delta, self.bits_per_entry)
         return delta
 
+    def flat_wire_delta(self, ctx, extras: dict, cache, delta):
+        """The innovation that rides the wire, given the raw fp32
+        δ = fresh − stale. Rules whose LHS already compressed the plane
+        return their cache instead."""
+        del extras, cache
+        return self.transform_delta_flat(ctx.layout, delta)
+
+    def flat_sparse_wire(self, ctx, extras: dict, cache, delta):
+        """An optional true sparse wire, ((M, K) values, (M, K) int64 flat
+        positions), that replaces the dense plane on the wire; None (the
+        default) keeps the dense wire."""
+        del ctx, extras, cache, delta
+        return None
+
+    #: wire width when ``quantize_bits`` is 0; below 32 the wire is quantized
+    default_bits: int = 32
+
+    @property
+    def bits_per_entry(self) -> int:
+        return self.rule.quantize_bits or self.default_bits
+
     def bytes_per_upload(self, n_params: int) -> float:
-        return n_params * 32 / 8.0
+        return n_params * self.bits_per_entry / 8.0
+
+    @property
+    def wire_format(self) -> str:
+        """``dense``, ``quantized`` or ``sparse``: which ledger bucket the
+        rule's uploads fill."""
+        return "quantized" if self.bits_per_entry < 32 else "dense"
 
 
 STRATEGIES: dict[str, type[CommStrategy]] = {}
@@ -99,14 +155,16 @@ def strategy_kinds() -> tuple[str, ...]:
 
 
 def strategy_for(rule: CommRule) -> CommStrategy:
-    if rule.kind not in STRATEGIES:
+    if rule.kind in LOCAL_RULES:
         raise ValueError(
-            f"rule kind {rule.kind!r} is not yet ported to repro_torch; "
-            f"ported: {strategy_kinds()}")
-    if rule.quantize_bits:
-        raise ValueError("quantize_bits (the b-bit wire quantizer) is not "
-                         "yet ported to repro_torch")
-    return STRATEGIES[rule.kind](rule)
+            f"rule kind {rule.kind!r} (a delta-payload rule) is not yet "
+            f"ported to repro_torch; ported: {strategy_kinds()}")
+    try:
+        return STRATEGIES[rule.kind](rule)
+    except KeyError:
+        raise ValueError(
+            f"no communication strategy registered for kind={rule.kind!r}; "
+            f"known: {strategy_kinds()}") from None
 
 
 @register
@@ -236,3 +294,148 @@ class CADA2Strategy(CommStrategy):
                 "ring": ring,
                 "slot": torch.where(upload, s.to(slot.dtype), slot),
                 "ring_version": version}
+
+
+@register
+class CompressedInnovationStrategy(CommStrategy):
+    """Beyond-paper: compressed-innovation gating. The worker quantizes its
+    innovation δ_m to ``quantize_bits`` (default 8) and uploads when the
+    quantized innovation carries enough energy: ||Q_b(δ_m)||² > RHS. The
+    quantized plane computed for the gate IS the wire (the cache), so the
+    round quantizes once; uploads are charged at b bits per entry."""
+    kind = "cinn"
+    default_bits = 8
+
+    def flat_lhs(self, ctx, extras):
+        innovation = ctx.fresh - ctx.comm.worker_grads.float()
+        q = self.transform_delta_flat(ctx.layout, innovation)
+        return kops.batched_sq_norm(q, impl=ctx.impl), q
+
+    def flat_wire_delta(self, ctx, extras, cache, delta):
+        del delta  # cache IS Q_b(δ) of this round's innovation
+        return cache
+
+
+class ErrorFeedbackStrategy(CommStrategy):
+    """Shared scaffolding of the explicit-residual compressed-upload rules:
+    wire = C(δ_m + e_m), gate = ||wire||², residual transition on upload.
+    Subclasses supply the compressor (:meth:`_compress_flat`) and their
+    accounting. ``error_feedback=False`` allocates no residual plane."""
+
+    def _compress_flat(self, layout, corrected):
+        raise NotImplementedError
+
+    def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
+        if not self.rule.error_feedback:
+            return {}
+        return {"residual": torch.zeros((m, layout.n_flat), dtype=grad_dtype,
+                                        device=params_flat.device)}
+
+    def flat_lhs(self, ctx, extras):
+        delta = ctx.fresh - ctx.comm.worker_grads.float()
+        corrected = (ef_correct(delta, extras["residual"])
+                     if self.rule.error_feedback else delta)
+        wire = self._compress_flat(ctx.layout, corrected)
+        return kops.batched_sq_norm(wire, impl=ctx.impl), (wire, corrected)
+
+    def flat_wire_delta(self, ctx, extras, cache, delta):
+        del delta
+        return cache[0]
+
+    def flat_post_upload(self, extras, cache, upload, ctx):
+        if not self.rule.error_feedback:
+            return extras
+        wire, corrected = cache
+        return {**extras,
+                "residual": ef_residual(corrected, wire, upload,
+                                        extras["residual"])}
+
+
+@register
+class LAQStrategy(ErrorFeedbackStrategy):
+    """Beyond-paper: LAQ — lazy uploads with a b-bit quantized wire
+    Q_b(δ_m + e_m) and an error-feedback residual e_m. The gate is the
+    wire's energy; on upload e_m ← (δ_m + e_m) − Q_b(δ_m + e_m), on skip e_m
+    is carried. Uploads are charged at b (default 8) bits per entry."""
+    kind = "laq"
+    default_bits = 8
+
+    def _compress_flat(self, layout, corrected):
+        return self.transform_delta_flat(layout, corrected)
+
+
+@register
+class TopKStrategy(ErrorFeedbackStrategy):
+    """Beyond-paper: top-k sparsified innovation with error feedback. The
+    wire keeps the ⌈topk_frac·size⌉ largest-magnitude entries of δ_m + e_m
+    per (worker, leaf), optionally quantized to ``quantize_bits``; the
+    dropped mass lands in e_m. With ``sparse_wire`` the round ships the
+    (values, indices) pairs instead of the dense masked plane.
+
+    Accounting is SPARSE: an upload costs k·(value_bits + ⌈log₂ n⌉) bits
+    with k = ⌈topk_frac·n⌉ and value_bits = ``quantize_bits`` or 32."""
+    kind = "topk"
+
+    def _compress_flat(self, layout, corrected):
+        sparse = per_worker_topk_sparsify_flat(layout, corrected,
+                                               self.rule.topk_frac)
+        return self.transform_delta_flat(layout, sparse)
+
+    def flat_sparse_wire(self, ctx, extras, cache, delta):
+        del extras, delta
+        if not self.rule.sparse_wire or self.rule.topk_frac >= 1.0:
+            return None
+        return per_worker_topk_extract_flat(ctx.layout, cache[0],
+                                            self.rule.topk_frac)
+
+    def bytes_per_upload(self, n_params: int) -> float:
+        k = topk_count(n_params, self.rule.topk_frac)
+        index_bits = (max(1, math.ceil(math.log2(n_params)))
+                      if n_params > 1 else 1)
+        return k * (self.bits_per_entry + index_bits) / 8.0
+
+    @property
+    def wire_format(self) -> str:
+        return "sparse"
+
+
+@register
+class AVPStrategy(CommStrategy):
+    """Beyond-paper: variance-adaptive upload period. Each worker keeps an
+    int32 period p_m ∈ [period_min, resolved_period_max] and uploads when
+    its staleness reaches p_m (the max-staleness cap still applies). After
+    each round p_m shrinks by one while the innovation energy ||δ_m||²
+    exceeds the shared RHS, else it grows by one. ``avp_compose`` makes the
+    LHS the energy where the worker is due (−∞ otherwise): it then uploads
+    only when due AND over the RHS. A worker that sat the round out keeps
+    its period."""
+    kind = "avp"
+
+    def _adapt(self, period, energy, diff_hist):
+        r = self.rule
+        return adapt_period(period, ~(energy > r.rhs(diff_hist)),
+                            r.period_min, r.resolved_period_max)
+
+    def _gate(self, staleness, period, energy):
+        due = staleness >= period
+        if self.rule.avp_compose:
+            return torch.where(due, energy, -torch.inf).float()
+        return torch.where(due, torch.inf, -torch.inf).float()
+
+    def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
+        return {"period": torch.full((m,), self.rule.period_min,
+                                     dtype=torch.int32,
+                                     device=params_flat.device)}
+
+    def flat_lhs(self, ctx, extras):
+        energy = kops.batched_diff_sq_norm(
+            ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl)
+        return self._gate(ctx.comm.staleness, extras["period"],
+                          energy), energy
+
+    def flat_post_upload(self, extras, energy, upload, ctx):
+        period = self._adapt(extras["period"], energy, ctx.comm.diff_hist)
+        if ctx.participation is not None:
+            period = torch.where(ctx.participation, period,
+                                 extras["period"])
+        return {**extras, "period": period}

@@ -4,14 +4,17 @@ flat plane.
 A (virtual) server and M workers: worker gradients are a ``torch.func.vmap``
 over the worker axis of ``grad_and_value(loss_fn)``, the communication
 round is :func:`repro_torch.core.flat.flat_comm_round`, and the server step
-is the fused AMSGrad kernel, whose free ||Δθ||² feeds the RHS ring.
+is the fused AMSGrad kernel, whose free ||Δθ||² feeds the RHS ring, or any
+protocol optimizer (``optim/sgd.py``, ``optim/adam.py``: the paper runs
+its LAG baseline on SGD), for which ∇ is unpacked to fp32 leaves and
+||Δθ||² is the sum of the updates' squares in the reference's leaf order.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no ``device`` it raises.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -20,13 +23,15 @@ from repro_torch.core.comm import strategy_for
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import IMPLS
-from repro_torch.optim.fused import FusedAMSGrad, FusedState
+from repro_torch.optim.base import Optimizer, apply_updates
+from repro_torch.optim.fused import FusedAMSGrad
+from repro_torch.utils.trees import tree_map, tree_sq_norm
 
 
 class EngineState(NamedTuple):
     step: int                    # k
     params: dict                 # θ^k (server copy, dict form)
-    opt_state: FusedState        # server-optimizer state
+    opt_state: Any               # server-optimizer state
     comm: F.FlatCommState
     params_flat: torch.Tensor    # θ^k packed fp32
 
@@ -36,8 +41,9 @@ class CADAEngine:
 
     Args:
       loss_fn: scalar loss ``loss_fn(params, (x, y))`` for ONE worker batch.
-      optimizer: the server optimizer, :class:`FusedAMSGrad` (the paper's
-        AMSGrad form). Default ``FusedAMSGrad(lr=1e-3)``.
+      optimizer: the server optimizer: :class:`FusedAMSGrad` (the paper's
+        AMSGrad form, one kernel) or a protocol :class:`Optimizer` such as
+        ``sgd(0.05)`` or ``adam()``. Default ``FusedAMSGrad(lr=1e-3)``.
       rule: the communication rule (a kind ported in core/comm.py).
       n_workers: M.
       fuse_evals: stack the rule's per-worker second gradient evaluation
@@ -48,7 +54,7 @@ class CADAEngine:
     """
 
     def __init__(self, loss_fn: Callable,
-                 optimizer: FusedAMSGrad | None = None,
+                 optimizer: FusedAMSGrad | Optimizer | None = None,
                  rule: CommRule | None = None, n_workers: int = 1, *,
                  fuse_evals: bool | None = None, impl=None, device=None):
         self.device = resolve_device(device)
@@ -56,10 +62,10 @@ class CADAEngine:
         self.rule = CommRule() if rule is None else rule
         self.strategy = strategy_for(self.rule)
         optimizer = FusedAMSGrad(lr=1e-3) if optimizer is None else optimizer
-        if not isinstance(optimizer, FusedAMSGrad):
-            raise TypeError("the flat-plane engine takes a FusedAMSGrad "
-                            "server optimizer (protocol optimizers are not "
-                            "ported yet)")
+        self._fused_opt = isinstance(optimizer, FusedAMSGrad)
+        if not (self._fused_opt or isinstance(optimizer, Optimizer)):
+            raise TypeError(f"optimizer must be a FusedAMSGrad or an "
+                            f"Optimizer, got {type(optimizer).__name__}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.optimizer = optimizer
@@ -78,7 +84,7 @@ class CADAEngine:
 
     # ------------------------------------------------------------- state
     def init(self, params: dict) -> EngineState:
-        params = F.tree_map(lambda p: p.to(self.device), params)
+        params = tree_map(lambda p: p.to(self.device), params)
         layout = F.layout_of(params)
         self._layout = layout
         params_flat = layout.pack(params)
@@ -88,8 +94,9 @@ class CADAEngine:
         return EngineState(
             step=0,
             params=params,
-            opt_state=self.optimizer.init_flat(layout.n_flat,
-                                               device=self.device),
+            opt_state=(self.optimizer.init_flat(layout.n_flat,
+                                                device=self.device)
+                       if self._fused_opt else self.optimizer.init(params)),
             comm=F.init_flat_comm_state(self.strategy, layout, params,
                                         self.m, grad_dtype=grad_dtype,
                                         params_flat=params_flat),
@@ -117,13 +124,23 @@ class CADAEngine:
             vgrad_per=self._vgrad_per, fuse_evals=self._fuse_evals,
             impl=self._impl, participation=participation)
 
-        # Lines 16-17: server AMSGrad step driven by ∇^k (eqs. 2a-2c).
-        theta, opt_state, dsq = self.optimizer.apply_flat(
-            state.params_flat, state.opt_state, F.nabla_f32(out.comm),
-            impl=self._impl)
-        theta = layout.cast_roundtrip(theta)
+        # Lines 16-17: server step driven by ∇^k (eqs. 2a-2c).
+        nabla = F.nabla_f32(out.comm)
+        if self._fused_opt:
+            theta, opt_state, dsq = self.optimizer.apply_flat(
+                state.params_flat, state.opt_state, nabla, impl=self._impl)
+            theta = layout.cast_roundtrip(theta)
+            params = layout.unpack(theta)
+        else:
+            grads = layout.unpack(nabla,
+                                  dtypes=(torch.float32,) * len(layout.dtypes))
+            updates, opt_state = self.optimizer.update(
+                grads, state.opt_state, state.params)
+            params = apply_updates(state.params, updates)
+            dsq = tree_sq_norm(updates)
+            theta = layout.pack(params)
         comm = F.record_progress(out.comm, dsq, k)
-        new_state = EngineState(step=k + 1, params=layout.unpack(theta),
+        new_state = EngineState(step=k + 1, params=params,
                                 opt_state=opt_state, comm=comm,
                                 params_flat=theta)
         return new_state, {"loss": out.losses.mean(), **out.metrics}

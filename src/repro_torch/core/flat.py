@@ -10,8 +10,11 @@ buffers instead of per-leaf dicts (the dense part of the JAX package's
   * :class:`FlatCommState` — the Algorithm-1 communication state with ∇ as
     one (n_flat,) buffer and every per-worker quantity as one (M, n_flat)
     plane;
+  * the flat wire compressors: the b-bit quantizer with one scale per
+    (worker, leaf segment), exact top-k per segment, and the (values,
+    indices) sparse wire with its server-side scatter;
   * :func:`flat_comm_round` — one round of Algorithm 1 (lines 4-15) as
-    whole-plane ops, the rule LHS norms through the batched kernel.
+    whole-plane ops, the rule LHS norms through the batched kernels.
 
 Rule-specific behaviour lives in the strategy objects of
 :mod:`repro_torch.core.comm`. State is never updated in place: every round
@@ -19,50 +22,23 @@ returns new tensors, so a state may be kept and stepped again.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import (keep_where, round_trip, topk_count,
+                                       topk_indices, topk_threshold_mask)
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
+                                     tree_unflatten)
 
 # Minimal flat-buffer alignment (the reference's PAD_ALIGN): every row of an
 # (M, n_flat) plane starts 32-byte aligned in fp32.
 PAD_ALIGN = 8
-
-
-# ------------------------------------------------------------ dict trees
-
-def tree_paths(tree, prefix=()) -> list[tuple]:
-    """Key paths of a nested dict's leaves, keys sorted at every level."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in tree_paths(tree[k],
-                                                            prefix + (k,))]
-    return [prefix]
-
-
-def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
-
-
-def tree_map(f, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: tree_map(f, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return f(tree, *rest)
-
-
-def tree_unflatten(paths, leaves) -> dict:
-    out: dict = {}
-    for path, leaf in zip(paths, leaves):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
 
 
 # ------------------------------------------------------------------- layout
@@ -135,6 +111,93 @@ def layout_of(tree, align: int = PAD_ALIGN) -> FlatLayout:
                       n_flat=max(n_flat, align))
 
 
+# --------------------------------------------------------- wire compressors
+
+def _segment_ids(layout: FlatLayout) -> np.ndarray:
+    """(n_flat,) int64 leaf-segment id per buffer position; the padding
+    tail is its own trailing segment ``len(sizes)``."""
+    ids = np.full((layout.n_flat,), len(layout.sizes), np.int64)
+    for i, (o, s) in enumerate(zip(layout.offsets, layout.sizes)):
+        ids[o:o + s] = i
+    return ids
+
+
+@functools.lru_cache(maxsize=16)
+def _segment_ids_on(layout: FlatLayout, device: torch.device) -> torch.Tensor:
+    """:func:`_segment_ids` as a tensor on ``device``, built once per
+    (layout, device) so a round copies nothing to the card."""
+    return torch.from_numpy(_segment_ids(layout)).to(device)
+
+
+def per_worker_quantize_dequantize_flat(layout: FlatLayout, buf, bits: int):
+    """Flat-plane twin of ``quantize.per_worker_quantize_dequantize``: b-bit
+    symmetric uniform round trip with one max-abs scale per (worker, leaf
+    segment), bit-identical to the dict form (a max is exact). One row-max
+    per segment (a scatter-max onto the (M, segments) scales would contend
+    on a few dozen outputs) and one gather spreads the scales back; the
+    padding tail passes through untouched."""
+    if bits <= 0 or bits >= 32:
+        return buf
+    levels = float(2 ** (bits - 1) - 1)
+    n_seg = len(layout.sizes)
+    seg = _segment_ids_on(layout, buf.device)
+    mag = buf.float().abs()
+    ones = torch.ones((buf.shape[0],), dtype=torch.float32, device=buf.device)
+    # the padding tail's column is never used: its entries pass through
+    seg_max = torch.stack(
+        [mag[:, o:o + s].amax(dim=1) if s else ones
+         for o, s in zip(layout.offsets, layout.sizes)] + [ones], dim=1)
+    scale = torch.clamp_min(seg_max, 1e-12)[:, seg]       # (M, n_flat)
+    deq = round_trip(buf, scale, levels)
+    if layout.n_flat > layout.n:
+        deq = torch.where(seg < n_seg, deq, buf)
+    return deq
+
+
+def per_worker_topk_sparsify_flat(layout: FlatLayout, buf, frac: float):
+    """Flat-plane twin of ``quantize.per_worker_topk_sparsify``: keep
+    EXACTLY the top-⌈frac·size⌉ largest-|x| entries per (worker, leaf
+    segment), ties to the lower index, zero the rest: the same selection
+    over the same entries in the same order as the dict form. The padding
+    tail passes through untouched."""
+    if frac >= 1.0:
+        return buf
+    parts = []
+    for o, s in zip(layout.offsets, layout.sizes):
+        seg = buf[:, o:o + s]
+        parts.append(keep_where(topk_threshold_mask(seg.float(),
+                                                    topk_count(s, frac)),
+                                seg))
+    if layout.n_flat > layout.n:
+        parts.append(buf[:, layout.n:])
+    return torch.cat(parts, dim=1)
+
+
+def per_worker_topk_extract_flat(layout: FlatLayout, plane, frac: float):
+    """The top-k SPARSE WIRE of an (M, n_flat) sparsified plane: ((M, K)
+    fp32 values, (M, K) int64 global flat positions) with
+    K = Σ_seg ⌈frac·size_seg⌉. It selects exactly the support the exact-k
+    mask kept, so :func:`sparse_rows_to_dense` rebuilds the plane bit for
+    bit. (The reference's positions are int32; a torch scatter takes
+    int64.)"""
+    vparts, iparts = [], []
+    for o, s in zip(layout.offsets, layout.sizes):
+        seg = plane[:, o:o + s].float()
+        idx = topk_indices(seg, topk_count(s, frac))
+        vparts.append(torch.gather(seg, 1, idx))
+        iparts.append(idx + o)
+    return torch.cat(vparts, dim=1), torch.cat(iparts, dim=1)
+
+
+def sparse_rows_to_dense(idx, vals, n_flat: int) -> torch.Tensor:
+    """Scatter per-worker (values, indices) wire pairs back onto a dense
+    (M, n_flat) plane (the server side of the sparse collective). Indices
+    are distinct per row, so the add (the reference's ``.at[].add``, which
+    turns a −0.0 value into +0.0) sets each entry once."""
+    return torch.zeros((vals.shape[0], n_flat), dtype=vals.dtype,
+                       device=vals.device).scatter_add_(1, idx, vals)
+
+
 # -------------------------------------------------------------- comm state
 
 class FlatCommState(NamedTuple):
@@ -150,6 +213,7 @@ class FlatCommContext(NamedTuple):
     """What a strategy's flat hooks may consult. ``fresh`` is the packed
     (M, n_flat) fp32 fresh-gradient plane; ``second`` the packed gradients
     at the strategy's second evaluation points (None if it has none)."""
+    layout: FlatLayout
     params: Any               # θ^k dict
     fresh: torch.Tensor
     second: torch.Tensor | None
@@ -157,6 +221,7 @@ class FlatCommContext(NamedTuple):
     step: int
     m: int
     impl: Any = None          # dispatch override of kernels/ops.py
+    participation: Any = None  # (M,) bool round-participation mask | None
 
 
 class FlatCommRoundResult(NamedTuple):
@@ -261,9 +326,10 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     losses, fresh, second = eval_two_point(
         strategy, layout, extras, params, batch, m, vgrad=vgrad,
         vgrad_per=vgrad_per, fuse_evals=fuse_evals)
-    ctx = FlatCommContext(params=params, fresh=fresh, second=second,
-                          comm=comm._replace(extras=extras), step=k, m=m,
-                          impl=impl)
+    ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
+                          second=second, comm=comm._replace(extras=extras),
+                          step=k, m=m, impl=impl,
+                          participation=participation)
 
     # Lines 7/9: rule LHS vs the shared recent-progress RHS.
     lhs, cache = strategy.flat_lhs(ctx, extras)
@@ -273,11 +339,22 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     if participation is not None:
         upload = upload & participation
 
-    # Eq. (3): innovation delta, masked wire and aggregation, whole planes.
+    # Eq. (3): innovation delta, wire format, masked aggregation, whole
+    # planes.
     wg32 = comm.worker_grads.float()
     delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
-    wire = torch.where(upload[:, None], delta, 0.0).to(
-        comm.worker_grads.dtype)
+    sparse = strategy.flat_sparse_wire(ctx, extras, cache, delta)
+    if sparse is not None:
+        # True sparse wire: the (M, K) value/index pair is the payload; the
+        # dense plane is rebuilt server-side. Values are masked and cast as
+        # the dense wire is, so the two paths agree bit for bit.
+        vals, idx = sparse
+        vals = torch.where(upload[:, None], vals, 0.0).to(
+            comm.worker_grads.dtype)
+        wire = sparse_rows_to_dense(idx, vals, layout.n_flat)
+    else:
+        wire = torch.where(upload[:, None], delta, 0.0).to(
+            comm.worker_grads.dtype)
     # Order-fixed row accumulation: masked zero rows are exact no-ops.
     nabla = (comm.nabla.float() + kops.eq3_row_mean(wire, m)).to(
         comm.nabla.dtype)

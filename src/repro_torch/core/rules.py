@@ -9,7 +9,9 @@ max-staleness override τ_m ≥ D.
 
 The hyper-parameters of every kind of the reference validate here; which
 kinds the port can RUN is up to :func:`repro_torch.core.comm.strategy_for`,
-which names the kinds not yet ported. The paper's rules:
+which names the kinds not yet ported (the delta-payload rules
+``local_momentum`` and ``fedadam``). ``quantize_bits`` puts a b-bit wire
+under any kind. The paper's rules:
 
   * ``cada1``  (eq. 7)  — SVRG-style innovation vs. a snapshot θ̃ refreshed
     every D iterations:  ||δ̃_m^k − δ̃_m^{k−τ}||² ≤ RHS.
@@ -18,6 +20,19 @@ which names the kinds not yet ported. The paper's rules:
     iterates held in a ring of R = min(M, D)+1 rows.
   * ``lag``    (eq. 5)  — naive stochastic LAG (different samples).
   * ``always``          — threshold never satisfied ⇒ distributed Adam.
+
+Beyond-paper rules, which both skip uploads and shrink the ones sent:
+
+  * ``cinn`` — upload iff the b-bit quantized innovation ||Q_b(δ_m)||²
+    exceeds the RHS; ``quantize_bits`` (default 8) sets the wire width.
+  * ``laq``  — LAQ: the wire is Q_b(δ_m + e_m) with an error-feedback
+    residual e_m (``error_feedback=False`` drops it), charged at b bits.
+  * ``topk`` — the ``topk_frac`` largest-magnitude entries of δ_m + e_m per
+    leaf ride the wire, charged sparsely as k·(value_bits + ⌈log₂ n⌉);
+    ``sparse_wire`` ships (values, indices) pairs instead of the dense
+    masked plane.
+  * ``avp``  — per-worker upload periods in [period_min, period_max],
+    adapted against the RHS; ``avp_compose`` also asks ||δ_m||² > RHS.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Each wrapper checks its operands, allocates outputs and scratch with
 ``torch.empty``, launches on PyTorch's current stream and raises if the
 launch failed. Each keeps a plain integer count of its launches
-(``fused_amsgrad_flat.launches``, ``batched_diff_sq_norm_flat.launches``),
-so a run can show that it went through the kernel.
+(``fused_amsgrad_flat.launches``, ``batched_diff_sq_norm_flat.launches``,
+``batched_sq_norm_flat.launches``, ``diff_sq_norm_flat.launches``), so a run
+can show that it went through the kernel.
 
 The library is built and loaded at the first launch, never on import.
 """
@@ -36,6 +37,10 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _P]
     lib.cada_batched_diff_sq.restype = ctypes.c_int
+    lib.cada_batched_sq.argtypes = [
+        _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, _P]
+    lib.cada_batched_sq.restype = ctypes.c_int
     lib.cada_error_string.argtypes = [ctypes.c_int]
     lib.cada_error_string.restype = ctypes.c_char_p
     return lib
@@ -115,15 +120,17 @@ def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
 fused_amsgrad_flat.launches = 0
 
 
-def batched_diff_sq_norm_flat(a, b):
-    """(R,) fp32 per-row Σ_j (a_rj − b_rj)² over two (R, n) planes on the
-    card, each fp32 or bf16."""
-    name = "batched_diff_sq_norm_flat"
+def _need_plane(name: str, t: torch.Tensor) -> None:
+    _need_cuda(name, t)
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: planes must be fp32 or bf16, got "
+                         f"{t.dtype}")
+
+
+def _launch_diff_sq(name: str, a, b):
+    """(R,) fp32 per-row Σ_j (a_rj − b_rj)² of two (R, n) planes."""
     for t in (a, b):
-        _need_cuda(name, t)
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"{name}: planes must be fp32 or bf16, got "
-                             f"{t.dtype}")
+        _need_plane(name, t)
     if a.dim() != 2 or a.shape != b.shape or a.numel() == 0:
         raise ValueError(f"{name}: need two equal non-empty (R, n) planes, "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -139,8 +146,58 @@ def batched_diff_sq_norm_flat(a, b):
         rows, n, chunks, int(a.dtype == torch.bfloat16),
         int(b.dtype == torch.bfloat16), stream)
     _check(lib, err, name)
+    return out
+
+
+def batched_diff_sq_norm_flat(a, b):
+    """(R,) fp32 per-row Σ_j (a_rj − b_rj)² over two (R, n) planes on the
+    card, each fp32 or bf16."""
+    out = _launch_diff_sq("batched_diff_sq_norm_flat", a, b)
     batched_diff_sq_norm_flat.launches += 1
     return out
 
 
 batched_diff_sq_norm_flat.launches = 0
+
+
+def diff_sq_norm_flat(a, b):
+    """Scalar ||a − b||² over two (n,) buffers on the card, as a 0-d fp32
+    tensor: the one-row launch of the batched difference norm."""
+    name = "diff_sq_norm_flat"
+    if a.dim() != 1 or a.shape != b.shape:
+        raise ValueError(f"{name}: need two equal (n,) buffers, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    out = _launch_diff_sq(name, a.view(1, -1), b.view(1, -1))
+    diff_sq_norm_flat.launches += 1
+    return out.view(())
+
+
+diff_sq_norm_flat.launches = 0
+
+
+def batched_sq_norm_flat(a):
+    """(R,) fp32 per-row Σ_j a_rj² over an (R, n) plane on the card, fp32
+    or bf16, accumulated in fp32. Same grid and fixed-order second pass as
+    the difference norm: a row's value depends neither on R nor on any
+    other row."""
+    name = "batched_sq_norm_flat"
+    _need_plane(name, a)
+    if a.dim() != 2 or a.numel() == 0:
+        raise ValueError(f"{name}: need a non-empty (R, n) plane, got "
+                         f"{tuple(a.shape)}")
+    rows, n = a.shape
+    lib = _lib()
+    chunks = row_chunks(n)
+    partials = torch.empty((rows, chunks), dtype=torch.float32,
+                           device=a.device)
+    out = torch.empty(rows, dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.cada_batched_sq(a.data_ptr(), partials.data_ptr(),
+                              out.data_ptr(), rows, n, chunks,
+                              int(a.dtype == torch.bfloat16), stream)
+    _check(lib, err, name)
+    batched_sq_norm_flat.launches += 1
+    return out
+
+
+batched_sq_norm_flat.launches = 0

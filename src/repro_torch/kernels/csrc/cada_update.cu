@@ -1,17 +1,20 @@
-// Fused CADA/AMSGrad server step and batched rule-LHS norm for Hopper (sm_90a).
+// Fused CADA/AMSGrad server step and the rule-LHS norms for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package:
 //   * amsgrad_kernel         <- src/repro/kernels/cada_update.py::_amsgrad_kernel
 //   * batched_diff_sq_kernel <- src/repro/kernels/cada_update.py::_batched_diff_sq_kernel
+//                               and, launched with one row (R = 1),
+//                               src/repro/kernels/cada_update.py::_diff_sq_kernel
+//   * batched_sq_kernel      <- src/repro/kernels/cada_update.py::_batched_sq_kernel
 //
-// What bounds them on an H100: both are streaming passes with O(1) flops per
+// What bounds them on an H100: all are streaming passes with O(1) flops per
 // byte, so device-memory bytes bound them (28 B/element for the fp32 AMSGrad
-// step, 8 B/element/row for the fp32 norm). At the paper MLP's size
-// (n_flat = 101,776, M = 10) the operands total 2.9 MB and 8.1 MB, well
-// inside the 50 MB L2, and the bound is ~1-3 us: below one launch. So the
-// design aims at few launches and exact, run-to-run identical sums, not at
-// bandwidth tricks (no TMA, no vector loads; warp-contiguous scalar loads
-// already fill whole 32-byte sectors).
+// step, 8 B/element/row for the fp32 difference norm, 4 for the one-operand
+// norm). At the paper MLP's size (n_flat = 101,776, M = 10) the operands
+// total 2.9, 8.1 and 4.1 MB, well inside the 50 MB L2, and the bound is
+// ~1-3 us: below one launch. So the design aims at few launches and exact,
+// run-to-run identical sums, not at bandwidth tricks (no TMA, no vector
+// loads; warp-contiguous scalar loads already fill whole 32-byte sectors).
 //
 // Determinism. The TPU kernels carry their sums across a sequential grid.
 // Here blocks run in no fixed order, so every block writes its partial sum
@@ -19,9 +22,11 @@
 // are no float atomics: Σupd² (which feeds every gate's RHS) and the rule
 // LHS norms are bitwise the same on every run.
 //
-// Row independence. The batched norm's chunking depends on n only, never on
+// Row independence. The batched norms' chunking depends on n only, never on
 // the row count R, and rows never mix: a row's result is the same whether it
-// sits in a (M, n) dense plane or a (C, n) cohort plane.
+// sits in a (M, n) dense plane or a (C, n) cohort plane. The one-operand
+// norm shares the difference norm's grid and second pass, so it reads one
+// plane instead of subtracting a plane of zeros (half the bytes).
 //
 // Rounding. The AMSGrad arithmetic uses explicit round-to-nearest intrinsics
 // (no FMA contraction), in the operation order of the plain PyTorch version
@@ -137,6 +142,26 @@ batched_diff_sq_kernel(const A* __restrict__ a, const B* __restrict__ b,
   if (threadIdx.x == 0) partials[row * chunks + chunk] = s;
 }
 
+// One-operand form: per-(row, chunk) partial of Σ_j a_rj², the same split.
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+batched_sq_kernel(const A* __restrict__ a, float* __restrict__ partials,
+                  int64_t n) {
+  const int64_t row = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int chunks = gridDim.y;
+  const A* ar = a + row * n;
+  float acc = 0.f;
+  const int64_t stride = (int64_t)chunks * blockDim.x;
+  for (int64_t j = (int64_t)chunk * blockDim.x + threadIdx.x; j < n;
+       j += stride) {
+    const float v = to_f32(ar[j]);
+    acc = __fadd_rn(acc, __fmul_rn(v, v));
+  }
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) partials[row * chunks + chunk] = s;
+}
+
 // Second pass: out[r] = Σ_c partials[r·count + c], in a fixed order.
 __global__ void __launch_bounds__(kThreads)
 sum_partials_kernel(const float* __restrict__ partials, int count,
@@ -156,6 +181,20 @@ cudaError_t launch_batched(const void* a, const void* b, void* partials,
   batched_diff_sq_kernel<A, B><<<grid, kThreads, 0, stream>>>(
       static_cast<const A*>(a), static_cast<const B*>(b),
       static_cast<float*>(partials), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<(unsigned)rows, kThreads, 0, stream>>>(
+      static_cast<const float*>(partials), chunks, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <typename A>
+cudaError_t launch_batched_sq(const void* a, void* partials, void* out,
+                              int64_t rows, int64_t n, int chunks,
+                              cudaStream_t stream) {
+  const dim3 grid((unsigned)rows, (unsigned)chunks);
+  batched_sq_kernel<A><<<grid, kThreads, 0, stream>>>(
+      static_cast<const A*>(a), static_cast<float*>(partials), n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<(unsigned)rows, kThreads, 0, stream>>>(
@@ -222,6 +261,18 @@ int cada_batched_diff_sq(const void* a, const void* b, void* partials,
   else
     err = launch_batched<float, float>(a, b, partials, out, rows, n, chunks,
                                        s);
+  return static_cast<int>(err);
+}
+
+// a (rows, n) contiguous, fp32 or bf16 (a_bf16); partials fp32
+// (rows, chunks); out fp32 (rows,).
+int cada_batched_sq(const void* a, void* partials, void* out, long long rows,
+                    long long n, int chunks, int a_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      a_bf16 ? launch_batched_sq<__nv_bfloat16>(a, partials, out, rows, n,
+                                                chunks, s)
+             : launch_batched_sq<float>(a, partials, out, rows, n, chunks, s);
   return static_cast<int>(err);
 }
 

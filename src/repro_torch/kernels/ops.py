@@ -9,8 +9,11 @@ for the kernel and raises on a CPU tensor.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import cada_update as _cu
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils.trees import tree_leaves
 
 IMPLS = (None, "plain", "kernel")
 
@@ -48,6 +51,31 @@ def batched_diff_sq_norm(a, b, *, impl=None):
     if use_kernel(a, impl):
         return _cu.batched_diff_sq_norm_flat(a, b)
     return _ref.batched_diff_sq_norm_ref(a, b)
+
+
+def batched_sq_norm(a, *, impl=None):
+    """(R,) per-row ||a_r||² over an (R, n) fp32 or bf16 plane (the gate of
+    the compressed-wire rules cinn, laq, topk), accumulated in fp32. A
+    row's value depends on neither R nor any other row."""
+    if use_kernel(a, impl):
+        return _cu.batched_sq_norm_flat(a)
+    return _ref.batched_sq_norm_ref(a)
+
+
+def diff_sq_norm_flat(a, b, *, impl=None):
+    """Scalar ||a − b||² over (n,) buffers of any length, a 0-d fp32
+    tensor."""
+    if use_kernel(a, impl):
+        return _cu.diff_sq_norm_flat(a, b)
+    return _ref.diff_sq_norm_ref(a, b)
+
+
+def diff_sq_norm(tree_a, tree_b, *, impl=None):
+    """||a − b||² over two dicts of tensors of the same structure: each is
+    packed into one fp32 buffer in the reference's leaf order."""
+    af = torch.cat([x.reshape(-1).float() for x in tree_leaves(tree_a)])
+    bf = torch.cat([x.reshape(-1).float() for x in tree_leaves(tree_b)])
+    return diff_sq_norm_flat(af, bf, impl=impl)
 
 
 def eq3_row_mean(plane, m_total: int):

@@ -31,6 +31,18 @@ def batched_diff_sq_norm_ref(a, b):
     return torch.sum(d * d, dim=1)
 
 
+def batched_sq_norm_ref(a):
+    """(R,) per-row Σ_j a_rj², accumulated in fp32."""
+    v = a.float()
+    return torch.sum(v * v, dim=1)
+
+
+def diff_sq_norm_ref(a, b):
+    """Scalar Σ (a − b)² over two buffers, accumulated in fp32."""
+    d = a.float() - b.float()
+    return torch.sum(d * d)
+
+
 def eq3_row_mean_ref(plane, m_total: int):
     """Eq. (3) aggregate increment Σ_rows(plane) / m_total.
 

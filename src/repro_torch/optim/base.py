@@ -3,13 +3,16 @@
 An optimizer is a pair of pure functions over dicts of tensors:
   init(params) -> state
   update(grads, state, params) -> (updates, new_state)
-and ``apply_updates(params, updates)`` adds the updates in. The flat-plane
-engine of this slice takes :class:`repro_torch.optim.fused.FusedAMSGrad`;
-protocol optimizers (SGD, Adam) arrive with a later slice.
+and ``apply_updates(params, updates)`` adds the updates in. The engine
+takes any such optimizer (``optim/sgd.py``, ``optim/adam.py``) beside the
+kernel-backed :class:`repro_torch.optim.fused.FusedAMSGrad`. A state's step
+count is a Python int, so a schedule never reads the device.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
+
+from repro_torch.utils.trees import tree_map
 
 
 class Optimizer(NamedTuple):
@@ -18,4 +21,17 @@ class Optimizer(NamedTuple):
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def chain_weight_decay(opt: Optimizer, weight_decay: float) -> Optimizer:
+    """Decoupled (AdamW-style) weight decay wrapped around any optimizer."""
+    if weight_decay == 0.0:
+        return opt
+
+    def update(grads, state, params):
+        updates, new_state = opt.update(grads, state, params)
+        return tree_map(lambda u, p: u - weight_decay * p, updates,
+                        params), new_state
+
+    return Optimizer(opt.init, update)

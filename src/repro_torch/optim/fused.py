@@ -3,7 +3,8 @@
 One call applies the whole step (paper eqs. 2a-2c) in one pass and returns
 ||Δθ||² (the CADA rule's RHS entry) for free. On the card the step is the
 CUDA kernel of ``kernels/csrc/cada_update.cu``; on the CPU its plain
-version.
+version. ``as_optimizer`` adapts it to the ``Optimizer`` protocol (one
+extra pass), so the same step can run through the protocol route.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.base import Optimizer
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 class FusedState(NamedTuple):
@@ -48,3 +51,24 @@ class FusedAMSGrad(NamedTuple):
             theta, state.h, state.vhat, grad, lr, b1=self.b1, b2=self.b2,
             eps=self.eps, impl=impl)
         return t, FusedState(count=state.count + 1, h=h, vhat=vhat), sq
+
+
+def as_optimizer(fused: FusedAMSGrad) -> Optimizer:
+    """Protocol adapter: the state covers the packed parameters and
+    updates = θ' − θ in fp32 (one extra pass; tests and drop-in use)."""
+    # imported here: core imports the engine, which imports this module
+    from repro_torch.core.flat import layout_of
+
+    def init(params):
+        return fused.init_flat(layout_of(params).n_flat,
+                               device=tree_leaves(params)[0].device)
+
+    def update(grads, state, params):
+        layout = layout_of(params)
+        theta, new_state, _ = fused.apply_flat(layout.pack(params), state,
+                                               layout.pack(grads))
+        updates = tree_map(lambda a, b: a.float() - b.float(),
+                           layout.unpack(theta), params)
+        return updates, new_state
+
+    return Optimizer(init, update)

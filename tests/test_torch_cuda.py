@@ -10,8 +10,11 @@ This file imports neither JAX nor the JAX package.
 
 Tolerances: θ', h', v̂' within 2⁻²⁰ · max|plain| (the kernel rounds each
 operation as the plain version does; only the compiler's and PyTorch's
-kernels stand between them); Σupd² and the row norms rtol 1e-5 (summation
-order); run-to-run results bitwise identical.
+kernels stand between them); Σupd² and the difference-norm rows rtol 1e-5,
+the one-operand rows and the scalar ‖a−b‖² rtol 1e-6 (summation order);
+run-to-run results bitwise identical. The wire compressors are plain
+PyTorch on both devices and must give the same bits on the card as on the
+CPU.
 """
 import pytest
 import torch
@@ -19,6 +22,7 @@ import torch
 import numpy as np
 
 from repro_torch import convert
+from repro_torch.core import flat
 from repro_torch.core.engine import CADAEngine
 from repro_torch.core.rules import CommRule
 from repro_torch.kernels import cada_update, ops, ref
@@ -75,6 +79,65 @@ def test_batched_diff_kernel_matches_plain(gen, shape, dtypes):
             a[1:].contiguous(), b[1:].contiguous()))
 
 
+@pytest.mark.parametrize("shape", [(1, 8), (10, 48), (10, 101_776),
+                                   (3, 1_000_003)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_sq_kernel_matches_plain(gen, shape, dtype):
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k = ops.batched_sq_norm(a)
+    assert k.dtype == torch.float32 and k.shape == (shape[0],)
+    assert torch.equal(k, ops.batched_sq_norm(a))
+    torch.testing.assert_close(k, ref.batched_sq_norm_ref(a), rtol=1e-6,
+                               atol=0)
+
+
+def test_batched_sq_rows_do_not_depend_on_r(gen):
+    """A 3-row call gives the same rows, bit for bit, as the 10-row call."""
+    a = torch.randn(10, 101_776, generator=gen, device="cuda")
+    full = ops.batched_sq_norm(a)
+    assert torch.equal(full[4:7], ops.batched_sq_norm(a[4:7].contiguous()))
+
+
+@pytest.mark.parametrize("n", [1, 48, 101_776, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_diff_sq_kernel_matches_plain(gen, n, dtype):
+    a = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    before = cada_update.batched_diff_sq_norm_flat.launches
+    k = ops.diff_sq_norm_flat(a, b)
+    assert k.dtype == torch.float32 and k.shape == ()
+    assert torch.equal(k, ops.diff_sq_norm_flat(a, b))
+    torch.testing.assert_close(k, ref.diff_sq_norm_ref(a, b), rtol=1e-6,
+                               atol=0)
+    # the one-row launch has a count of its own
+    assert cada_update.batched_diff_sq_norm_flat.launches == before
+    tree = ops.diff_sq_norm({"x": a[: n // 2], "y": a[n // 2:]},
+                            {"x": b[: n // 2], "y": b[n // 2:]})
+    torch.testing.assert_close(tree, k, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits", [2, 8, 16])
+def test_wire_compressors_same_bits_on_card_and_cpu(gen, bits):
+    """The b-bit quantizer, top-k sparsifier and the sparse wire round trip
+    on the paper MLP's layout (M = 10): the card's results equal the CPU's
+    bit for bit."""
+    params = {"w1": torch.zeros(784, 128), "b1": torch.zeros(128),
+              "w2": torch.zeros(128, 10), "b2": torch.zeros(10)}
+    layout = flat.layout_of(params)
+    x = torch.randn(10, layout.n_flat, generator=gen, device="cuda")
+    q = flat.per_worker_quantize_dequantize_flat(layout, x, bits)
+    want = flat.per_worker_quantize_dequantize_flat(layout, x.cpu(), bits)
+    assert torch.equal(q.cpu().view(torch.int32), want.view(torch.int32))
+    sp = flat.per_worker_topk_sparsify_flat(layout, x, 0.1)
+    assert torch.equal(sp.cpu().view(torch.int32),
+                       flat.per_worker_topk_sparsify_flat(
+                           layout, x.cpu(), 0.1).view(torch.int32))
+    sp[:, layout.n:] = 0.0
+    vals, idx = flat.per_worker_topk_extract_flat(layout, sp, 0.1)
+    back = flat.sparse_rows_to_dense(idx, vals, layout.n_flat)
+    assert torch.equal(back.view(torch.int32), sp.view(torch.int32))
+
+
 def test_wrappers_count_launches_and_check_operands(gen):
     x = torch.randn(64, generator=gen, device="cuda")
     before = cada_update.fused_amsgrad_flat.launches
@@ -104,6 +167,25 @@ def test_engine_defaults_to_the_card_and_launches_each_round(gen):
             cada_update.batched_diff_sq_norm_flat.launches) == (
         before[0] + 3, before[1] + 3)
     assert state.params_flat.is_cuda and metrics["loss"].shape == (3,)
+
+
+def test_laq_engine_launches_one_norm_and_one_step_per_round(gen):
+    """laq's gate is the one-operand norm: one batched_sq launch and one
+    AMSGrad launch per round, and no difference norm."""
+    eng = CADAEngine(logreg_loss, FusedAMSGrad(lr=0.01),
+                     CommRule(kind="laq", max_delay=5), 4)
+    state = eng.init(logreg_init(None, 6, 2))
+    x = torch.randn(3, 4, 5, 6, generator=gen, device="cuda")
+    y = torch.randint(0, 2, (3, 4, 5), generator=gen, device="cuda")
+    counters = (cada_update.fused_amsgrad_flat,
+                cada_update.batched_sq_norm_flat,
+                cada_update.batched_diff_sq_norm_flat,
+                cada_update.diff_sq_norm_flat)
+    before = [f.launches for f in counters]
+    state, metrics = eng.run(state, (x, y))
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 3, 0, 0]
+    assert state.comm.extras["residual"].is_cuda
+    assert bool(torch.isfinite(state.params_flat).all())
 
 
 def _numpy(state):

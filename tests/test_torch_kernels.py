@@ -14,9 +14,10 @@ Tolerances:
     element. A flipped element differs by one bf16 ULP (2⁻⁸ relative) and
     at most 0.1% of elements may flip; θ is compared where the stored
     moments agree (the stored moment drives the update by contract).
-  * Σupd² and the row norms: rtol 1e-5. Both sides add up to 7·10⁴ fp32
-    terms in different orders (blocked sequential vs PyTorch's reduction);
-    the differences measured here reach 1.0e-6 relative.
+  * Σupd², the row norms and the scalar ‖a−b‖²: rtol 1e-5. Both sides add
+    up to 7·10⁴ fp32 terms in different orders (blocked sequential vs
+    PyTorch's reduction); the differences measured here reach 1.0e-6
+    relative.
   * eq. (3) row mean: bit-equal (the port copies the order).
 """
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import cada_update as jcu
 from repro.kernels import ops as jops
 from repro.kernels.cada_update import BLOCK
 from repro_torch.convert import tensor_from_numpy
@@ -107,6 +109,61 @@ def test_batched_diff_sq_norm_rows_independent(rng):
     assert torch.equal(full[2:5], part)
 
 
+@pytest.mark.parametrize("shape", [(10, 48), (3, BLOCK + 8), (1, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_sq_norm_ref_matches_pallas(rng, shape, dtype):
+    """batched_sq_norm's plain version vs the Pallas _batched_sq_kernel
+    (interpret mode; its wrapper wants whole blocks, so the JAX side pads
+    the plane with zero columns, which add nothing)."""
+    dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    a = np.asarray(jnp.asarray(rng.normal(size=shape)).astype(dt))
+    pad = (-shape[1]) % BLOCK
+    want = np.asarray(jcu.batched_sq_norm_flat(
+        jnp.pad(jnp.asarray(a), ((0, 0), (0, pad))), interpret=True))
+    got = ops.batched_sq_norm(tensor_from_numpy(a, "cpu"))
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jops.batched_sq_norm(jnp.asarray(a))),
+        rtol=1e-5)
+
+
+def test_batched_sq_norm_rows_independent(rng):
+    """A row's norm does not depend on the other rows or on R."""
+    a = torch.from_numpy(rng.normal(size=(6, 4000)).astype(np.float32))
+    full = ops.batched_sq_norm(a)
+    assert torch.equal(full[2:5], ops.batched_sq_norm(a[2:5]))
+    assert torch.equal(full[3:4], ops.batched_sq_norm(a[3:4]))
+
+
+@pytest.mark.parametrize("n", [48, BLOCK + 8, 2 * BLOCK + 4464])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_diff_sq_norm_matches_pallas(rng, n, dtype):
+    """diff_sq_norm_flat and the dict form diff_sq_norm vs the Pallas
+    _diff_sq_kernel (interpret mode) on lengths that are not whole
+    blocks."""
+    dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    a = np.asarray(jnp.asarray(rng.normal(size=n)).astype(dt))
+    b = np.asarray(jnp.asarray(rng.normal(size=n)).astype(dt))
+    want = float(jops.diff_sq_norm_flat(jnp.asarray(a), jnp.asarray(b),
+                                        interpret=True))
+    got = ops.diff_sq_norm_flat(tensor_from_numpy(a, "cpu"),
+                                tensor_from_numpy(b, "cpu"))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    # the dict form: leaves packed in sorted-key order on both sides
+    cut = n // 3
+    ta = {"y": a[cut:], "x": a[:cut]}
+    tb = {"y": b[cut:], "x": b[:cut]}
+    want_tree = float(jops.diff_sq_norm(
+        {k: jnp.asarray(v) for k, v in ta.items()},
+        {k: jnp.asarray(v) for k, v in tb.items()}, interpret=True))
+    got_tree = ops.diff_sq_norm(
+        {k: tensor_from_numpy(v, "cpu") for k, v in ta.items()},
+        {k: tensor_from_numpy(v, "cpu") for k, v in tb.items()})
+    np.testing.assert_allclose(float(got_tree), want_tree, rtol=1e-5)
+
+
 @pytest.mark.parametrize("rows", [1, 3, 7, 10])
 def test_eq3_row_mean_bit_equal(rng, rows):
     plane = rng.normal(size=(rows, 1001)).astype(np.float32)
@@ -125,14 +182,22 @@ def test_eq3_row_mean_drops_zero_rows_exactly(rng):
                        ref.eq3_row_mean_ref(kept, 8))
 
 
+def _launch_counts():
+    return (cada_update.fused_amsgrad_flat.launches,
+            cada_update.batched_diff_sq_norm_flat.launches,
+            cada_update.batched_sq_norm_flat.launches,
+            cada_update.diff_sq_norm_flat.launches)
+
+
 def test_cpu_tensors_take_the_plain_route(rng):
-    before = (cada_update.fused_amsgrad_flat.launches,
-              cada_update.batched_diff_sq_norm_flat.launches)
+    before = _launch_counts()
     x = torch.ones(16)
     ops.fused_amsgrad_flat(x, x, x, x, 0.1)
     ops.batched_diff_sq_norm(x[None], x[None])
-    assert (cada_update.fused_amsgrad_flat.launches,
-            cada_update.batched_diff_sq_norm_flat.launches) == before
+    ops.batched_sq_norm(x[None])
+    ops.diff_sq_norm_flat(x, x)
+    ops.diff_sq_norm({"x": x}, {"x": x})
+    assert _launch_counts() == before
 
 
 def test_kernel_route_refuses_cpu_tensors():
@@ -147,6 +212,14 @@ def test_kernel_route_refuses_cpu_tensors():
         cada_update.fused_amsgrad_flat(x, x, x, x, 0.1)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         cada_update.batched_diff_sq_norm_flat(x[None], x[None])
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.batched_sq_norm(x[None], impl="kernel")
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.diff_sq_norm_flat(x, x, impl="kernel")
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        cada_update.batched_sq_norm_flat(x[None])
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        cada_update.diff_sq_norm_flat(x, x)
     with pytest.raises(ValueError, match="impl"):
         ops.batched_diff_sq_norm(x[None], x[None], impl="auto")
 

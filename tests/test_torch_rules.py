@@ -1,11 +1,13 @@
-"""The port's ``CommRule`` against the reference's, and its refusal of the
-rule kinds and options that are not ported yet."""
+"""The port's ``CommRule`` against the reference's, its strategies'
+accounting against the reference's, and its refusal of the rule kinds that
+are not ported yet."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro.core import comm as jax_comm
 from repro.core.rules import CommRule as JaxRule
 from repro_torch.core import comm
 from repro_torch.core.rules import CommRule
@@ -63,7 +65,10 @@ def test_rhs_matches_reference():
     np.testing.assert_allclose(float(ours), float(ref), rtol=1e-7)
 
 
-@pytest.mark.parametrize("kind", ["always", "lag", "cada1", "cada2"])
+KINDS = ["always", "lag", "cada1", "cada2", "cinn", "laq", "topk", "avp"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_ported_kinds_build_their_strategy(kind):
     rule = CommRule(kind=kind)
     s = comm.strategy_for(rule)
@@ -71,13 +76,28 @@ def test_ported_kinds_build_their_strategy(kind):
     assert rule.grad_evals_per_iter == JaxRule(kind=kind).grad_evals_per_iter
 
 
-@pytest.mark.parametrize("kind", ["cinn", "laq", "topk", "avp",
-                                  "local_momentum", "fedadam"])
+@pytest.mark.parametrize("kind", ["local_momentum", "fedadam"])
 def test_unported_kinds_are_refused_by_name(kind):
     with pytest.raises(ValueError, match="not yet ported"):
         comm.strategy_for(CommRule(kind=kind))
 
 
-def test_quantized_wire_is_refused():
-    with pytest.raises(ValueError, match="not yet ported"):
-        comm.strategy_for(CommRule(kind="cada2", quantize_bits=8))
+WIRES = [dict(), dict(quantize_bits=4), dict(quantize_bits=8),
+         dict(quantize_bits=16), dict(topk_frac=0.01, sparse_wire=True)]
+
+
+@pytest.mark.parametrize("kw", WIRES, ids=lambda kw: repr(kw))
+@pytest.mark.parametrize("kind", KINDS)
+def test_quantized_wire_is_accepted_and_charged_at_b_bits(kind, kw):
+    """``quantize_bits`` is accepted for every kind, and each strategy
+    charges what the reference's does: n·b/8 bytes per upload for a b-bit
+    dense wire, k·(value_bits + ⌈log₂ n⌉)/8 for top-k."""
+    ours = comm.strategy_for(CommRule(kind=kind, **kw))
+    ref = jax_comm.strategy_for(JaxRule(kind=kind, **kw))
+    assert ours.bits_per_entry == ref.bits_per_entry
+    assert ours.wire_format == ref.wire_format
+    for n in (1, 46, 12_730, 101_770):
+        assert ours.bytes_per_upload(n) == ref.bytes_per_upload(n)
+    if kind not in ("cinn", "laq", "topk"):
+        assert ours.bytes_per_upload(1000) == 1000 * (
+            kw.get("quantize_bits") or 32) / 8
