@@ -28,7 +28,22 @@ Phases, each of which raises on failure (the exit code is then not 0):
      at their skipping c, each stepped from the kernel run's state by the
      kernels and by the plain versions (``impl="plain"``); each must see a
      skip.
-Then it prints one JSON line with every kernel, and last the line
+  6. serving path: zamba2-2.7b at full width and depth (54 Mamba2 layers,
+     the shared attention block 9 times, 2,340,715,680 bf16 parameters
+     drawn on the card from a seed) through ``repro_torch.launch.serve``:
+     prefill of 2 random prompts of 2048 tokens, then 32 greedy decode
+     steps. Exactly 54 scan and 9 flash launches per prefill and none per
+     decode step; prefill ms, decode tokens/s and peak memory; a profile
+     of a warm prefill and of decode steps; full-depth logits finite, and
+     prefill(S-1) -> decode(1) against prefill(S). Then the first stage (6
+     Mamba2 layers and the shared block, full width) run with the kernels
+     and with ``impl="plain"``: last logits, SSM/conv states and KV cache
+     within a stated band.
+Phase 3 also holds the selective scan and flash attention against their
+plain versions at the serving path's shapes (flash also at a GQA shape and
+with a window), with their times, bounds and, for flash, the library
+call's time. Then it prints one JSON line with every kernel, and last the
+line
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside the
 checkout, it exits non-zero and prints no result.
 """
@@ -46,12 +61,18 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
 from repro_torch.core.engine import CADAEngine, make_sampler  # noqa: E402
 from repro_torch.core.rules import CommRule  # noqa: E402
 from repro_torch.data import (mnist_like, pad_to_matrix,  # noqa: E402
                               uniform_partition)
 from repro_torch.kernels import build, cada_update, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models.config import param_count  # noqa: E402
 from repro_torch.models.small import mlp_init, mlp_loss  # noqa: E402
 from repro_torch.optim.fused import FusedAMSGrad  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
@@ -89,13 +110,35 @@ LIBRARY_NOTE = {
     "batched_sq": "torch.linalg.vecdot(a, a), timed here",
     "diff_sq": "torch.nn.functional.mse_loss(a, b, reduction='sum'), "
                "timed here",
+    "selective_scan": "no single PyTorch call computes a selective scan: "
+                      "torch has no linear-recurrence (associative) scan, "
+                      "and cumsum/cumprod forms materialise the (G, S, D, "
+                      "N) trajectory the kernel exists to avoid",
+    "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True) on (B, H, S, hd), timed here",
 }
+# serving path (phase 6): zamba2-2.7b, full width and depth
+SERVE_ARCH, SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS = "zamba2-2.7b", 2, 2048, 32
+SCAN_RTOL = 1e-5          # scan kernel vs plain, of each array's scale:
+#                           fp32; the N-sum's order (its rounding scales
+#                           with the terms, and y_t can cancel to near 0)
+FLASH_RTOL_F32 = 1e-5     # flash kernel vs plain, fp32: sum orders
+FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP
+STAGE_RTOL_F32 = 1e-4     # first stage, fp32, kernels vs plain: the
+#                           kernels' ~1e-6 gaps through 7 blocks of fp32
+#                           GEMMs and nonlinearities, no rounding to bf16
+DECODE_ATOL = DECODE_RTOL = 0.05   # prefill(S-1)+decode vs prefill(S),
+#                                    fp32: the reference's test's band
 
 
 # ------------------------------------------------------------------ card
 
 SXM_NAME = "H100 80GB HBM3"
 SXM_RATES = (3.35e12, 67e12)   # bytes/s, fp32 FLOP/s outside the tensor cores
+BF16_TC_FLOPS = 989e12         # dense bf16 on the tensor cores (data sheet)
+# special-function unit results (exp) per second: 16 per clock per SM, 132
+# SMs, at the H100 SXM's 1,980 MHz boost clock (Hopper architecture paper)
+SFU_RATE = 16 * 132 * 1.98e9
 
 
 def card_rates(name: str) -> tuple[float, float]:
@@ -132,10 +175,10 @@ def phase_card() -> str:
 
 # ----------------------------------------------------------------- timing
 
-def time_ms(fn, calls: int = 50, repeats: int = 5) -> float:
+def time_ms(fn, calls: int = 50, repeats: int = 5, warmup: int = 5) -> float:
     """Median over ``repeats`` of the mean time of ``calls`` back-to-back
     calls, by CUDA events (warm L2: the main path's operands fit in it)."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per_call = []
@@ -151,12 +194,12 @@ def time_ms(fn, calls: int = 50, repeats: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_ms(fn, names: tuple[str, ...] | None = None) -> float | None:
+def device_ms(fn, names: tuple[str, ...] | None = None,
+              calls: int = 20) -> float | None:
     """Device time of one call, summed over the kernels whose names hold
     one of ``names`` (every kernel when None), from the profiler; None when
     the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
-    calls = 20
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -169,6 +212,10 @@ def device_ms(fn, names: tuple[str, ...] | None = None) -> float | None:
 
 def _us(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
+
+
+def _ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 # ---------------------------------------------------------------- kernels
@@ -436,6 +483,169 @@ def phase_kernels(rates, layout) -> dict:
     return main
 
 
+# ------------------------------------------- selective scan, flash attention
+
+def _rel_err(got, want) -> float:
+    """max |got − want| / max(1, |want|), in fp64."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def _scale_err(got, want) -> float:
+    """max |got − want| / max |want|, in fp64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def check_scan(g: int, s: int, d: int, n: int, rates, gen,
+               timed: bool) -> dict:
+    """The scan kernel against its plain version on the serving path's
+    operand types: dt fp32, x/B/C bf16, one (D, N) A shared by the groups
+    as a zero-stride view (as ``models/ssm.py`` passes it)."""
+    dev = "cuda"
+    dt = (0.1 * torch.randn(g, s, d, generator=gen, device=dev)).abs()
+    x = torch.randn(g, s, d, generator=gen, device=dev).bfloat16()
+    a = -torch.randn(d, n, generator=gen, device=dev).abs()
+    a = a.expand(g, d, n)
+    b = torch.randn(g, s, n, generator=gen, device=dev).bfloat16()
+    c = torch.randn(g, s, n, generator=gen, device=dev).bfloat16()
+    y, h = scan_kernel.selective_scan(dt, x, a, b, c)
+    y2, h2 = scan_kernel.selective_scan(dt, x, a, b, c)
+    yp, hp = ref.selective_scan_ref(dt, x, a, b, c)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise RuntimeError(f"scan {(g, s, d, n)}: two identical calls differ")
+    err = max(_scale_err(y, yp), _scale_err(h, hp))
+    if err > SCAN_RTOL:
+        raise RuntimeError(f"scan {(g, s, d, n)}: error {err} > {SCAN_RTOL}")
+    label = f"  selective_scan (G,S,D,N)={(g, s, d, n)} x/B/C bf16"
+    if not timed:
+        print(f"{label}: max err {err:.3g} of the plain arrays' scale, "
+              "run-to-run identical")
+        return {"max_abs_err": float(max((y - yp).abs().max(),
+                                          (h - hp).abs().max()))}
+    gsd, gsn, elems = g * s * d, g * s * n, g * s * d * n
+    # dt fp32, x bf16, one (D, N) A, B/C bf16; y fp32, h_final fp32
+    nbytes = (4 * gsd + 2 * gsd + 4 * d * n + 2 * 2 * gsn + 4 * gsd
+              + 4 * g * d * n)
+    # per (g, t, d, n): dt·a, decay·h + drive (2), dx·b, h·c summed (2)
+    t_bytes, t_flops, t_exp = (nbytes / rates[0], 6 * elems / rates[1],
+                               elems / SFU_RATE)
+    bound = max(t_bytes, t_flops, t_exp) * 1e3
+    bound_by = "bytes" if t_bytes >= max(t_flops, t_exp) else "operations"
+
+    def kernel():
+        return scan_kernel.selective_scan(dt, x, a, b, c)
+
+    def plain():
+        return ref.selective_scan_ref(dt, x, a, b, c)
+
+    ms = time_ms(kernel, calls=10, repeats=3)
+    plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
+    dev_ms = device_ms(kernel, ("ssm_scan_kernel",), calls=5)
+    plain_dev = device_ms(plain, calls=1)
+    print(f"{label}: max err {err:.3g} of the plain arrays' scale, "
+          f"run-to-run identical; kernel {ms:.3f} ms/call (device "
+          f"{_ms(dev_ms)}), plain "
+          f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), bound "
+          f"{bound:.4f} ms by {bound_by} (bytes {t_bytes * 1e3:.4f}, fp32 "
+          f"ops {t_flops * 1e3:.4f}, {elems:.3g} exp {t_exp * 1e3:.4f} ms)")
+    return {"max_abs_err": float(max((y - yp).abs().max(),
+                                     (h - hp).abs().max())),
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _live_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention computes."""
+    if not window:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
+                rates, gen, timed: bool) -> dict:
+    """The flash kernel against its plain version, bf16 operands; when
+    ``timed``, also its times, its bound and the library call's time."""
+    dev = "cuda"
+    q = torch.randn(b, s, hq, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    out = fa_kernel.flash_attention(q, k, v, window=window)
+    again = fa_kernel.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError("flash: two identical calls differ")
+    err = _rel_err(out, want)
+    label = (f"  flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
+             f"window={window} bf16")
+    if err > FLASH_RTOL_BF16:
+        raise RuntimeError(f"{label}: error {err} > {FLASH_RTOL_BF16}")
+    abs_err = float((out.float() - want.float()).abs().max())
+    if not timed:
+        print(f"{label}: max err {err:.3g} of max(1,|plain|), run-to-run "
+              "identical")
+        return {"max_abs_err": abs_err}
+    flops = 4 * hd * _live_pairs(s, window) * b * hq
+    nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    t_bytes, t_ops = nbytes / rates[0], flops / BF16_TC_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def kernel():
+        return fa_kernel.flash_attention(q, k, v, window=window)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, window=window)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+    lib_err = _rel_err(library().transpose(1, 2), want)
+    ms = time_ms(kernel, calls=10, repeats=3)
+    plain_ms = time_ms(plain, calls=2, repeats=3, warmup=1)
+    lib_ms = time_ms(library, calls=20, repeats=3)
+    dev_ms = device_ms(kernel, ("flash_fwd_kernel",), calls=5)
+    plain_dev = device_ms(plain, calls=2)
+    lib_dev = device_ms(library, calls=5)
+    print(f"{label}: max err {err:.3g} of max(1,|plain|), run-to-run "
+          f"identical; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}), plain "
+          f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms/call (device "
+          f"{_ms(lib_dev)}, err {lib_err:.3g}), bound {bound:.4f} ms by "
+          f"{bound_by} ({flops:.3g} flop at 989 TFLOP/s bf16, {nbytes} B)")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "plain_device_ms": plain_dev,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev}
+
+
+def phase_lm_kernels(rates) -> dict:
+    """The scan and flash kernels at the serving path's shapes (zamba2-2.7b,
+    B = 2, S = 2048: scan G = 2, D = 5120, N = 64; flash 32 heads of 80),
+    then at shapes off that path."""
+    cfg = lm_configs.get_config(SERVE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main = {"selective_scan": check_scan(
+        SERVE_BATCH, SERVE_SEQ, cfg.d_inner, cfg.ssm_state, rates, gen,
+        timed=True)}
+    check_scan(3, 333, 520, 16, rates, gen, timed=False)
+    main["flash_attention"] = check_flash(
+        SERVE_BATCH, SERVE_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
+        rates, gen, timed=True)
+    check_flash(SERVE_BATCH, SERVE_SEQ, 32, 8, 128, 0, rates, gen,
+                timed=False)
+    check_flash(SERVE_BATCH, 512, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 100,
+                rates, gen, timed=False)
+    check_flash(1, 333, 4, 2, 32, 0, rates, gen, timed=False)
+    return main
+
+
 # -------------------------------------------------------------- main path
 
 def _eval_loss(params, x, y) -> float:
@@ -698,22 +908,231 @@ def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
           f"{flips} in-band flips")
 
 
+# ----------------------------------------------------------- serving path
+
+LM_WRAPPERS = {"selective_scan": scan_kernel.selective_scan,
+               "flash_attention": fa_kernel.flash_attention}
+
+
+def _lm_counts() -> dict:
+    return {name: f.launches for name, f in LM_WRAPPERS.items()}
+
+
+def _reset_all_counts() -> None:
+    _reset_counts()
+    for f in LM_WRAPPERS.values():
+        f.launches = 0
+
+
+def _profile(fn, label: str, per: int = 1, top: int = 8) -> None:
+    """Wall time, device-busy share and the kernels that take most of the
+    device time over one call of ``fn`` (which ends in a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -getattr(e, "device_time_total", 0))
+    busy = sum(getattr(e, "device_time_total", 0) for e in events) / 1e6
+    print(f"  {label}: wall {wall * 1e3 / per:.3f} ms, device busy "
+          f"{busy * 1e3 / per:.3f} ms ({100 * busy / wall:.1f}%, idle "
+          f"{100 - 100 * busy / wall:.1f}%), "
+          f"{sum(e.count for e in events) / per:.0f} kernels")
+    for e in events[:top]:
+        print(f"    {getattr(e, 'device_time_total', 0) / 1e3 / per:10.3f} "
+              f"ms  x{e.count / per:.0f}  {e.key[:90]}")
+
+
+def _band(got, want, band: float, what: str) -> float:
+    """max |got − want| as a share of max |want|; raises above ``band``."""
+    got, want = got.double(), want.double()
+    share = float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+    if share > band:
+        raise RuntimeError(f"{what}: max |diff| is {share:.3g} of the "
+                           f"plain run's scale, above {band:.3g}")
+    return share
+
+
+def _upcast(tree):
+    """A copy of a parameter tree with every tensor in fp32."""
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def phase_serve(card: str) -> dict:
+    """zamba2-2.7b at full width and depth through the serving entry
+    point, B = 2 prompts of S = 2048 random tokens, 32 greedy steps. All
+    kernel counts are set to 0 just before and read just after: exactly
+    54 scans and 9 flash launches (one prefill), nothing else."""
+    cfg = lm_configs.get_config(SERVE_ARCH)
+    b, s, steps = SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"{n_params} parameters, not {param_count(cfg)}")
+    print(f"  {cfg.name} ({cfg.source}): {n_params:,} parameters in "
+          f"{cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
+    n_attn = cfg.n_layers // cfg.attn_every
+    want = {"selective_scan": cfg.n_layers, "flash_attention": n_attn}
+
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    out = serve.generate(cfg, params, prompts, steps)
+    torch.cuda.synchronize()
+    got = {**_counts(), **_lm_counts()}
+    expect = {**dict.fromkeys(WRAPPERS, 0), **want}
+    if got != expect:
+        raise RuntimeError(f"serving path: launches {got}, expected {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    logits, toks = out["prefill_logits"], out["tokens"]
+    if logits.shape != (b, cfg.vocab) or toks.shape != (b, steps):
+        raise RuntimeError(f"shapes {tuple(logits.shape)}, "
+                           f"{tuple(toks.shape)}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(
+            torch.isfinite(out["logits"].float()).all())):
+        raise RuntimeError("non-finite logits at full depth")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise RuntimeError("decoded token ids out of range")
+    print(f"  prefill {b}x{s} (first call): {out['prefill_s'] * 1e3:.2f} ms; "
+          f"{steps} greedy decode steps in {out['decode_s'] * 1e3:.2f} ms "
+          f"({steps * b / out['decode_s']:.2f} tokens/s); peak memory "
+          f"{peak / 2**30:.3f} GiB; launches scan {got['selective_scan']}, "
+          f"flash {got['flash_attention']} (others 0) on {card}")
+    print(f"  logits finite, |max| {float(logits.float().abs().max()):.4f}; "
+          f"tokens[0][:8] {toks[0][:8].tolist()}")
+
+    # warm prefill: events around it, then its profile
+    max_seq = s + steps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _, cache = lm.prefill(cfg, params, prompts, max_seq=max_seq)
+    end.record()
+    end.synchronize()
+    print(f"  prefill {b}x{s} (warm, CUDA events): "
+          f"{start.elapsed_time(end):.2f} ms")
+    _profile(lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq),
+             f"prefill {b}x{s} profile")
+
+    def decode4():
+        c = cache
+        tok = prompts[:, -1]
+        for _ in range(4):
+            lg, c = lm.decode_step(cfg, params, c, tok)
+            tok = torch.argmax(lg, dim=-1)
+
+    _profile(decode4, "decode step profile (4 steps, per step)", per=4)
+
+    # prefill(S-1) -> decode(1) against prefill(S), the reference's check
+    # (tests/test_models_smoke.py, on fp32 configs, rtol = atol = 0.05): in
+    # fp32 at full width and depth, the bf16 model's weights upcast. Each
+    # call launches exactly what the path says. The served bf16 routes are
+    # printed beside it, with their distances from the fp32 logits.
+    _reset_all_counts()
+    _, short = lm.prefill(cfg, params, prompts[:, :-1], max_seq=s)
+    per_prefill = _lm_counts()
+    last, _ = lm.decode_step(cfg, params, short, prompts[:, -1])
+    torch.cuda.synchronize()
+    if per_prefill != want or _lm_counts() != want:
+        raise RuntimeError(f"a prefill launched {per_prefill}, a decode "
+                           f"step then {_lm_counts()}; expected {want} and "
+                           "nothing more")
+    del short
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = _upcast(params)
+    full32, _ = lm.prefill(cfg32, params32, prompts, max_seq=s)
+    _, short32 = lm.prefill(cfg32, params32, prompts[:, :-1], max_seq=s)
+    last32, _ = lm.decode_step(cfg32, params32, short32, prompts[:, -1])
+    torch.cuda.synchronize()
+    del params32, short32
+    diff = (last32 - full32).abs()
+    if not bool(torch.isfinite(full32).all()) or bool(
+            (diff > DECODE_ATOL + DECODE_RTOL * full32.abs()).any()):
+        raise RuntimeError(f"fp32 prefill(S-1)+decode vs prefill(S): max "
+                           f"|diff| {float(diff.max())} outside atol "
+                           f"{DECODE_ATOL} + rtol {DECODE_RTOL}")
+    bf16_pair = float((last.float() - logits.float()).abs().max())
+    print(f"  fp32, full width and depth: prefill({s - 1}) + decode(1) vs "
+          f"prefill({s}): max |diff| {float(diff.max()):.6f} of logits "
+          f"|max| {float(full32.abs().max()):.4f} (band atol {DECODE_ATOL} "
+          f"+ rtol {DECODE_RTOL}); argmax equal "
+          f"{bool(torch.equal(last32.argmax(-1), full32.argmax(-1)))}")
+    print(f"  bf16 (served): the same pair max |diff| {bf16_pair:.4f}, "
+          f"argmax equal "
+          f"{bool(torch.equal(last.argmax(-1), logits.argmax(-1)))}; "
+          f"distance from the fp32 prefill({s}) logits: prefill "
+          f"{float((logits.float() - full32).abs().max()):.4f}, "
+          f"prefill + decode {float((last.float() - full32).abs().max()):.4f}"
+          f"; per prefill {per_prefill}, per decode step 0")
+    del params, out, cache
+
+    # the first stage at full width: kernels vs plain, in fp32 (the bf16
+    # weights upcast) within STAGE_RTOL_F32 of each array's scale; in bf16,
+    # the served dtype, no further apart than bf16 itself moves the plain
+    # run from the fp32 one (bf16 turns the kernels' fp32-level gaps into
+    # whole-ULP flips that grow layer by layer; see PERF.md)
+    stage = cfg.with_(n_layers=cfg.attn_every)
+    sp = lm.init_params(stage, 3)
+    runs = {}
+    for tag, c, p_ in (("bf16", stage, sp),
+                       ("fp32", stage.with_(dtype="float32"), _upcast(sp))):
+        for impl in (None, "plain"):
+            lg, kc = lm.prefill(c, p_, prompts, max_seq=max_seq, impl=impl)
+            runs[tag, impl] = {"logits": lg, **{
+                f: getattr(kc, f) for f in ("k", "v", "conv", "ssm")}}
+    torch.cuda.synchronize()
+    f32_shares, bf16_shares = {}, {}
+    for name in runs["fp32", None]:
+        f32_shares[name] = _band(runs["fp32", None][name],
+                                 runs["fp32", "plain"][name], STAGE_RTOL_F32,
+                                 f"stage fp32 {name}")
+        floor = _band(runs["bf16", "plain"][name],
+                      runs["fp32", "plain"][name], float("inf"), "")
+        bf16_shares[name] = (_band(runs["bf16", None][name],
+                                   runs["bf16", "plain"][name], floor,
+                                   f"stage bf16 {name} (vs bf16's own "
+                                   "distance from fp32)"), floor)
+    print(f"  first stage ({stage.n_layers} Mamba2 layers + the shared "
+          "block, full width), kernels vs impl='plain', max |diff| as a "
+          "share of the plain array's scale: fp32 " + ", ".join(
+              f"{k} {v:.3g}" for k, v in f32_shares.items())
+          + f" (band {STAGE_RTOL_F32:.3g}); bf16 " + ", ".join(
+              f"{k} {v:.3g} (bf16 vs fp32: {fl:.3g})"
+              for k, (v, fl) in bf16_shares.items()))
+    return {name: got[name] for name in LM_WRAPPERS}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
     card = phase_card()
     rates = card_rates(torch.cuda.get_device_name(0))
     print(f"    rates for bounds: H100 SXM data sheet, "
-          f"{rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} TFLOP/s fp32")
+          f"{rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} TFLOP/s fp32, "
+          f"{BF16_TC_FLOPS / 1e12:.0f} TFLOP/s bf16 tensor cores, "
+          f"{SFU_RATE / 1e12:.3f} T exp/s")
     print("[2] build")
     t0 = time.perf_counter()
-    build.load("cada_update")
-    print(f"    built and loaded cada_update.cu in "
-          f"{time.perf_counter() - t0:.1f} s")
+    sources = ("cada_update", "ssm_scan", "flash_attention")
+    build.build_all(sources)
+    for name in sources:
+        build.load(name)
+    print(f"    built and loaded {', '.join(f'{n}.cu' for n in sources)} "
+          f"(one nvcc each, in parallel) in {time.perf_counter() - t0:.1f} s")
     params, batches, held_out = setup_main()
     layout = flat.layout_of(params)
-    print(f"[3] kernels vs plain (n_flat = {layout.n_flat})")
+    print(f"[3] kernels vs plain (n_flat = {layout.n_flat}; the serving "
+          "path's scan and attention)")
     main_shape = phase_kernels(rates, layout)
+    main_shape.update(phase_lm_kernels(rates))
     print("[4] main path")
     launches, skipping_c = phase_main(card, params, batches, held_out)
     profile_rounds("cada2", params, batches)
@@ -723,16 +1142,24 @@ def main() -> None:
     phase_lockstep("cada2", 1.0, params, batches)
     phase_lockstep("laq", skipping_c["laq"], params, batches)
     phase_lockstep("topk", skipping_c["topk"], params, batches)
-    src = "src/repro_torch/kernels/csrc/cada_update.cu"
+    print("[6] serving path")
+    launches.update(phase_serve(card))
+    csrc = "src/repro_torch/kernels/csrc/"
+    source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
+              "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",
+              "selective_scan": "ssm_scan.cu",
+              "flash_attention": "flash_attention.cu"}
     replaces = {"amsgrad": "src/repro/kernels/cada_update.py:34",
                 "batched_diff_sq": "src/repro/kernels/cada_update.py:106",
                 "batched_sq": "src/repro/kernels/cada_update.py:144",
-                "diff_sq": "src/repro/kernels/cada_update.py:174"}
-    kernels = [{"name": name, "route": "cuda", "source": src,
+                "diff_sq": "src/repro/kernels/cada_update.py:174",
+                "selective_scan": "src/repro/kernels/ssm_scan.py:39",
+                "flash_attention": "src/repro/kernels/flash_attention.py:33"}
+    kernels = [{"name": name, "route": "cuda", "source": csrc + source[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "library_ms": None, **main_shape[name],
                 "library_note": LIBRARY_NOTE[name]}
-               for name in WRAPPERS]
+               for name in (*WRAPPERS, *LM_WRAPPERS)]
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

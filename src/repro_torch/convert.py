@@ -1,9 +1,11 @@
 """Carry weights and engine state across from numpy.
 
-The JAX package's parameters and ``EngineState`` convert to numpy with
-``jax.tree.map(np.asarray, ...)``; these functions turn that numpy form into
-the port's tensors on ``device`` (None means ``cuda``, as everywhere in the
-port). They read fields by name and import nothing of the JAX package.
+The JAX package's parameters, ``EngineState`` and LM ``DecodeCache``
+convert to numpy with ``jax.tree.map(np.asarray, ...)``; these functions
+turn that numpy form into the port's tensors on ``device`` (None means
+``cuda``, as everywhere in the port). They read fields by name and import
+nothing of the JAX package. An LM's parameters (nested dicts, bf16 leaves
+included) go through :func:`params_from_numpy` leaf for leaf.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.core.flat import FlatCommState
 from repro_torch.device import resolve_device
+from repro_torch.models.model import DecodeCache
 from repro_torch.optim.adam import AdamState
 from repro_torch.optim.fused import FusedState
 from repro_torch.optim.sgd import MomentumState
@@ -74,3 +77,18 @@ def engine_state_from_numpy(state, device=None) -> EngineState:
             extras=params_from_numpy(dict(comm.extras), device)),
         params_flat=tensor_from_numpy(state.params_flat, device),
     )
+
+
+def decode_cache_from_numpy(cache, device=None) -> DecodeCache:
+    """The JAX package's LM ``DecodeCache`` (numpy leaves) as the port's:
+    ``index`` as a Python int, ``slot_pos`` and the K/V, conv and SSM
+    caches (None where the model has none) as tensors."""
+    device = resolve_device(device)
+
+    def opt(a):
+        return None if a is None else tensor_from_numpy(a, device)
+
+    return DecodeCache(index=int(cache.index),
+                       slot_pos=tensor_from_numpy(cache.slot_pos, device),
+                       k=opt(cache.k), v=opt(cache.v), conv=opt(cache.conv),
+                       ssm=opt(cache.ssm))

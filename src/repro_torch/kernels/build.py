@@ -40,21 +40,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    """Start nvcc on ``csrc/{name}.cu`` unless its library is built: into a
+    file of this process's own, renamed into place by :func:`_finish`, so
+    two processes never load a half-written library."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(job) -> None:
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                           f"{out.name}:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names) -> None:
+    """Compile every library of ``names`` that is not built yet, with one
+    nvcc per source, all started together; raises if any fails (after all
+    have ended)."""
+    jobs = [job for job in map(_start, names) if job is not None]
+    errors = []
+    for job in jobs:
+        try:
+            _finish(job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/{name}.cu``, compiling it first if it
-    is not built yet (into a file of this process's own, then renamed into
-    place, so two processes never load a half-written library)."""
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        done = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        if done.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({done.returncode}) for "
-                               f"{out.name}:\n{done.stdout}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    is not built yet."""
+    job = _start(name)
+    if job is not None:
+        _finish(job)
+    return ctypes.CDLL(str(library_path(name)))

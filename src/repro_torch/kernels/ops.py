@@ -1,8 +1,9 @@
-"""Dispatch of the flat ops between a CUDA kernel and its plain version.
+"""Dispatch of the ops between a CUDA kernel and its plain version.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``).
-A tensor on the card goes to the CUDA kernel (``kernels/cada_update.py``),
-which launches or raises: there is no fallback. ``impl="plain"`` forces the
+A tensor on the card goes to the CUDA kernel (``kernels/cada_update.py``,
+``kernels/ssm_scan.py``, ``kernels/flash_attention.py``), which launches or
+raises: there is no fallback. ``impl="plain"`` forces the
 plain version on any device; it exists so a comparison on the card can run
 both, and the engine's main path never passes it. ``impl="kernel"`` asks
 for the kernel and raises on a CPU tensor.
@@ -12,7 +13,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cada_update as _cu
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.utils.trees import tree_leaves
 
 IMPLS = (None, "plain", "kernel")
@@ -82,3 +85,20 @@ def eq3_row_mean(plane, m_total: int):
     """Eq. (3) aggregate increment, order-fixed (see ``ref.eq3_row_mean_ref``).
     The same plain loop runs on both devices until its kernel is ported."""
     return _ref.eq3_row_mean_ref(plane, m_total)
+
+
+def selective_scan(dt, x, a, b, c, *, impl=None):
+    """Selective scan from a zero state: (y (G, S, D) fp32 without the D·x
+    skip or the gate, h_final (G, D, N) fp32). dt/x (G, S, D); a (G, D, N)
+    (a zero-stride view over G is fine); b/c (G, S, N)."""
+    if use_kernel(dt, impl):
+        return _ss.selective_scan(dt, x, a, b, c)
+    return _ref.selective_scan_ref(dt, x, a, b, c)
+
+
+def flash_attention(q, k, v, *, window: int = 0, impl=None):
+    """Causal (optionally windowed) self-attention, q (B, S, Hq, hd), k/v
+    (B, S, Hkv, hd), GQA by a head-index map; output in q's dtype."""
+    if use_kernel(q, impl):
+        return _fa.flash_attention(q, k, v, window=window)
+    return _ref.flash_attention_ref(q, k, v, window=window)

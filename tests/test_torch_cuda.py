@@ -14,7 +14,13 @@ kernels stand between them); Σupd² and the difference-norm rows rtol 1e-5,
 the one-operand rows and the scalar ‖a−b‖² rtol 1e-6 (summation order);
 run-to-run results bitwise identical. The wire compressors are plain
 PyTorch on both devices and must give the same bits on the card as on the
-CPU.
+CPU. The selective scan: within 1e-5 of each array's scale, max |plain|
+(fp32 on both sides; y_t's N-sum runs in another order, and its rounding
+scales with the terms summed, not with y_t, which can cancel to near 0).
+fp32 flash attention within 1e-5 of max(1, |plain|) per element (sums
+over hd and over keys in other orders); bf16 flash attention within one
+bf16 ULP, 2⁻⁸ · max(1, |plain|) (both round the same fp32 result to bf16,
+which may straddle a rounding boundary).
 """
 import pytest
 import torch
@@ -25,7 +31,12 @@ from repro_torch import convert
 from repro_torch.core import flat
 from repro_torch.core.engine import CADAEngine
 from repro_torch.core.rules import CommRule
-from repro_torch.kernels import cada_update, ops, ref
+from repro_torch import configs as TC
+from repro_torch.kernels import cada_update, ops, ref, ssm_scan
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.models import attention as tattn
+from repro_torch.models import model as TM
+from repro_torch.models import ssm as tssm
 from repro_torch.models.small import logreg_init, logreg_loss
 from repro_torch.optim.fused import FusedAMSGrad
 
@@ -222,3 +233,140 @@ def test_converted_state_defaults_to_the_card(gen):
     before = cada_update.fused_amsgrad_flat.launches
     eng.step(got, (x, y))
     assert cada_update.fused_amsgrad_flat.launches == before + 1
+
+
+# ------------------------------------------------ selective scan and flash
+
+def _within(got, want, rtol):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    bound = rtol * want.abs().clamp_min(1.0)
+    assert bool(((got - want).abs() <= bound).all()), float(
+        (got - want).abs().max())
+
+
+def _within_scale(got, want, rtol):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    assert err <= rtol * float(want.abs().max()), err
+
+
+def _scan_operands(gen, g, s, d, n, lowp, shared_a=True):
+    dev = "cuda"
+    dt = (0.1 * torch.randn(g, s, d, generator=gen, device=dev)).abs()
+    x = torch.randn(g, s, d, generator=gen, device=dev)
+    a2 = -torch.randn(d, n, generator=gen, device=dev).abs()
+    a = a2.expand(g, d, n) if shared_a else a2.expand(g, d, n).clone()
+    b = torch.randn(g, s, n, generator=gen, device=dev)
+    c = torch.randn(g, s, n, generator=gen, device=dev)
+    if lowp:
+        x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    return dt, x, a, b, c
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 128, 16), (2, 100, 200, 8),
+                                   (3, 37, 520, 64), (1, 40, 96, 128),
+                                   (2, 300, 5120, 64)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_scan_kernel_matches_plain(gen, shape, lowp):
+    """Shapes with S and D that are not multiples of the kernel's tiles,
+    N from 8 to 128, bf16 x/B/C, one A shared by every group (a zero-stride
+    view) and one per group."""
+    ops_ = _scan_operands(gen, *shape, lowp, shared_a=shape[0] != 3)
+    before = ssm_scan.selective_scan.launches
+    y, h = ops.selective_scan(*ops_)
+    assert ssm_scan.selective_scan.launches == before + 1
+    y2, h2 = ops.selective_scan(*ops_)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yp, hp = ops.selective_scan(*ops_, impl="plain")
+    assert ssm_scan.selective_scan.launches == before + 2
+    _within_scale(y, yp, 1e-5)
+    _within_scale(h, hp, 1e-5)
+
+
+@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (8, 2, 0),
+                                           (4, 2, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(gen, hd, hq, hkv, window, dtype):
+    s = 333     # not a multiple of the 64-row tiles
+    q = torch.randn(2, s, hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    before = tfa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    assert tfa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=window))
+    want = ops.flash_attention(q, k, v, window=window, impl="plain")
+    _within(out, want, 1e-5 if dtype == torch.float32 else 2.0 ** -8)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(gen):
+    q = torch.randn(1, 64, 4, 80, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    for hd in (48, 64):
+        with pytest.raises(ValueError, match="head dim"):
+            qh = q[..., :hd].contiguous()
+            ops.flash_attention(qh, qh, qh)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            q, q)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, q[:, :, :3].contiguous(),
+                            q[:, :, :3].contiguous())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa.flash_attention(q, q.cpu(), q)
+    dt, x, a, b, c = _scan_operands(gen, 2, 16, 64, 16, False)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.selective_scan(dt.bfloat16(), x, a, b, c)
+    with pytest.raises(ValueError, match="b and c"):
+        ops.selective_scan(dt, x, a, b.bfloat16(), c)
+    with pytest.raises(ValueError, match="N <="):
+        big = torch.zeros(2, 16, 200, device="cuda")
+        ops.selective_scan(dt, x, torch.zeros(2, 64, 200, device="cuda"),
+                           big, big)
+    with pytest.raises(ValueError, match="block of a"):
+        ops.selective_scan(dt, x, a.transpose(1, 2).contiguous()
+                           .transpose(1, 2), b, c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm_scan.selective_scan(dt, x.cpu(), a, b, c)
+    with pytest.raises(NotImplementedError, match="h0"):
+        tssm._scan(dt, x, a[0], b, c, torch.zeros(2, 64, 16, device="cuda"))
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        pos = torch.arange(64, device="cuda")
+        tattn.causal_attention(q, q, q, positions_q=pos, positions_k=pos)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "falcon-mamba-7b",
+                                  "internlm2-1.8b"])
+def test_prefill_launches_the_kernels_and_decode_none(gen, arch):
+    """A prefill on the card runs every SSM layer through the scan kernel
+    and every attention through the flash kernel; a decode step launches
+    neither. Its logits and cache agree with ``impl="plain"``."""
+    cfg = TC.get_smoke_config(arch)
+    params = TM.init_params(cfg, 0)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                         device="cuda")
+    n_ssm = cfg.n_layers if cfg.block != "dense" else 0
+    n_attn = TM._n_attn_layers(cfg)
+    before = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
+    logits, cache = TM.prefill(cfg, params, toks, max_seq=48)
+    assert (ssm_scan.selective_scan.launches - before[0],
+            tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
+    plain, pcache = TM.prefill(cfg, params, toks, max_seq=48, impl="plain")
+    assert (ssm_scan.selective_scan.launches - before[0],
+            tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
+    _within(logits, plain, 1e-4)
+    for f in ("k", "v", "conv", "ssm"):
+        if getattr(cache, f) is not None:
+            _within(getattr(cache, f), getattr(pcache, f), 1e-4)
+    mid = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
+    out, _ = TM.decode_step(cfg, params, cache, torch.argmax(logits, -1))
+    assert (ssm_scan.selective_scan.launches,
+            tfa.flash_attention.launches) == mid
+    assert bool(torch.isfinite(out).all())

@@ -84,6 +84,17 @@ def test_every_module_imports_with_jax_and_repro_refused():
     assert out.stdout.startswith("ok")
 
 
+def test_the_serving_slice_is_covered():
+    """The two tests above walk every module of the port; the serving
+    slice's modules are among them."""
+    assert {"repro_torch.configs", "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.ssm",
+            "repro_torch.models.model", "repro_torch.kernels.ssm_scan",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.serve"} <= set(_modules())
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no
