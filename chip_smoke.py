@@ -40,10 +40,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
      and with ``impl="plain"``: last logits, SSM/conv states and KV cache
      within a stated band.
 Phase 3 also holds the selective scan and flash attention against their
-plain versions at the serving path's shapes (flash also at a GQA shape and
-with a window), with their times, bounds and, for flash, the library
-call's time. Then it prints one JSON line with every kernel, and last the
-line
+plain versions at the serving path's shapes, with their times beside
+their device times before their redesign, their bounds and, for flash,
+the library call's time: the scan in the served form (Mamba2's A, a
+stride-0 view on N: one decay per channel; h_final bit-equal to the same
+call with A materialised) and untimed with a general A, also at
+falcon-mamba-7b's widths (device time printed); flash in bf16 on the
+tensor cores, at a GQA shape and with a window. Then it prints one JSON line with every kernel,
+and last the line
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside the
 checkout, it exits non-zero and prints no result.
 """
@@ -123,7 +127,16 @@ SCAN_RTOL = 1e-5          # scan kernel vs plain, of each array's scale:
 #                           fp32; the N-sum's order (its rounding scales
 #                           with the terms, and y_t can cancel to near 0)
 FLASH_RTOL_F32 = 1e-5     # flash kernel vs plain, fp32: sum orders
-FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP
+FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP below |o| = 1;
+#   where |o| >= 1 the tensor-core kernel (its scores and P differ from the
+#   plain version's at the fp32 level) may round to the other bf16
+#   neighbour, so an element outside this band must be a single rounding
+#   flip: within one bf16 ULP of the plain result computed in fp32
+#   (flash_bf16_gaps; PERF.md §6 has the measured counts)
+# the two redesigned kernels' device times at the served shapes before
+# their redesign (the per-state scan and the CUDA-core flash kernel;
+# PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 1.990}
 STAGE_RTOL_F32 = 1e-4     # first stage, fp32, kernels vs plain: the
 #                           kernels' ~1e-6 gaps through 7 blocks of fp32
 #                           GEMMs and nonlinearities, no rounding to bf16
@@ -498,64 +511,113 @@ def _scale_err(got, want) -> float:
         1e-30))
 
 
-def check_scan(g: int, s: int, d: int, n: int, rates, gen,
-               timed: bool) -> dict:
+def _scan_a(g: int, d: int, n: int, headdim: int, per_channel: bool, gen):
+    """A as the models pass it: Mamba2's (one value per head of
+    ``headdim`` channels, a zero-stride view on N) or Mamba1's dense
+    (D, N); one block shared by the groups as a zero-stride view over G."""
+    dev = "cuda"
+    if per_channel:
+        heads = -(-d // headdim)
+        a_h = -(1.0 + 15.0 * torch.rand(heads, generator=gen, device=dev))
+        a2 = torch.repeat_interleave(a_h, headdim)[:d, None].expand(d, n)
+    else:
+        a2 = -torch.randn(d, n, generator=gen, device=dev).abs()
+    return a2.expand(g, d, n)
+
+
+def check_scan(g: int, s: int, d: int, n: int, headdim: int, rates, gen,
+               timed: bool, per_channel: bool) -> dict:
     """The scan kernel against its plain version on the serving path's
-    operand types: dt fp32, x/B/C bf16, one (D, N) A shared by the groups
-    as a zero-stride view (as ``models/ssm.py`` passes it)."""
+    operand types: dt fp32, x/B/C bf16; A per channel (one value per head
+    of ``headdim`` channels as a zero-stride view on N, the served Mamba2
+    form) or general (dense, Mamba1). The
+    per-channel form must also give the h_final of the same call with A
+    materialised (the general form) bit for bit, and its y within
+    SCAN_RTOL."""
     dev = "cuda"
     dt = (0.1 * torch.randn(g, s, d, generator=gen, device=dev)).abs()
     x = torch.randn(g, s, d, generator=gen, device=dev).bfloat16()
-    a = -torch.randn(d, n, generator=gen, device=dev).abs()
-    a = a.expand(g, d, n)
+    a = _scan_a(g, d, n, headdim, per_channel, gen)
     b = torch.randn(g, s, n, generator=gen, device=dev).bfloat16()
     c = torch.randn(g, s, n, generator=gen, device=dev).bfloat16()
+    form = "per-channel A" if per_channel else "general A"
+    shape = (g, s, d, n)
     y, h = scan_kernel.selective_scan(dt, x, a, b, c)
     y2, h2 = scan_kernel.selective_scan(dt, x, a, b, c)
     yp, hp = ref.selective_scan_ref(dt, x, a, b, c)
     torch.cuda.synchronize()
     if not (torch.equal(y, y2) and torch.equal(h, h2)):
-        raise RuntimeError(f"scan {(g, s, d, n)}: two identical calls differ")
+        raise RuntimeError(f"scan {shape} {form}: two identical calls "
+                           "differ")
     err = max(_scale_err(y, yp), _scale_err(h, hp))
     if err > SCAN_RTOL:
-        raise RuntimeError(f"scan {(g, s, d, n)}: error {err} > {SCAN_RTOL}")
-    label = f"  selective_scan (G,S,D,N)={(g, s, d, n)} x/B/C bf16"
-    if not timed:
-        print(f"{label}: max err {err:.3g} of the plain arrays' scale, "
-              "run-to-run identical")
-        return {"max_abs_err": float(max((y - yp).abs().max(),
-                                          (h - hp).abs().max()))}
-    gsd, gsn, elems = g * s * d, g * s * n, g * s * d * n
-    # dt fp32, x bf16, one (D, N) A, B/C bf16; y fp32, h_final fp32
-    nbytes = (4 * gsd + 2 * gsd + 4 * d * n + 2 * 2 * gsn + 4 * gsd
-              + 4 * g * d * n)
-    # per (g, t, d, n): dt·a, decay·h + drive (2), dx·b, h·c summed (2)
-    t_bytes, t_flops, t_exp = (nbytes / rates[0], 6 * elems / rates[1],
-                               elems / SFU_RATE)
-    bound = max(t_bytes, t_flops, t_exp) * 1e3
-    bound_by = "bytes" if t_bytes >= max(t_flops, t_exp) else "operations"
+        raise RuntimeError(f"scan {shape} {form}: error {err} > "
+                           f"{SCAN_RTOL}")
+    label = f"  selective_scan (G,S,D,N)={shape} {form}, x/B/C bf16"
+    note = ""
+    am = a[0].contiguous().expand(g, d, n)
+    if per_channel:
+        ym, hm = scan_kernel.selective_scan(dt, x, am, b, c)
+        torch.cuda.synchronize()
+        if not torch.equal(h, hm):
+            raise RuntimeError(f"scan {shape}: h_final differs from the "
+                               "materialised-A call")
+        y_gap = _scale_err(y, ym)
+        if y_gap > SCAN_RTOL:
+            raise RuntimeError(f"scan {shape}: y is {y_gap} from the "
+                               "materialised-A call")
+        note = (f", h_final bit-equal to the materialised-A call (y "
+                f"{'bit-equal' if torch.equal(y, ym) else f'{y_gap:.3g}'})")
+    abs_err = float(max((y - yp).abs().max(), (h - hp).abs().max()))
+    head = (f"{label}: max err {err:.3g} of the plain arrays' scale, "
+            f"run-to-run identical{note}")
 
     def kernel():
         return scan_kernel.selective_scan(dt, x, a, b, c)
 
+    if not timed:
+        dev_ms = device_ms(kernel, ("ssm_scan_kernel",), calls=5)
+        print(f"{head}; kernel device {_ms(dev_ms)}")
+        return {"max_abs_err": abs_err, "device_ms": dev_ms}
+    gsd, gsn, elems = g * s * d, g * s * n, g * s * d * n
+    # dt fp32, x bf16, A (one value per channel, or per (channel, state)),
+    # B/C bf16; y fp32, h_final fp32
+    a_bytes = 4 * d * (1 if per_channel else n)
+    nbytes = (4 * gsd + 2 * gsd + a_bytes + 2 * 2 * gsn + 4 * gsd
+              + 4 * g * d * n)
+    # per (g, t, d, n): decay·h + drive, dx·b, h·c: 3 FMA-class operations
+    # (6 flops); one exponential per (g, t, d) or per (g, t, d, n)
+    n_exp = gsd if per_channel else elems
+    t_bytes, t_flops, t_exp = (nbytes / rates[0], 6 * elems / rates[1],
+                               n_exp / SFU_RATE)
+    bound = max(t_bytes, t_flops, t_exp) * 1e3
+    bound_by = "bytes" if t_bytes >= max(t_flops, t_exp) else "operations"
+
     def plain():
         return ref.selective_scan_ref(dt, x, a, b, c)
+
+    def materialised():
+        return scan_kernel.selective_scan(dt, x, am, b, c)
 
     ms = time_ms(kernel, calls=10, repeats=3)
     plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
     dev_ms = device_ms(kernel, ("ssm_scan_kernel",), calls=5)
     plain_dev = device_ms(plain, calls=1)
-    print(f"{label}: max err {err:.3g} of the plain arrays' scale, "
-          f"run-to-run identical; kernel {ms:.3f} ms/call (device "
-          f"{_ms(dev_ms)}), plain "
+    extra = ""
+    if per_channel:
+        mat_dev = device_ms(materialised, ("ssm_scan_kernel",), calls=5)
+        extra = (f"; the same call with A materialised (general form) "
+                 f"device {_ms(mat_dev)}")
+    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}; before "
+          f"the redesign {EARLIER_DEVICE_MS['selective_scan']} ms, PERF.md), "
+          f"plain "
           f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), bound "
           f"{bound:.4f} ms by {bound_by} (bytes {t_bytes * 1e3:.4f}, fp32 "
-          f"ops {t_flops * 1e3:.4f}, {elems:.3g} exp {t_exp * 1e3:.4f} ms)")
-    return {"max_abs_err": float(max((y - yp).abs().max(),
-                                     (h - hp).abs().max())),
-            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
-            "plain_device_ms": plain_dev, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+          f"ops {t_flops * 1e3:.4f}, {n_exp:.3g} exp {t_exp * 1e3:.4f} ms)"
+          f"{extra}")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "plain_device_ms": plain_dev,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def _live_pairs(s: int, window: int) -> int:
@@ -563,6 +625,30 @@ def _live_pairs(s: int, window: int) -> int:
     if not window:
         return s * (s + 1) // 2
     return sum(min(i + 1, window) for i in range(s))
+
+
+def _bf16_ulps(got, want32):
+    """|got − want32| in bf16 ULPs of the fp32 value want32, elementwise;
+    the ULP of a want32 of 0 is 2⁻¹³³, bf16's least subnormal (the rule of
+    ``tests/test_torch_cuda.py``'s ``_within_bf16_flash``)."""
+    _, e = torch.frexp(want32)
+    ulp = torch.where(want32 == 0, torch.full_like(want32, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(want32), e - 8))
+    return (got.float() - want32).abs() / ulp
+
+
+def flash_bf16_gaps(out, want, want32) -> tuple[float, int, float]:
+    """The bf16 flash check: each element within FLASH_RTOL_BF16 of
+    max(1, |plain bf16|) or, where not, a single rounding flip — within
+    one bf16 ULP of the plain result computed in fp32 from the same bf16
+    inputs (``want32``). Returns (max err of max(1, |plain|), elements
+    outside that band, their max distance from ``want32`` in bf16 ULP)."""
+    rel = ((out.float() - want.float()).abs()
+           / want.float().abs().clamp_min(1.0))
+    outside = rel > FLASH_RTOL_BF16
+    ulps = _bf16_ulps(out, want32)[outside]
+    return (float(rel.max()), int(outside.sum()),
+            float(ulps.max()) if ulps.numel() else 0.0)
 
 
 def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
@@ -576,18 +662,26 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
     out = fa_kernel.flash_attention(q, k, v, window=window)
     again = fa_kernel.flash_attention(q, k, v, window=window)
     want = ref.flash_attention_ref(q, k, v, window=window)
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     window=window)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise RuntimeError("flash: two identical calls differ")
-    err = _rel_err(out, want)
+    err, n_out, ulps = flash_bf16_gaps(out, want, want32)
     label = (f"  flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
              f"window={window} bf16")
-    if err > FLASH_RTOL_BF16:
-        raise RuntimeError(f"{label}: error {err} > {FLASH_RTOL_BF16}")
+    gaps = (f"max err {err:.3g} of max(1,|plain|); {n_out} elements outside "
+            f"{FLASH_RTOL_BF16:.3g}·max(1,|plain|), at most {ulps:.3g} bf16 "
+            f"ULP from the fp32 plain result; "
+            f"{int((out != want).sum())} of {out.numel()} elements differ "
+            "from the plain bf16 output")
+    if ulps > 1.0:
+        raise RuntimeError(f"{label}: not only single rounding flips: "
+                           f"{gaps}")
     abs_err = float((out.float() - want.float()).abs().max())
+    head = f"{label}: {gaps}; run-to-run identical"
     if not timed:
-        print(f"{label}: max err {err:.3g} of max(1,|plain|), run-to-run "
-              "identical")
+        print(head)
         return {"max_abs_err": abs_err}
     flops = 4 * hd * _live_pairs(s, window) * b * hq
     nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
@@ -613,8 +707,9 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
     dev_ms = device_ms(kernel, ("flash_fwd_kernel",), calls=5)
     plain_dev = device_ms(plain, calls=2)
     lib_dev = device_ms(library, calls=5)
-    print(f"{label}: max err {err:.3g} of max(1,|plain|), run-to-run "
-          f"identical; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}), plain "
+    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}; before "
+          f"the redesign {EARLIER_DEVICE_MS['flash_attention']} ms, PERF.md), "
+          f"plain "
           f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), "
           f"scaled_dot_product_attention {lib_ms:.4f} ms/call (device "
           f"{_ms(lib_dev)}, err {lib_err:.3g}), bound {bound:.4f} ms by "
@@ -627,14 +722,22 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
 
 def phase_lm_kernels(rates) -> dict:
     """The scan and flash kernels at the serving path's shapes (zamba2-2.7b,
-    B = 2, S = 2048: scan G = 2, D = 5120, N = 64; flash 32 heads of 80),
-    then at shapes off that path."""
+    B = 2, S = 2048: scan G = 2, D = 5120, N = 64 with Mamba2's A; flash 32
+    heads of 80), then at shapes off that path: the scan with a general A,
+    also at falcon-mamba-7b's widths (G = 2, S = 512, D = 8192, N = 16)."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2)
+    hdim = cfg.mamba_headdim
     main = {"selective_scan": check_scan(
-        SERVE_BATCH, SERVE_SEQ, cfg.d_inner, cfg.ssm_state, rates, gen,
-        timed=True)}
-    check_scan(3, 333, 520, 16, rates, gen, timed=False)
+        SERVE_BATCH, SERVE_SEQ, cfg.d_inner, cfg.ssm_state, hdim, rates, gen,
+        timed=True, per_channel=True)}
+    check_scan(3, 333, 520, 16, hdim, rates, gen, timed=False,
+               per_channel=False)
+    check_scan(3, 333, 520, 16, hdim, rates, gen, timed=False,
+               per_channel=True)
+    fm = lm_configs.get_config("falcon-mamba-7b")
+    check_scan(SERVE_BATCH, 512, fm.d_inner, fm.ssm_state, hdim, rates, gen,
+               timed=False, per_channel=False)
     main["flash_attention"] = check_flash(
         SERVE_BATCH, SERVE_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
         rates, gen, timed=True)

@@ -36,9 +36,10 @@ def flash_attention(q, k, v, *, window: int = 0):
     """Causal (optionally windowed) self-attention on the card.
 
     q (B, S, Hq, hd), k/v (B, S, Hkv, hd), all contiguous and all fp32 or
-    all bf16; Hq a multiple of Hkv; hd in ``HEAD_DIMS``; ``window`` 0 (full
-    causal) or the number of positions a query sees, itself included.
-    Returns (B, S, Hq, hd) in q's dtype.
+    all bf16 (bf16: on the tensor cores, each operand 16-byte aligned);
+    Hq a multiple of Hkv; hd in ``HEAD_DIMS``; ``window`` 0 (full causal)
+    or the number of positions a query sees, itself included. Returns
+    (B, S, Hq, hd) in q's dtype.
     """
     name = "flash_attention"
     for key, t in (("q", q), ("k", k), ("v", v)):
@@ -74,6 +75,10 @@ def flash_attention(q, k, v, *, window: int = 0):
                          f"takes {HEAD_DIMS}")
     if b * hq > MAX_ROWS:
         raise ValueError(f"{name}: B * Hq = {b * hq} exceeds {MAX_ROWS}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 q, k and v must be 16-byte aligned "
+                         "(the kernel copies 16-byte chunks)")
     window = int(window)
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")

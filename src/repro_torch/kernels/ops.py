@@ -90,7 +90,8 @@ def eq3_row_mean(plane, m_total: int):
 def selective_scan(dt, x, a, b, c, *, impl=None):
     """Selective scan from a zero state: (y (G, S, D) fp32 without the D·x
     skip or the gate, h_final (G, D, N) fp32). dt/x (G, S, D); a (G, D, N)
-    (a zero-stride view over G is fine); b/c (G, S, N)."""
+    (a zero-stride view over G is fine; stride 0 on N gives the kernel's
+    one-decay-per-channel form); b/c (G, S, N)."""
     if use_kernel(dt, impl):
         return _ss.selective_scan(dt, x, a, b, c)
     return _ref.selective_scan_ref(dt, x, a, b, c)

@@ -17,15 +17,16 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_STATE = 128    # N: a lane holds at most 4 of a channel's states
+MAX_STATE = 128    # N: a block holds 8 states per warp, 16 warps
 MAX_GROUPS = 65535
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssm_scan")
-    lib.ssm_scan.argtypes = [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P]
+    _L = ctypes.c_longlong
+    lib.ssm_scan.argtypes = [_P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P]
     lib.ssm_scan.restype = _I
     lib.ssm_scan_error_string.argtypes = [_I]
     lib.ssm_scan_error_string.restype = ctypes.c_char_p
@@ -36,11 +37,14 @@ def selective_scan(dt, x, a, b, c):
     """The selective scan on the card: (y (G, S, D) fp32, h_final (G, D, N)
     fp32) from a zero start state, without the D·x skip or the gate.
 
-    dt (G, S, D) fp32; x (G, S, D) fp32 or bf16; a (G, D, N) fp32 whose
-    (D, N) blocks are each contiguous — a zero-stride view over G, as from
-    ``a2d.expand(G, D, N)``, is taken as it is and never materialised;
-    b, c (G, S, N), both fp32 or both bf16. dt, x, b and c contiguous.
-    bf16 operands are upcast to fp32 inside the kernel.
+    dt (G, S, D) fp32; x (G, S, D) fp32 or bf16; a (G, D, N) fp32, any
+    stride over G (a zero-stride view, as from ``a2d.expand(G, D, N)``, is
+    taken as it is and never materialised), and over (D, N) either a
+    contiguous block (Mamba1's dense A: one exponential per state) or a
+    zero stride on N (Mamba2's A, constant along N, as from
+    ``a_d[:, None].expand(D, N)``: one exponential per channel, applied to
+    all N states); b, c (G, S, N), both fp32 or both bf16. dt, x, b and c
+    contiguous. bf16 operands are upcast to fp32 inside the kernel.
     """
     name = "selective_scan"
     ops_ = {"dt": dt, "x": x, "a": a, "b": b, "c": c}
@@ -76,16 +80,16 @@ def selective_scan(dt, x, a, b, c):
                          f"{MAX_GROUPS}, got N = {n}, G = {g}")
     if not all(t.is_contiguous() for t in (dt, x, b, c)):
         raise ValueError(f"{name}: dt, x, b and c must be contiguous")
-    if not a[0].is_contiguous():
+    if a.stride(2) != 0 and not a[0].is_contiguous():
         raise ValueError(f"{name}: each (D, N) block of a must be "
-                         "contiguous")
+                         "contiguous or have stride 0 on N")
     lib = _lib()
     y = torch.empty((g, s, d), dtype=torch.float32, device=dt.device)
     hfin = torch.empty((g, d, n), dtype=torch.float32, device=dt.device)
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = lib.ssm_scan(
-            dt.data_ptr(), x.data_ptr(), a.data_ptr(), a.stride(0),
+            dt.data_ptr(), x.data_ptr(), a.data_ptr(), *a.stride(),
             b.data_ptr(), c.data_ptr(), y.data_ptr(), hfin.data_ptr(), g, s,
             d, n, int(x.dtype == torch.bfloat16),
             int(b.dtype == torch.bfloat16), stream)

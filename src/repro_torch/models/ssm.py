@@ -27,9 +27,10 @@ from repro_torch.models.layers import causal_conv1d, conv1d_step, rmsnorm
 
 def _scan(dt, x, a, b, c, h0, impl=None):
     """dt/x (B, S, D), a (D, N), b/c (B, S, N) -> (y, h_final). A is passed
-    to the kernel as a zero-stride (B, D, N) view, never materialised; x, b
-    and c go in their own dtype (the kernel and the plain version upcast,
-    as the reference's ``_scan`` does before its kernel)."""
+    to the kernel as a zero-stride (B, D, N) view, never materialised (and
+    keeps a zero stride on N where it has one); x, b and c go in their own
+    dtype (the kernel and the plain version upcast, as the reference's
+    ``_scan`` does before its kernel)."""
     a_g = a.float()[None].expand(dt.shape[0], *a.shape)
     if h0 is None:
         return ops.selective_scan(dt.float(), x, a_g, b, c, impl=impl)
@@ -107,13 +108,14 @@ def _mamba2_split(params, cfg: ModelConfig, xn):
 
 
 def _mamba2_scan_inputs(params, cfg: ModelConfig, dt_raw):
-    """Per-head Δ/A repeated across head_dim onto the flat channel axis."""
+    """Per-head Δ/A repeated across head_dim onto the flat channel axis.
+    A (di, N) is a view with stride 0 on N, never materialised: the scan
+    kernel reads that stride and computes one decay per channel."""
     hd, n = cfg.mamba_headdim, cfg.ssm_state
     dt = F.softplus(dt_raw.float() + params["dt_bias"])       # (B,S,H)
     dt_e = torch.repeat_interleave(dt, hd, dim=-1)             # (B,S,di)
     a_h = -torch.exp(params["A_log"].float())                  # (H,)
-    a_e = torch.repeat_interleave(a_h, hd)[:, None] * torch.ones(
-        (1, n), dtype=torch.float32, device=a_h.device)
+    a_e = torch.repeat_interleave(a_h, hd)[:, None].expand(-1, n)
     return dt_e, a_e
 
 

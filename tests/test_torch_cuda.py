@@ -18,9 +18,10 @@ CPU. The selective scan: within 1e-5 of each array's scale, max |plain|
 (fp32 on both sides; y_t's N-sum runs in another order, and its rounding
 scales with the terms summed, not with y_t, which can cancel to near 0).
 fp32 flash attention within 1e-5 of max(1, |plain|) per element (sums
-over hd and over keys in other orders); bf16 flash attention within one
-bf16 ULP, 2⁻⁸ · max(1, |plain|) (both round the same fp32 result to bf16,
-which may straddle a rounding boundary).
+over hd and over keys in other orders); bf16 flash attention (the
+tensor-core kernel) within 2⁻⁸ · max(1, |plain|) per element, or else a
+single rounding flip: within one bf16 ULP of the plain result computed in
+fp32 from the same bf16 inputs (above |o| = 1 a flip exceeds 2⁻⁸ of |o|).
 """
 import pytest
 import torch
@@ -245,6 +246,30 @@ def _within(got, want, rtol):
         (got - want).abs().max())
 
 
+def _within_bf16_flash(got, q, k, v, window):
+    """The bf16 flash check: each element within 2⁻⁸·max(1, |plain|) of
+    the plain bf16 output or, where not, a single rounding flip — within
+    one bf16 ULP of the plain result computed in fp32 from the same bf16
+    inputs, the ULP of an fp32 reference of 0 taken as 2⁻¹³³, bf16's
+    least subnormal (the rule of ``chip_smoke.py``'s ``_bf16_ulps``).
+    Above |o| = 1 a bf16 ULP is 2⁻⁷ of |o| or more, and the tensor-core
+    kernel's fp32 result (bf16 q·k scaled after the product, P as two
+    bf16 halves) can fall on the other side of a rounding boundary from
+    the plain version's."""
+    want = ops.flash_attention(q, k, v, window=window, impl="plain")
+    want32 = ops.flash_attention(q.float(), k.float(), v.float(),
+                                 window=window, impl="plain")
+    got, wf = got.float(), want.float()
+    assert got.shape == want.shape
+    outside = (got - wf).abs() > 2.0 ** -8 * wf.abs().clamp_min(1.0)
+    _, e = torch.frexp(want32)
+    ulp = torch.where(want32 == 0, torch.full_like(want32, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(want32), e - 8))
+    flip = (got - want32).abs() <= ulp
+    assert bool((flip | ~outside).all()), (
+        int(outside.sum()), int((outside & ~flip).sum()))
+
+
 def _within_scale(got, want, rtol):
     got, want = got.float(), want.float()
     assert got.shape == want.shape
@@ -285,6 +310,60 @@ def test_scan_kernel_matches_plain(gen, shape, lowp):
     _within_scale(h, hp, 1e-5)
 
 
+def _mamba2_a(gen, g, d, n, hd=64):
+    """Mamba2's A: one value per head of ``hd`` channels, a view with
+    stride 0 on N and over G, as ``models/ssm.py`` passes it."""
+    a_h = -(1.0 + 15.0 * torch.rand(-(-d // hd), generator=gen,
+                                    device="cuda"))
+    a = torch.repeat_interleave(a_h, hd)[:d, None].expand(d, n)
+    return a[None].expand(g, d, n)
+
+
+@pytest.mark.parametrize("shape", [(2, 333, 200, 16), (3, 100, 520, 64),
+                                   (1, 45, 101, 128), (2, 77, 96, 64)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_scan_kernel_mamba2_form_matches_materialised(gen, shape, lowp):
+    """A with stride 0 on N (one decay per channel) against the same call
+    with A materialised (one exponential per state): h_final bit for bit
+    (both write the state update as one fmaf of the same decay), y within
+    1e-5 of its scale; both against the plain version. S and D are not
+    multiples of the kernel's tiles; D = 101 leaves x's rows unaligned."""
+    g, s, d, n = shape
+    dt, x, _, b, c = _scan_operands(gen, g, s, d, n, lowp)
+    a = _mamba2_a(gen, g, d, n)
+    assert a.stride(2) == 0
+    before = ssm_scan.selective_scan.launches
+    y, h = ops.selective_scan(dt, x, a, b, c)
+    assert ssm_scan.selective_scan.launches == before + 1
+    y2, h2 = ops.selective_scan(dt, x, a, b, c)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    am = a[0].contiguous().expand(g, d, n)
+    ym, hm = ops.selective_scan(dt, x, am, b, c)
+    assert torch.equal(h, hm)
+    _within_scale(y, ym, 1e-5)
+    yp, hp = ops.selective_scan(dt, x, a, b, c, impl="plain")
+    _within_scale(y, yp, 1e-5)
+    _within_scale(h, hp, 1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 333, 2048])
+@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_bf16_tensor_core_kernel_matches_plain(gen, s, hd, window):
+    """The bf16 instance (tensor cores) at lengths below, at and around
+    the 64-row tiles, GQA 8/2, with and without a window of 100."""
+    b = 1 if s == 2048 else 2
+    q = torch.randn(b, s, 8, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, s, 2, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, s, 2, hd, generator=gen, device="cuda").bfloat16()
+    before = tfa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    assert tfa.flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=window))
+    _within_bf16_flash(out, q, k, v, window)
+
+
 @pytest.mark.parametrize("hd", [32, 80, 128])
 @pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (8, 2, 0),
                                            (4, 2, 100)])
@@ -299,8 +378,11 @@ def test_flash_kernel_matches_plain(gen, hd, hq, hkv, window, dtype):
     assert tfa.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     assert torch.equal(out, ops.flash_attention(q, k, v, window=window))
-    want = ops.flash_attention(q, k, v, window=window, impl="plain")
-    _within(out, want, 1e-5 if dtype == torch.float32 else 2.0 ** -8)
+    if dtype == torch.bfloat16:
+        _within_bf16_flash(out, q, k, v, window)
+    else:
+        want = ops.flash_attention(q, k, v, window=window, impl="plain")
+        _within(out, want, 1e-5)
 
 
 def test_lm_kernels_refuse_what_they_do_not_take(gen):
@@ -321,7 +403,20 @@ def test_lm_kernels_refuse_what_they_do_not_take(gen):
                             q[:, :, :3].contiguous())
     with pytest.raises(RuntimeError, match="CUDA"):
         tfa.flash_attention(q, q.cpu(), q)
+    qb = q.bfloat16()
+    off = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(off, qb, qb)
     dt, x, a, b, c = _scan_operands(gen, 2, 16, 64, 16, False)
+    a_pc = a[:, :, :1].expand(2, 64, 16)      # stride 0 on N: taken
+    assert a_pc.stride(2) == 0
+    ops.selective_scan(dt, x, a_pc, b, c)
+    for i in (0, 1, 3, 4):                    # dt, x, b, c: contiguous only
+        args = [dt, x, a, b, c]
+        args[i] = args[i].transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.selective_scan(*args)
     with pytest.raises(ValueError, match="fp32"):
         ops.selective_scan(dt.bfloat16(), x, a, b, c)
     with pytest.raises(ValueError, match="b and c"):

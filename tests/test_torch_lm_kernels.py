@@ -25,9 +25,11 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch import configs as TC
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ssm_scan
+from repro_torch.models import ssm as tssm
 
 torch.set_num_threads(1)
 
@@ -82,6 +84,35 @@ def test_plain_scan_takes_a_broadcast_a():
     a2 = a[0]
     y1, h1 = ops.selective_scan(dt, x, a2.expand(3, *a2.shape), b, c)
     y2, h2 = ops.selective_scan(dt, x, a2.expand(3, *a2.shape).clone(), b, c)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_mamba2_scan_inputs_give_a_as_a_stride0_view_on_n():
+    """Mamba2's A reaches the scan as a view with stride 0 on N (the scan
+    kernel reads that stride and computes one decay per channel), with
+    the values the materialised A had; the plain scan gives the same bits
+    from the view and from the materialised A."""
+    cfg = TC.get_smoke_config("zamba2-2.7b")
+    rng = np.random.default_rng(5)
+    hn, hd, n = cfg.ssm_heads, cfg.mamba_headdim, cfg.ssm_state
+    params = {"A_log": tensor_from_numpy(
+                  rng.normal(size=hn).astype(np.float32), "cpu"),
+              "dt_bias": tensor_from_numpy(
+                  rng.normal(size=hn).astype(np.float32), "cpu")}
+    dt_raw = tensor_from_numpy(
+        rng.normal(size=(2, 24, hn)).astype(np.float32), "cpu")
+    dt, a = tssm._mamba2_scan_inputs(params, cfg, dt_raw)
+    assert a.shape == (cfg.d_inner, n) and a.stride(-1) == 0
+    a_h = -torch.exp(params["A_log"].float())
+    a_mat = torch.repeat_interleave(a_h, hd)[:, None] * torch.ones(
+        (1, n), dtype=torch.float32)
+    assert torch.equal(a, a_mat)
+    x, b, c = (tensor_from_numpy(rng.normal(size=shape).astype(np.float32),
+                                 "cpu")
+               for shape in ((2, 24, cfg.d_inner), (2, 24, n), (2, 24, n)))
+    y1, h1 = ops.selective_scan(dt, x, a.expand(2, *a.shape), b, c)
+    y2, h2 = ops.selective_scan(dt, x, a_mat.expand(2, *a.shape).clone(),
+                                b, c)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
