@@ -13,7 +13,12 @@ Phases, each of which raises on failure (the exit code is then not 0):
      version the time per call (CUDA events around 50 back-to-back calls,
      median of 5) and the device time (profiler), beside the bound and,
      where one PyTorch call computes the same function, that call's time.
-     The wire compressors (plain PyTorch) must give the CPU's bits.
+     The AMSGrad step is bit-equal to its plain version for θ and g in fp32
+     and bf16 and moments in fp32 and bf16, also on views that start off
+     16 bytes (bit-equal to aligned copies); every CADA kernel runs as one
+     launch per call (profiler). The server step and the one-operand norm
+     are also timed at LM widths (n = 2^28; (10, 2^24)), where bytes bound
+     them. The wire compressors (plain PyTorch) must give the CPU's bits.
   4. main path: ``CADAEngine`` on the paper MLP 784→128→10 (M=10, batch 12,
      mnist_like(4096), d_max=10, max_delay=50, c=1.0), each rule at its
      reference defaults on FusedAMSGrad(lr=5e-4): 200 rounds each of always
@@ -46,8 +51,9 @@ the library call's time: the scan in the served form (Mamba2's A, a
 stride-0 view on N: one decay per channel; h_final bit-equal to the same
 call with A materialised) and untimed with a general A, also at
 falcon-mamba-7b's widths (device time printed); flash in bf16 on the
-tensor cores, at a GQA shape and with a window. Then it prints one JSON line with every kernel,
-and last the line
+tensor cores, at a GQA shape and with a window, and in fp32 and bf16 at hd
+16 and 64 and zero-padded at hd 48 and 96. Then it prints one JSON line
+with every kernel, and last the line
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside the
 checkout, it exits non-zero and prints no result.
 """
@@ -136,7 +142,12 @@ FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP below |o| = 1;
 # the two redesigned kernels' device times at the served shapes before
 # their redesign (the per-state scan and the CUDA-core flash kernel;
 # PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 1.990}
+EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 1.990,
+                     # the CADA server step and one-operand norm before
+                     # their one-launch redesign (PR 15, run b)
+                     "amsgrad": 0.00380, "batched_sq": 0.00455}
+LM_N = 2 ** 28           # AMSGrad at an LM width: 7.52 GB moved in fp32
+LM_ROW_N = 2 ** 24       # batched_sq (M, 2^24) fp32: 0.671 GB
 STAGE_RTOL_F32 = 1e-4     # first stage, fp32, kernels vs plain: the
 #                           kernels' ~1e-6 gaps through 7 blocks of fp32
 #                           GEMMs and nonlinearities, no rounding to bf16
@@ -245,81 +256,123 @@ def _bound(nbytes: int, flops: int, rates) -> tuple[float, str]:
                                        else "operations")
 
 
-def check_amsgrad(n: int, moment_dtype, rates, gen) -> dict:
-    dev = "cuda"
-    theta = torch.randn(n, generator=gen, device=dev)
-    h = (0.1 * torch.randn(n, generator=gen, device=dev)).to(moment_dtype)
-    vhat = (0.01 * torch.randn(n, generator=gen, device=dev)).abs().to(
-        moment_dtype)
-    grad = torch.randn(n, generator=gen, device=dev)
+def one_launch(fn, kernel: str, label: str, calls: int = 5) -> None:
+    """Raises unless ``calls`` calls of ``fn`` launched ``kernel`` and no
+    other CUDA kernel, at most once per call (profiler events, which may
+    miss a launch at the profiler's start but never add one): no second
+    pass, no per-call zeroing of the workspace."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):    # a window that recorded nothing says nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    if not 1 <= len(names) <= calls or not all(kernel in nm
+                                               for nm in names):
+        raise RuntimeError(f"{label}: {calls} calls launched {names}")
+
+
+def _amsgrad_operands(n, theta_dtype, moment_dtype, grad_dtype, gen,
+                      offset=0):
+    """θ, h, v̂, g of length n; with ``offset`` > 0 each a contiguous view
+    that starts that many elements into a larger buffer."""
+    def draw(scale, dtype, nonneg=False):
+        x = scale * torch.randn(n + offset, generator=gen, device="cuda")
+        return (x.abs() if nonneg else x).to(dtype)[offset:]
+    return (draw(1.0, theta_dtype), draw(0.1, moment_dtype),
+            draw(0.01, moment_dtype, nonneg=True), draw(1.0, grad_dtype))
+
+
+def _short(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+def check_amsgrad(n: int, moment_dtype, rates, gen, theta_dtype=torch.float32,
+                  grad_dtype=torch.float32, offset: int = 0,
+                  timed: bool = True, calls: int = 50) -> dict:
+    """The AMSGrad kernel against its plain version: θ', h', v̂' bit for bit,
+    Σupd² within SUM_RTOL and the same on two calls, one launch per call.
+    With ``offset``, the operands are views that start off 16 bytes (the
+    scalar loads) and Σupd² must also equal, bit for bit, that of aligned
+    copies (the vector loads)."""
+    theta, h, vhat, grad = _amsgrad_operands(n, theta_dtype, moment_dtype,
+                                             grad_dtype, gen, offset)
     lr = 5e-4
+    label = (f"amsgrad n={n} theta/g/moments={_short(theta_dtype)}/"
+             f"{_short(grad_dtype)}/{_short(moment_dtype)}"
+             + (f", views {offset} element(s) off 16 B" if offset else ""))
     k_out = cada_update.fused_amsgrad_flat(theta, h, vhat, grad, lr)
     k_again = cada_update.fused_amsgrad_flat(theta, h, vhat, grad, lr)
     p_out = ref.amsgrad_ref(theta, h, vhat, grad, lr)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k_out, k_again)):
-        raise RuntimeError(f"amsgrad n={n}: two identical calls differ")
-    same = torch.ones(n, dtype=torch.bool, device=dev)
-    errs = []
-    for label, kk, pp in zip(("h", "vhat"), k_out[1:3], p_out[1:3]):
-        kk, pp = kk.float(), pp.float()
-        d = (kk - pp).abs()
-        errs.append(float(d.max()))
-        if moment_dtype == torch.bfloat16:
-            flips = d > 0
-            if float(flips.float().mean()) > 1e-3 or bool(
-                    (d > 2.0 ** -7 * pp.abs()).any()):
-                raise RuntimeError(f"amsgrad n={n} bf16 {label} differs "
-                                   "beyond one bf16 ULP on 0.1%")
-            same &= ~flips
-        elif float(d.max()) > ULP_SCALE * float(pp.abs().max()):
-            raise RuntimeError(f"amsgrad n={n} {label}: max |err| "
-                               f"{float(d.max())}")
-    # The plain update from the kernel's own stored h', v̂': where no bf16
-    # moment rounded otherwise it is the plain version's update itself.
-    # θ' and Σupd² are held against it everywhere, and against the plain
-    # version's where the moments agree.
-    own = -lr * k_out[1].float() / torch.sqrt(1e-8 + k_out[2].float())
-    dt = torch.maximum((k_out[0] - (theta + own)).abs(),
-                       (k_out[0] - p_out[0]).abs() * same)
-    errs.append(float(dt.max()))
-    if float(dt.max()) > ULP_SCALE * float(p_out[0].abs().max()):
-        raise RuntimeError(f"amsgrad n={n} theta: max |err| {float(dt.max())}")
-    sums = [("from its own moments", float(torch.sum(own * own)))]
-    if bool(same.all()):
-        sums.append(("of the plain version", float(p_out[3])))
-    for label, want in sums:
-        sq_err = abs(float(k_out[3]) - want)
-        if sq_err > SUM_RTOL * want:
-            raise RuntimeError(f"amsgrad n={n} sum upd^2 {float(k_out[3])} "
-                               f"vs {want} {label}")
-        errs.append(sq_err)
-    msz = torch.empty((), dtype=moment_dtype).element_size()
-    nbytes = n * (4 + 4 + 2 * msz) + n * (4 + 2 * msz) + 4
-    # mul/add/max/div/sqrt per element
-    bound, bound_by = _bound(nbytes, 14 * n, rates)
+        raise RuntimeError(f"{label}: two identical calls differ")
+    for what, kk, pp in zip(("theta", "h", "vhat"), k_out, p_out):
+        if kk.dtype != pp.dtype or not torch.equal(kk, pp):
+            raise RuntimeError(
+                f"{label}: {what}' is not bit-equal to the plain version's "
+                f"(max |err| {float((kk.float() - pp.float()).abs().max())})")
+    sq_err = abs(float(k_out[3]) - float(p_out[3]))
+    if sq_err > SUM_RTOL * float(p_out[3]):
+        raise RuntimeError(f"{label}: sum upd^2 {float(k_out[3])} vs plain "
+                           f"{float(p_out[3])}")
+    note = ""
+    if offset:
+        copies = tuple(t.clone() for t in (theta, h, vhat, grad))
+        if cada_update.vector_ok(theta, h, vhat, grad) or \
+                not cada_update.vector_ok(*copies):
+            raise RuntimeError(f"{label}: the views' alignment is not as "
+                               "set up")
+        aligned = cada_update.fused_amsgrad_flat(*copies, lr)
+        if not all(torch.equal(a, b) for a, b in zip(k_out, aligned)):
+            raise RuntimeError(f"{label}: differs from aligned copies")
+        note = ", every output bit-equal to aligned copies' (vector loads)"
+
     def kernel():
         return cada_update.fused_amsgrad_flat(theta, h, vhat, grad, lr)
+
+    one_launch(kernel, "amsgrad_kernel", label)
+    head = (f"  {label}: theta', h', vhat' bit-equal to plain, sum upd^2 "
+            f"{float(k_out[3]):.9g} vs plain {float(p_out[3]):.9g} (rel "
+            f"{_max_rel(k_out[3], p_out[3]):.3g}), run-to-run identical, one "
+            f"launch per call{note}")
+    if not timed:
+        print(head)
+        return {"max_abs_err": sq_err}
+    tsz, msz, gsz = (torch.empty((), dtype=d).element_size()
+                     for d in (theta_dtype, moment_dtype, grad_dtype))
+    # read θ, h, v̂, g; write θ', h', v̂' and Σupd²
+    nbytes = n * (tsz + 2 * msz + gsz) + n * (tsz + 2 * msz) + 4
+    # mul/add/max/div/sqrt per element
+    bound, bound_by = _bound(nbytes, 14 * n, rates)
 
     def plain():
         return ref.amsgrad_ref(theta, h, vhat, grad, lr)
 
-    ms, plain_ms = time_ms(kernel), time_ms(plain)
-    dev = device_ms(kernel, ("amsgrad_kernel", "sum_partials"))
-    plain_dev = device_ms(plain)
-    bit_equal = all(torch.equal(a, b) for a, b in zip(k_out[:3], p_out[:3]))
-    print(f"  amsgrad n={n} moments={str(moment_dtype)[6:]}: max|err| "
-          f"theta/h/vhat {errs[2]:.3g}/{errs[0]:.3g}/{errs[1]:.3g} "
-          f"(bit-equal {bit_equal}), sum upd^2 {float(k_out[3]):.9g} vs "
-          f"plain {float(p_out[3]):.9g} "
-          f"(rel {_max_rel(k_out[3], p_out[3]):.3g})"
-          f", run-to-run identical; kernel {ms * 1e3:.2f} us/call "
-          f"(device {_us(dev)}), plain {plain_ms * 1e3:.2f} us/call "
-          f"(device {_us(plain_dev)}), bound {bound * 1e3:.3f} us "
-          f"({nbytes} B)")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+    big = calls < 50
+    ms = time_ms(kernel, calls=calls, repeats=5 if not big else 3)
+    plain_ms = time_ms(plain, calls=calls if not big else 2,
+                       repeats=5 if not big else 3, warmup=5 if not big else 1)
+    dev = device_ms(kernel, ("amsgrad_kernel",), calls=20 if not big else 5)
+    plain_dev = device_ms(plain, calls=20 if not big else 2)
+    before = "" if big or theta_dtype != torch.float32 else (
+        f"; before the redesign {EARLIER_DEVICE_MS['amsgrad']} ms, PERF.md")
+    print(f"{head}; kernel {ms * 1e3:.2f} us/call (device {_us(dev)}"
+          f"{before}), plain {plain_ms * 1e3:.2f} us/call (device "
+          f"{_us(plain_dev)}), bound {bound * 1e3:.3f} us ({nbytes} B; "
+          f"device at {_share(bound, dev)} of it)")
+    return {"max_abs_err": sq_err, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev, "plain_device_ms": plain_dev,
             "bound_ms": bound, "bound_by": bound_by}
+
+
+def _share(bound: float, dev: float | None) -> str:
+    return "not measured" if not dev else f"{100 * bound / dev:.1f}%"
 
 
 def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen) -> dict:
@@ -349,12 +402,14 @@ def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen) -> dict:
     def plain():
         return ref.batched_diff_sq_norm_ref(a, b)
 
+    one_launch(kernel, "row_sq_kernel", f"batched_diff_sq ({rows},{n})")
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    dev = device_ms(kernel, ("batched_diff_sq_kernel", "sum_partials"))
+    dev = device_ms(kernel, ("row_sq_kernel",))
     plain_dev = device_ms(plain)
     print(f"  batched_diff_sq ({rows},{n}) {str(a_dtype)[6:]}/"
           f"{str(b_dtype)[6:]}: max|err| {err:.3g} (rel {rel:.3g}), "
-          f"run-to-run identical, rows independent of R; kernel "
+          f"run-to-run identical, rows independent of R, one launch per "
+          f"call; kernel "
           f"{ms * 1e3:.2f} us/call (device {_us(dev)}), plain "
           f"{plain_ms * 1e3:.2f} us/call (device {_us(plain_dev)}), bound "
           f"{bound * 1e3:.3f} us ({nbytes} B)")
@@ -363,18 +418,22 @@ def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen) -> dict:
             "bound_ms": bound, "bound_by": bound_by}
 
 
-def check_batched_sq(rows: int, n: int, dtype, rates, gen) -> dict:
-    """The one-operand row norm (cinn/laq/topk's gate)."""
+def check_batched_sq(rows: int, n: int, dtype, rates, gen,
+                     calls: int = 50) -> dict:
+    """The one-operand row norm (cinn/laq/topk's gate): rows bit-equal in
+    an (R, n) and a (1, n) launch, the same on two calls, one launch per
+    call."""
     a = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
     k = cada_update.batched_sq_norm_flat(a)
     k_again = cada_update.batched_sq_norm_flat(a)
     part = cada_update.batched_sq_norm_flat(a[2:5].contiguous())
+    alone = cada_update.batched_sq_norm_flat(a[3:4].clone())
     p = ref.batched_sq_norm_ref(a)
     torch.cuda.synchronize()
     if not torch.equal(k, k_again):
         raise RuntimeError(f"batched_sq ({rows},{n}): two identical calls "
                            "differ")
-    if not torch.equal(k[2:5], part):
+    if not (torch.equal(k[2:5], part) and torch.equal(k[3:4], alone)):
         raise RuntimeError(f"batched_sq ({rows},{n}): rows depend on R")
     err, rel = float((k - p).abs().max()), _max_rel(k, p)
     if rel > NORM_RTOL:
@@ -391,15 +450,26 @@ def check_batched_sq(rows: int, n: int, dtype, rates, gen) -> dict:
     def library():
         return torch.linalg.vecdot(a, a)
 
-    ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(library)
-    dev = device_ms(kernel, ("batched_sq_kernel", "sum_partials"))
-    plain_dev, lib_dev = device_ms(plain), device_ms(library)
+    one_launch(kernel, "row_sq_kernel", f"batched_sq ({rows},{n})")
+    big = calls < 50
+    reps, dcalls = (3, 5) if big else (5, 20)
+    ms = time_ms(kernel, calls=calls, repeats=reps)
+    plain_ms = time_ms(plain, calls=calls, repeats=reps)
+    lib_ms = time_ms(library, calls=calls, repeats=reps)
+    dev = device_ms(kernel, ("row_sq_kernel",), calls=dcalls)
+    plain_dev = device_ms(plain, calls=dcalls)
+    lib_dev = device_ms(library, calls=dcalls)
+    before = "" if big or dtype != torch.float32 else (
+        f"; before the redesign {EARLIER_DEVICE_MS['batched_sq']} ms, "
+        "PERF.md")
     print(f"  batched_sq ({rows},{n}) {str(dtype)[6:]}: max|err| {err:.3g} "
-          f"(rel {rel:.3g}), run-to-run identical, rows independent of R; "
-          f"kernel {ms * 1e3:.2f} us/call (device {_us(dev)}), plain "
+          f"(rel {rel:.3g}), run-to-run identical, rows independent of R "
+          f"((R, n) vs (1, n)), one launch per call; kernel "
+          f"{ms * 1e3:.2f} us/call (device {_us(dev)}{before}), plain "
           f"{plain_ms * 1e3:.2f} us/call (device {_us(plain_dev)}), "
           f"torch.linalg.vecdot {lib_ms * 1e3:.2f} us/call (device "
-          f"{_us(lib_dev)}), bound {bound * 1e3:.3f} us ({nbytes} B)")
+          f"{_us(lib_dev)}), bound {bound * 1e3:.3f} us ({nbytes} B; "
+          f"device at {_share(bound, dev)} of it)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev, "plain_device_ms": plain_dev,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
@@ -436,11 +506,13 @@ def check_diff_sq(n: int, dtype, rates, gen) -> dict:
     if lib_rel > NORM_RTOL:
         raise RuntimeError(f"diff_sq n={n}: mse_loss(sum) {float(lib)} is "
                            f"not the plain version's {float(p)}")
+    one_launch(kernel, "row_sq_kernel", f"diff_sq n={n}")
     ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(library)
-    dev = device_ms(kernel, ("batched_diff_sq_kernel", "sum_partials"))
+    dev = device_ms(kernel, ("row_sq_kernel",))
     plain_dev, lib_dev = device_ms(plain), device_ms(library)
     print(f"  diff_sq n={n} {str(dtype)[6:]}: {float(k):.9g} vs plain "
-          f"{float(p):.9g} (rel {rel:.3g}), run-to-run identical; kernel "
+          f"{float(p):.9g} (rel {rel:.3g}), run-to-run identical, one launch "
+          f"per call; kernel "
           f"{ms * 1e3:.2f} us/call (device {_us(dev)}), plain "
           f"{plain_ms * 1e3:.2f} us/call (device {_us(plain_dev)}), "
           f"mse_loss(sum) {lib_ms * 1e3:.2f} us/call (device {_us(lib_dev)}, "
@@ -481,8 +553,16 @@ def phase_kernels(rates, layout) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     main = {"amsgrad": check_amsgrad(n_flat, f32, rates, gen)}
     check_amsgrad(n_flat, bf16, rates, gen)
-    check_amsgrad(48, f32, rates, gen)
-    check_amsgrad(48, bf16, rates, gen)
+    check_amsgrad(n_flat, f32, rates, gen, theta_dtype=bf16, grad_dtype=bf16)
+    for moments in (f32, bf16):
+        check_amsgrad(n_flat, moments, rates, gen, theta_dtype=bf16,
+                      grad_dtype=bf16, timed=False)
+        check_amsgrad(n_flat, moments, rates, gen, theta_dtype=bf16,
+                      offset=1, timed=False)
+        check_amsgrad(n_flat, moments, rates, gen, offset=1, timed=False)
+        for theta_dtype in (f32, bf16):
+            check_amsgrad(48, moments, rates, gen, theta_dtype=theta_dtype,
+                          grad_dtype=theta_dtype, timed=False)
     main["batched_diff_sq"] = check_batched(M, n_flat, f32, f32, rates, gen)
     check_batched(M, n_flat, bf16, bf16, rates, gen)
     check_batched(M, n_flat, f32, bf16, rates, gen)
@@ -493,6 +573,16 @@ def phase_kernels(rates, layout) -> dict:
     main["diff_sq"] = check_diff_sq(n_flat, f32, rates, gen)
     check_diff_sq(48, f32, rates, gen)
     check_wire(layout, gen)
+    # the two redesigned kernels at LM widths, where bytes bound them
+    print(f"  at LM widths (n = {LM_N}; ({M}, {LM_ROW_N}) planes):")
+    main["amsgrad"]["lm_width"] = {
+        "fp32": check_amsgrad(LM_N, f32, rates, gen, calls=20),
+        "bf16 theta and g": check_amsgrad(LM_N, f32, rates, gen,
+                                          theta_dtype=bf16, grad_dtype=bf16,
+                                          calls=20)}
+    main["batched_sq"]["lm_width"] = check_batched_sq(M, LM_ROW_N, f32, rates,
+                                                      gen, calls=20)
+    torch.cuda.empty_cache()
     return main
 
 
@@ -652,32 +742,48 @@ def flash_bf16_gaps(out, want, want32) -> tuple[float, int, float]:
 
 
 def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
-                rates, gen, timed: bool) -> dict:
-    """The flash kernel against its plain version, bf16 operands; when
-    ``timed``, also its times, its bound and the library call's time."""
+                rates, gen, timed: bool, dtype=torch.bfloat16) -> dict:
+    """The flash kernel against its plain version, bf16 (the tensor-core
+    instance) or fp32 operands; an hd that is not a compiled instance runs
+    zero-padded on the next one. When ``timed``, also its times, its bound
+    and the library call's time."""
     dev = "cuda"
-    q = torch.randn(b, s, hq, hd, generator=gen, device=dev).bfloat16()
-    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
-    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    before = fa_kernel.flash_attention.launches
     out = fa_kernel.flash_attention(q, k, v, window=window)
     again = fa_kernel.flash_attention(q, k, v, window=window)
     want = ref.flash_attention_ref(q, k, v, window=window)
-    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                     window=window)
     torch.cuda.synchronize()
+    inst = fa_kernel.instance_for(hd)
+    label = (f"  flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd}"
+             + ("" if inst == hd else f" (padded to {inst})")
+             + f" window={window} {_short(dtype)}")
+    if fa_kernel.flash_attention.launches != before + 2:
+        raise RuntimeError(f"{label}: the kernel did not launch")
+    if out.shape != q.shape or out.dtype != dtype:
+        raise RuntimeError(f"{label}: output {tuple(out.shape)} {out.dtype}")
     if not torch.equal(out, again):
-        raise RuntimeError("flash: two identical calls differ")
-    err, n_out, ulps = flash_bf16_gaps(out, want, want32)
-    label = (f"  flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
-             f"window={window} bf16")
-    gaps = (f"max err {err:.3g} of max(1,|plain|); {n_out} elements outside "
-            f"{FLASH_RTOL_BF16:.3g}·max(1,|plain|), at most {ulps:.3g} bf16 "
-            f"ULP from the fp32 plain result; "
-            f"{int((out != want).sum())} of {out.numel()} elements differ "
-            "from the plain bf16 output")
-    if ulps > 1.0:
-        raise RuntimeError(f"{label}: not only single rounding flips: "
-                           f"{gaps}")
+        raise RuntimeError(f"{label}: two identical calls differ")
+    if dtype == torch.float32:
+        err = _rel_err(out, want)
+        if err > FLASH_RTOL_F32:
+            raise RuntimeError(f"{label}: error {err} of max(1,|plain|) > "
+                               f"{FLASH_RTOL_F32}")
+        gaps = (f"max err {err:.3g} of max(1,|plain|) (band "
+                f"{FLASH_RTOL_F32:.3g})")
+    else:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         window=window)
+        err, n_out, ulps = flash_bf16_gaps(out, want, want32)
+        gaps = (f"max err {err:.3g} of max(1,|plain|); {n_out} elements "
+                f"outside {FLASH_RTOL_BF16:.3g}·max(1,|plain|), at most "
+                f"{ulps:.3g} bf16 ULP from the fp32 plain result; "
+                f"{int((out != want).sum())} of {out.numel()} elements "
+                "differ from the plain bf16 output")
+        if ulps > 1.0:
+            raise RuntimeError(f"{label}: not only single rounding flips: "
+                               f"{gaps}")
     abs_err = float((out.float() - want.float()).abs().max())
     head = f"{label}: {gaps}; run-to-run identical"
     if not timed:
@@ -746,6 +852,16 @@ def phase_lm_kernels(rates) -> dict:
     check_flash(SERVE_BATCH, 512, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 100,
                 rates, gen, timed=False)
     check_flash(1, 333, 4, 2, 32, 0, rates, gen, timed=False)
+    # the head dims of the configs still to be served (hd 64: stablelm-1.6b,
+    # musicgen-medium, granite-moe; hd 16: yi-34b's smoke config), and two
+    # that run zero-padded on the next instance
+    for hd, window in ((16, 0), (64, 0), (64, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash(2, 333, 8, 2, hd, window, rates, gen, timed=False,
+                        dtype=dtype)
+    check_flash(2, 333, 8, 2, 48, 0, rates, gen, timed=False)
+    check_flash(1, 333, 4, 4, 96, 100, rates, gen, timed=False,
+                dtype=torch.float32)
     return main
 
 

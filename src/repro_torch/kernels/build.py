@@ -5,6 +5,12 @@ plain C interface and loaded with ``ctypes``. The build runs at first use,
 into ``build/repro_torch/`` at the root of the checkout. A library's file
 name carries a hash of its source and of the nvcc command, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
+
+    python -m repro_torch.kernels.build [--ptxas] [name ...]
+
+builds the named sources (default: all), and with ``--ptxas`` compiles
+them once more with ``-Xptxas -v`` and prints each kernel's registers,
+shared memory and spills.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -86,3 +93,35 @@ def load(name: str) -> ctypes.CDLL:
     if job is not None:
         _finish(job)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's resource report (-Xptxas -v) for ``csrc/{name}.cu``,
+    compiled into a throwaway object under the build directory."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.ptxas.{os.getpid()}.o"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared",)]
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *flags, "-c", "-Xptxas", "-v", "-o", str(out),
+             str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    finally:
+        out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    return proc.stderr
+
+
+def main(argv) -> None:
+    report = "--ptxas" in argv
+    names = [a for a in argv if a != "--ptxas"] or sorted(
+        p.stem for p in CSRC.glob("*.cu"))
+    build_all(names)
+    print(f"built {', '.join(names)} into {BUILD_DIR}")
+    if report:
+        for name in names:
+            print(f"--- {name}.cu\n{ptxas_report(name)}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,11 +1,19 @@
 """Wrappers of the CUDA kernels in ``csrc/cada_update.cu``.
 
-Each wrapper checks its operands, allocates outputs and scratch with
-``torch.empty``, launches on PyTorch's current stream and raises if the
-launch failed. Each keeps a plain integer count of its launches
-(``fused_amsgrad_flat.launches``, ``batched_diff_sq_norm_flat.launches``,
-``batched_sq_norm_flat.launches``, ``diff_sq_norm_flat.launches``), so a run
-can show that it went through the kernel.
+Each wrapper checks its operands (device, dtype, shape, contiguity),
+allocates its outputs with ``torch.empty``, launches one kernel on PyTorch's
+current stream and raises if the launch failed. The kernels' partial sums
+and ticket counters live in a workspace that is allocated and zeroed once
+per (device, stream) and reused (:func:`workspace`). Each wrapper keeps a
+plain integer count of its launches (``fused_amsgrad_flat.launches``,
+``batched_diff_sq_norm_flat.launches``, ``batched_sq_norm_flat.launches``,
+``diff_sq_norm_flat.launches``), so a run can show that it went through the
+kernel.
+
+The launch plan is a function of n alone (:func:`amsgrad_blocks`,
+:func:`row_chunks`); the operands' alignment only decides whether a pack
+of elements is moved as vectors or as scalars (:func:`vector_ok`), which
+changes no result bit.
 
 The library is built and loaded at the first launch, never on import.
 """
@@ -13,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 
 import torch
 
@@ -20,30 +29,39 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 
-AMSGRAD_MAX_BLOCKS = 1024   # partials the second pass adds in a fixed order
-ROW_CHUNK_ELEMS = 1024      # ~ columns one (row, chunk) block covers
-ROW_MAX_CHUNKS = 256
+THREADS = 256               # threads per block
+AMSGRAD_PACK = 4            # elements a thread moves as one pack: AMSGrad
+ROW_PACK = 8                # ... and the row norms (csrc/cada_update.cu)
+AMSGRAD_MAX_BLOCKS = 1024   # the last block adds <= 4 partials per thread
+ROW_MAX_CHUNKS = 256        # the last block of a row adds <= 1 per thread
+FLOATS = (torch.float32, torch.bfloat16)
+
+# flags of cada_amsgrad (csrc/cada_update.cu)
+_THETA_BF16, _GRAD_BF16, _MOMENTS_BF16, _VEC = 1, 2, 4, 8
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("cada_update")
-    lib.cada_amsgrad.argtypes = [_P] * 9 + [
-        ctypes.c_longlong, ctypes.c_int, _F, _F, _F, _F, _F, _F,
-        ctypes.c_int, _P]
-    lib.cada_amsgrad.restype = ctypes.c_int
-    lib.cada_batched_diff_sq.argtypes = [
-        _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P]
-    lib.cada_batched_diff_sq.restype = ctypes.c_int
-    lib.cada_batched_sq.argtypes = [
-        _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, _P]
-    lib.cada_batched_sq.restype = ctypes.c_int
-    lib.cada_error_string.argtypes = [ctypes.c_int]
+    lib.cada_amsgrad.argtypes = [_P] * 10 + [_L, _I] + [_F] * 6 + [_I, _P]
+    lib.cada_amsgrad.restype = _I
+    lib.cada_batched_diff_sq.argtypes = [_P] * 5 + [_L, _L, _I, _I, _I, _I,
+                                                    _P]
+    lib.cada_batched_diff_sq.restype = _I
+    lib.cada_batched_sq.argtypes = [_P] * 4 + [_L, _L, _I, _I, _I, _P]
+    lib.cada_batched_sq.restype = _I
+    lib.cada_error_string.argtypes = [_I]
     lib.cada_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``
+    (PyTorch's own C accessor: one call, no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -52,11 +70,14 @@ def _check(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def _need_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise RuntimeError(f"{name}: the CUDA kernel needs a CUDA tensor, "
-                           f"got one on {t.device}")
-    if not t.is_contiguous():
+def _need_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raises unless every tensor is a contiguous CUDA tensor."""
+    for t in tensors:
+        if t.is_cuda and t.is_contiguous():
+            continue
+        if t.device.type != "cuda":
+            raise RuntimeError(f"{name}: the CUDA kernel needs a CUDA "
+                               f"tensor, got one on {t.device}")
         raise ValueError(f"{name}: operand must be contiguous")
 
 
@@ -65,53 +86,111 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def amsgrad_blocks(n: int) -> int:
-    """Blocks of the AMSGrad pass: about one element per thread (256-thread
-    blocks), capped so the fixed-order second pass stays one block."""
-    return min(_cdiv(n, 256), AMSGRAD_MAX_BLOCKS)
+    """Blocks of the AMSGrad pass: one pack of AMSGRAD_PACK elements per
+    thread (256-thread blocks) up to AMSGRAD_MAX_BLOCKS, then a grid-stride
+    loop. A function of n alone."""
+    return min(_cdiv(_cdiv(n, AMSGRAD_PACK), THREADS), AMSGRAD_MAX_BLOCKS)
 
 
 def row_chunks(n: int) -> int:
-    """Column chunks per row of the batched norm: a function of n alone, so
-    a row's sum never depends on the row count."""
-    return min(_cdiv(n, ROW_CHUNK_ELEMS), ROW_MAX_CHUNKS)
+    """Column chunks per row of the batched norms: one pack of ROW_PACK
+    elements per thread up to ROW_MAX_CHUNKS. A function of n alone, so a
+    row's sum never depends on the row count."""
+    return min(_cdiv(_cdiv(n, ROW_PACK), THREADS), ROW_MAX_CHUNKS)
+
+
+def _aligned(ptrs) -> bool:
+    return functools.reduce(operator.or_, ptrs, 0) % 16 == 0
+
+
+def vector_ok(*tensors) -> bool:
+    """Whether every operand starts on 16 bytes, so that a pack moves as
+    16-byte vectors (any tensor's data_ptr works, on any device)."""
+    return _aligned(t.data_ptr() for t in tensors)
+
+
+def rows_vector_ok(*planes) -> bool:
+    """Whether every row of each contiguous (R, n) plane starts on 16
+    bytes: the plane does, and so does a row's length in bytes unless
+    R = 1."""
+    return vector_ok(*planes) and all(
+        t.shape[0] == 1 or t.shape[1] * t.element_size() % 16 == 0
+        for t in planes)
+
+
+class _Workspace:
+    """Counters (unsigned) and partials (fp32) of one (device, stream), in
+    one zeroed int32 buffer that grows to the largest call seen."""
+
+    def __init__(self, device, counters: int, partials: int):
+        self.counters, self.partials = counters, partials
+        self.buf = torch.zeros(counters + partials, dtype=torch.int32,
+                               device=device)
+        ptr = self.buf.data_ptr()
+        self.pointers = (ptr, ptr + 4 * counters)
+
+
+_WORKSPACES: dict[tuple[int, int], _Workspace] = {}
+
+
+def workspace(device: torch.device, stream: int, counters: int,
+              partials: int) -> tuple[int, int]:
+    """Pointers to ``counters`` zeroed ticket counters and room for
+    ``partials`` fp32 partial sums on ``device``, for launches on the raw
+    stream handle ``stream``. The buffer is allocated and zeroed once per
+    (device, stream) and reused: each launch leaves its counters at 0, and
+    launches on one stream never overlap, while two streams never share a
+    counter. It is replaced by a larger one only when a call needs more
+    room (the old one is freed in stream order)."""
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.counters < counters or ws.partials < partials:
+        grow = (max(counters, 64), max(partials, 4096))
+        if ws is not None:
+            grow = (max(grow[0], ws.counters), max(grow[1], ws.partials))
+        ws = _WORKSPACES[key] = _Workspace(device, *grow)
+    return ws.pointers
 
 
 def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
                        eps=1e-8):
-    """Fused AMSGrad step over (n,) buffers on the card.
+    """Fused AMSGrad step over (n,) buffers on the card, one launch.
 
-    θ and g are fp32; h and v̂ are both fp32 or both bf16 and keep that
-    dtype. Returns (θ', h', v̂', Σupd²) with Σupd² a 0-d fp32 tensor.
+    θ and g are each fp32 or bf16; θ' keeps θ's dtype. h and v̂ are both
+    fp32 or both bf16 and keep that dtype. Returns (θ', h', v̂', Σupd²)
+    with Σupd² a 0-d fp32 tensor summed from the fp32 update.
     """
     name = "fused_amsgrad_flat"
-    for t in (theta, h, vhat, grad):
-        _need_cuda(name, t)
-    if theta.dtype != torch.float32 or grad.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name}: θ and g must be fp32 (got {theta.dtype}, {grad.dtype});"
-            " bf16 parameters are not ported yet")
-    if h.dtype != vhat.dtype or h.dtype not in (torch.float32,
-                                                torch.bfloat16):
+    _need_cuda(name, theta, h, vhat, grad)
+    if theta.dtype not in FLOATS or grad.dtype not in FLOATS:
+        raise ValueError(f"{name}: θ and g must be fp32 or bf16, got "
+                         f"{theta.dtype} and {grad.dtype}")
+    if h.dtype != vhat.dtype or h.dtype not in FLOATS:
         raise ValueError(f"{name}: h and v̂ must share fp32 or bf16 storage, "
                          f"got {h.dtype} and {vhat.dtype}")
-    n = theta.numel()
-    if theta.dim() != 1 or n == 0 or any(
-            t.shape != theta.shape for t in (h, vhat, grad)):
+    n, shape = theta.numel(), theta.shape
+    if (len(shape) != 1 or n == 0 or h.shape != shape
+            or vhat.shape != shape or grad.shape != shape):
         raise ValueError(f"{name}: operands must be equal non-empty (n,) "
                          "buffers")
-    lib = _lib()
+    dev = theta.device
+    lib, stream = _lib(), _stream(dev.index)
     blocks = amsgrad_blocks(n)
+    counter, partials = workspace(dev, stream, 1, blocks)
     theta_out = torch.empty_like(theta)
     h_out = torch.empty_like(h)
     vhat_out = torch.empty_like(vhat)
-    partials = torch.empty(blocks, dtype=torch.float32, device=theta.device)
-    sq = torch.empty((), dtype=torch.float32, device=theta.device)
-    stream = torch.cuda.current_stream(theta.device).cuda_stream
-    err = lib.cada_amsgrad(
-        theta.data_ptr(), h.data_ptr(), vhat.data_ptr(), grad.data_ptr(),
-        theta_out.data_ptr(), h_out.data_ptr(), vhat_out.data_ptr(),
-        partials.data_ptr(), sq.data_ptr(), n, blocks, float(lr), b1,
-        1.0 - b1, b2, 1.0 - b2, eps, int(h.dtype == torch.bfloat16), stream)
+    sq = torch.empty((), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (theta, h, vhat, grad, theta_out, h_out,
+                                   vhat_out)]
+    bf16 = torch.bfloat16
+    flags = ((_THETA_BF16 if theta.dtype == bf16 else 0)
+             | (_GRAD_BF16 if grad.dtype == bf16 else 0)
+             | (_MOMENTS_BF16 if h.dtype == bf16 else 0)
+             | (_VEC if _aligned(ptrs) else 0))
+    err = lib.cada_amsgrad(*ptrs, counter, partials, sq.data_ptr(), n,
+                           blocks, float(lr), b1, 1.0 - b1, b2, 1.0 - b2,
+                           eps, flags, stream)
     _check(lib, err, name)
     fused_amsgrad_flat.launches += 1
     return theta_out, h_out, vhat_out, sq
@@ -122,7 +201,7 @@ fused_amsgrad_flat.launches = 0
 
 def _need_plane(name: str, t: torch.Tensor) -> None:
     _need_cuda(name, t)
-    if t.dtype not in (torch.float32, torch.bfloat16):
+    if t.dtype not in FLOATS:
         raise ValueError(f"{name}: planes must be fp32 or bf16, got "
                          f"{t.dtype}")
 
@@ -135,16 +214,14 @@ def _launch_diff_sq(name: str, a, b):
         raise ValueError(f"{name}: need two equal non-empty (R, n) planes, "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
     rows, n = a.shape
-    lib = _lib()
+    lib, stream = _lib(), _stream(a.device.index)
     chunks = row_chunks(n)
-    partials = torch.empty((rows, chunks), dtype=torch.float32,
-                           device=a.device)
+    counters, partials = workspace(a.device, stream, rows, rows * chunks)
     out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.cada_batched_diff_sq(
-        a.data_ptr(), b.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        rows, n, chunks, int(a.dtype == torch.bfloat16),
-        int(b.dtype == torch.bfloat16), stream)
+        a.data_ptr(), b.data_ptr(), counters, partials, out.data_ptr(), rows,
+        n, chunks, a.dtype == torch.bfloat16, b.dtype == torch.bfloat16,
+        rows_vector_ok(a, b), stream)
     _check(lib, err, name)
     return out
 
@@ -177,24 +254,22 @@ diff_sq_norm_flat.launches = 0
 
 def batched_sq_norm_flat(a):
     """(R,) fp32 per-row Σ_j a_rj² over an (R, n) plane on the card, fp32
-    or bf16, accumulated in fp32. Same grid and fixed-order second pass as
-    the difference norm: a row's value depends neither on R nor on any
-    other row."""
+    or bf16, accumulated in fp32. The difference norm's kernel with one
+    operand: a row's value depends neither on R nor on any other row."""
     name = "batched_sq_norm_flat"
     _need_plane(name, a)
     if a.dim() != 2 or a.numel() == 0:
         raise ValueError(f"{name}: need a non-empty (R, n) plane, got "
                          f"{tuple(a.shape)}")
     rows, n = a.shape
-    lib = _lib()
+    lib, stream = _lib(), _stream(a.device.index)
     chunks = row_chunks(n)
-    partials = torch.empty((rows, chunks), dtype=torch.float32,
-                           device=a.device)
+    counters, partials = workspace(a.device, stream, rows, rows * chunks)
     out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.cada_batched_sq(a.data_ptr(), partials.data_ptr(),
+    err = lib.cada_batched_sq(a.data_ptr(), counters, partials,
                               out.data_ptr(), rows, n, chunks,
-                              int(a.dtype == torch.bfloat16), stream)
+                              a.dtype == torch.bfloat16,
+                              rows_vector_ok(a), stream)
     _check(lib, err, name)
     batched_sq_norm_flat.launches += 1
     return out

@@ -8,8 +8,11 @@
 // with the finite score -1e30, and the output divided by max(l, 1e-30), in
 // q's dtype. GQA is a head-index map (kv head = h / (Hq / Hkv)): K and V are
 // never repeated. Keys past S are zeroed and masked, rows past S are not
-// written, so S needs no divisibility. hd is a template parameter: 32, 80 or
-// 128 (the ported configs' head dims). A fully masked row inside a live tile
+// written, so S needs no divisibility. hd is a template parameter: 16, 32,
+// 64, 80 or 128, every head dim of the repo's configs (full and smoke); the
+// wrapper zero-pads any other hd <= 128 up to the next of these, which is
+// exact (zero columns add nothing to q.k, and the padded V columns fill only
+// output columns it drops). A fully masked row inside a live tile
 // gets p = exp(0) = 1 junk, which the row's first real maximum multiplies by
 // exp(-1e30 - m) = 0, as on the TPU; with -inf it would be NaN.
 //
@@ -236,7 +239,11 @@ constexpr int kMmaWarps = 4;                 // 16 query rows each
 constexpr int kMmaThreads = kMmaWarps * 32;
 
 // bf16 elements per shared row: hd plus 16 bytes, so the 8 rows an
-// ldmatrix reads fall in 8 different groups of 4 banks for hd 32, 80, 128
+// ldmatrix phase reads fall in 8 different groups of 4 banks (16 bytes):
+// a row of (hd + 8) * 2 bytes is 2k+1 groups of 16 bytes for every hd that
+// is a multiple of 16 (hd 16: 48 B = 3 groups, rows r at groups 3r mod 8;
+// 32: 5; 64: 9, i.e. r; 80: 11; 128: 17), an odd stride, so r -> r(2k+1)
+// mod 8 is a permutation of the 8 groups
 template <int HD>
 __host__ __device__ constexpr int mma_ld() {
   return HD + 8;
@@ -539,7 +546,7 @@ const char* flash_attention_error_string(int err) {
 
 // q, o (B, S, Hq, hd); k, v (B, S, Hkv, hd); all contiguous, all fp32 or all
 // bf16 (bf16 != 0; then 16-byte aligned). Hq a multiple of Hkv; hd in
-// {32, 80, 128}; window 0 for plain causal attention.
+// {16, 32, 64, 80, 128}; window 0 for plain causal attention.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Hq, int Hkv, int hd, int window,
                         float scale, int bf16, void* stream) {
@@ -548,8 +555,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<long long>(B) * Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
+    case 16:
+      return static_cast<int>(launch<16>(q, k, v, o, B, S, Hq, Hkv, window,
+                                         scale, bf16, st));
     case 32:
       return static_cast<int>(launch<32>(q, k, v, o, B, S, Hq, Hkv, window,
+                                         scale, bf16, st));
+    case 64:
+      return static_cast<int>(launch<64>(q, k, v, o, B, S, Hq, Hkv, window,
                                          scale, bf16, st));
     case 80:
       return static_cast<int>(launch<80>(q, k, v, o, B, S, Hq, Hkv, window,

@@ -5,6 +5,13 @@ The wrapper checks its operands, allocates the output with
 the launch failed. ``flash_attention.launches`` counts its launches, so a
 run can show that it went through the kernel. The library is built and
 loaded at the first launch, never on import.
+
+The kernel is compiled for the head dims in ``HEAD_DIMS``, which hold every
+head dim of the repo's configs. Any other hd up to the largest is served by
+the next larger instance (:func:`instance_for`): q, k and v are zero-padded
+to it and the output is cut back, which is exact (zero columns add nothing
+to q·k, and padded V columns fill only output columns that are dropped);
+the softmax scale stays 1/√hd of the true hd.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (32, 80, 128)   # compiled instances: the ported configs' hd
+HEAD_DIMS = (16, 32, 64, 80, 128)   # compiled instances
 MAX_ROWS = 65535                # B * Hq: the grid's second dimension
 
 
@@ -32,12 +39,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def instance_for(hd: int) -> int:
+    """The compiled head dim that serves ``hd``: hd itself, or the next
+    larger one, to which the operands are zero-padded. Raises for hd above
+    the largest."""
+    for inst in HEAD_DIMS:
+        if hd <= inst:
+            return inst
+    raise ValueError(f"flash_attention: head dim {hd} above "
+                     f"{HEAD_DIMS[-1]}: no compiled instance takes it "
+                     f"(compiled: {HEAD_DIMS})")
+
+
 def flash_attention(q, k, v, *, window: int = 0):
     """Causal (optionally windowed) self-attention on the card.
 
     q (B, S, Hq, hd), k/v (B, S, Hkv, hd), all contiguous and all fp32 or
     all bf16 (bf16: on the tensor cores, each operand 16-byte aligned);
-    Hq a multiple of Hkv; hd in ``HEAD_DIMS``; ``window`` 0 (full causal)
+    Hq a multiple of Hkv; hd at most ``HEAD_DIMS[-1]`` (zero-padded to
+    the next compiled instance where it is not one); ``window`` 0 (full causal)
     or the number of positions a query sees, itself included. Returns
     (B, S, Hq, hd) in q's dtype.
     """
@@ -70,31 +90,32 @@ def flash_attention(q, k, v, *, window: int = 0):
     if hq % hkv:
         raise ValueError(f"{name}: Hq = {hq} is not a multiple of Hkv = "
                          f"{hkv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not compiled; the kernel "
-                         f"takes {HEAD_DIMS}")
+    inst = instance_for(hd)
     if b * hq > MAX_ROWS:
         raise ValueError(f"{name}: B * Hq = {b * hq} exceeds {MAX_ROWS}")
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if inst != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, inst - hd))
+                   for t in (q, k, v))
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError(f"{name}: bf16 q, k and v must be 16-byte aligned "
                          "(the kernel copies 16-byte chunks)")
-    window = int(window)
-    if window < 0:
-        raise ValueError(f"{name}: window must be >= 0, got {window}")
     lib = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            hq, hkv, hd, window, 1.0 / float(hd) ** 0.5,
+            hq, hkv, inst, window, 1.0 / float(hd) ** 0.5,
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
     flash_attention.launches += 1
-    return out
+    return out if inst == hd else out[..., :hd].contiguous()
 
 
 flash_attention.launches = 0

@@ -8,9 +8,10 @@ CPU-only machine). On the card, with no JAX installed there, run:
 
 This file imports neither JAX nor the JAX package.
 
-Tolerances: θ', h', v̂' within 2⁻²⁰ · max|plain| (the kernel rounds each
-operation as the plain version does; only the compiler's and PyTorch's
-kernels stand between them); Σupd² and the difference-norm rows rtol 1e-5,
+Tolerances: θ', h', v̂' bit-equal to the plain version for θ and g in fp32
+or bf16 and moments in fp32 or bf16 (the kernel rounds each operation as
+the plain version does, in its order); Σupd² and the difference-norm rows
+rtol 1e-5,
 the one-operand rows and the scalar ‖a−b‖² rtol 1e-6 (summation order);
 run-to-run results bitwise identical. The wire compressors are plain
 PyTorch on both devices and must give the same bits on the card as on the
@@ -43,9 +44,6 @@ from repro_torch.optim.fused import FusedAMSGrad
 
 pytestmark = pytest.mark.cuda
 
-ULP_SCALE = 2.0 ** -20
-
-
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
@@ -53,24 +51,60 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _amsgrad_operands(gen, n, theta_dtype, moments, grad_dtype, offset=0):
+    """θ, h, v̂, g of length n; with ``offset`` > 0 each is a contiguous
+    view that starts ``offset`` elements into a larger buffer."""
+    def draw(scale, dtype, nonneg=False):
+        x = scale * torch.randn(n + offset, generator=gen, device="cuda")
+        return (x.abs() if nonneg else x).to(dtype)[offset:]
+    return (draw(1.0, theta_dtype), draw(0.1, moments),
+            draw(0.01, moments, nonneg=True), draw(1.0, grad_dtype))
+
+
+_F32_BF16 = [torch.float32, torch.bfloat16]
+
+
 @pytest.mark.parametrize("n", [1, 48, 255, 101_776, 300_001])
-@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
-def test_amsgrad_kernel_matches_plain(gen, n, moments):
-    theta = torch.randn(n, generator=gen, device="cuda")
-    h = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(moments)
-    vhat = (0.01 * torch.randn(n, generator=gen, device="cuda")).abs().to(
-        moments)
-    g = torch.randn(n, generator=gen, device="cuda")
+@pytest.mark.parametrize("moments", _F32_BF16)
+@pytest.mark.parametrize("theta_dtype", _F32_BF16)
+@pytest.mark.parametrize("grad_dtype", _F32_BF16)
+def test_amsgrad_kernel_matches_plain(gen, n, moments, theta_dtype,
+                                      grad_dtype):
+    theta, h, vhat, g = _amsgrad_operands(gen, n, theta_dtype, moments,
+                                          grad_dtype)
+    before = cada_update.fused_amsgrad_flat.launches
     k = ops.fused_amsgrad_flat(theta, h, vhat, g, 0.01, b1=0.8, b2=0.99,
                                eps=1e-6)
+    assert cada_update.fused_amsgrad_flat.launches == before + 1
     again = ops.fused_amsgrad_flat(theta, h, vhat, g, 0.01, b1=0.8, b2=0.99,
                                    eps=1e-6)
     p = ref.amsgrad_ref(theta, h, vhat, g, 0.01, b1=0.8, b2=0.99, eps=1e-6)
     assert all(torch.equal(a, b) for a, b in zip(k, again))
     for a, b in zip(k[:3], p[:3]):
         assert a.dtype == b.dtype
-        d = (a.float() - b.float()).abs().max()
-        assert float(d) <= ULP_SCALE * float(b.float().abs().max())
+        assert torch.equal(a, b)
+    torch.testing.assert_close(k[3], p[3], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [48, 101_776, 300_001])
+@pytest.mark.parametrize("moments", _F32_BF16)
+@pytest.mark.parametrize("theta_dtype", _F32_BF16)
+def test_amsgrad_kernel_at_an_unaligned_offset(gen, n, moments, theta_dtype):
+    """Views one element into their buffers (no operand on 16 bytes: the
+    scalar loads) give the plain version's θ', h', v̂' bit for bit, and
+    the same Σupd², bit for bit, as aligned copies (the vector loads):
+    the split of the elements depends on n alone."""
+    ops_ = _amsgrad_operands(gen, n, theta_dtype, moments, torch.bfloat16,
+                             offset=1)
+    assert not cada_update.vector_ok(*ops_)
+    copies = tuple(t.clone() for t in ops_)
+    assert cada_update.vector_ok(*copies)
+    k = ops.fused_amsgrad_flat(*ops_, 0.01)
+    p = ref.amsgrad_ref(*ops_, 0.01)
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a, b)
+    aligned = ops.fused_amsgrad_flat(*copies, 0.01)
+    assert all(torch.equal(a, b) for a, b in zip(k, aligned))
     torch.testing.assert_close(k[3], p[3], rtol=1e-5, atol=0)
 
 
@@ -108,6 +142,99 @@ def test_batched_sq_rows_do_not_depend_on_r(gen):
     a = torch.randn(10, 101_776, generator=gen, device="cuda")
     full = ops.batched_sq_norm(a)
     assert torch.equal(full[4:7], ops.batched_sq_norm(a[4:7].contiguous()))
+
+
+@pytest.mark.parametrize("n", [48, 101_776, 101_777, 1_000_003])
+@pytest.mark.parametrize("dtype", _F32_BF16)
+def test_row_norms_do_not_depend_on_r_or_alignment(gen, n, dtype):
+    """Each row of an (R, n) plane gives, bit for bit, what it gives alone
+    as a (1, n) plane, for both norms: with n odd the plane's rows are not
+    on 16 bytes (scalar loads) while each row alone is (vector loads)."""
+    a = torch.randn(10, n, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(10, n, generator=gen, device="cuda").to(dtype)
+    assert cada_update.rows_vector_ok(a) == (n * a.element_size() % 16 == 0)
+    sq, diff = ops.batched_sq_norm(a), ops.batched_diff_sq_norm(a, b)
+    for r in (0, 3, 9):
+        one_a, one_b = a[r:r + 1].clone(), b[r:r + 1].clone()
+        assert cada_update.rows_vector_ok(one_a, one_b)
+        assert torch.equal(sq[r:r + 1], ops.batched_sq_norm(one_a))
+        assert torch.equal(diff[r:r + 1],
+                           ops.batched_diff_sq_norm(one_a, one_b))
+    torch.testing.assert_close(sq, ref.batched_sq_norm_ref(a), rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(diff, ref.batched_diff_sq_norm_ref(a, b),
+                               rtol=1e-5, atol=0)
+
+
+def _kernels_per_call(fn, calls=5):
+    """Names of the CUDA kernels that ``calls`` calls of ``fn`` launched,
+    from the profiler, one list entry per kernel launch (the profiler may
+    miss a launch at its start, never add one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):    # a window that recorded nothing says nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+@pytest.mark.parametrize("which", ["amsgrad", "amsgrad_bf16", "batched_sq",
+                                   "batched_diff_sq", "diff_sq"])
+def test_cada_kernels_launch_once_per_call(gen, which):
+    """Each call is one kernel launch: the last block adds the partials
+    (no second pass), and the workspace is not zeroed per call."""
+    x = torch.randn(10, 101_776, generator=gen, device="cuda")
+    y, vh, t16 = x * 2, x[2].abs(), x[0].bfloat16()
+    fn = {"amsgrad": lambda: ops.fused_amsgrad_flat(x[0], x[1], vh, x[3],
+                                                    0.01),
+          "amsgrad_bf16": lambda: ops.fused_amsgrad_flat(t16, x[1], vh, t16,
+                                                         0.01),
+          "batched_sq": lambda: ops.batched_sq_norm(x),
+          "batched_diff_sq": lambda: ops.batched_diff_sq_norm(x, y),
+          "diff_sq": lambda: ops.diff_sq_norm_flat(x[0], x[1])}[which]
+    kernel = "amsgrad_kernel" if which.startswith("amsgrad") else \
+        "row_sq_kernel"
+    names = _kernels_per_call(fn)
+    assert 1 <= len(names) <= 5 and all(kernel in nm for nm in names), names
+
+
+def test_workspace_is_per_stream_and_reused(gen):
+    """Two streams running the kernels at once each get their own
+    counters, and their results equal the default stream's; a stream's
+    workspace is allocated once and reused."""
+    a = torch.randn(10, 101_776, generator=gen, device="cuda")
+    theta, h, vhat, g = a[0], a[1], a[2].abs(), a[3]
+    want_sq = ops.batched_sq_norm(a)
+    want_step = ops.fused_amsgrad_flat(theta, h, vhat, g, 0.01)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = {}
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            got[s] = [(ops.batched_sq_norm(a),
+                       ops.fused_amsgrad_flat(theta, h, vhat, g, 0.01))
+                      for _ in range(20)]
+    torch.cuda.synchronize()
+    for s in streams:
+        for sq, step in got[s]:
+            assert torch.equal(sq, want_sq)
+            assert all(torch.equal(x, y) for x, y in zip(step, want_step))
+    keys = {(a.device.index, s.cuda_stream) for s in streams}
+    assert keys <= set(cada_update._WORKSPACES)
+    bufs = {id(cada_update._WORKSPACES[k].buf) for k in keys}
+    assert len(bufs) == 2
+    before = {k: cada_update._WORKSPACES[k].buf.data_ptr() for k in keys}
+    with torch.cuda.stream(streams[0]):
+        ops.batched_sq_norm(a)
+    assert {k: cada_update._WORKSPACES[k].buf.data_ptr()
+            for k in keys} == before
 
 
 @pytest.mark.parametrize("n", [1, 48, 101_776, 1_000_003])
@@ -157,8 +284,13 @@ def test_wrappers_count_launches_and_check_operands(gen):
     assert cada_update.fused_amsgrad_flat.launches == before + 1
     ops.fused_amsgrad_flat(x, x, x.abs(), x, 0.1, impl="plain")
     assert cada_update.fused_amsgrad_flat.launches == before + 1
-    with pytest.raises(NotImplementedError):
-        ops.fused_amsgrad_flat(x.bfloat16(), x, x, x, 0.1)
+    # bf16 θ and g launch the kernel; a dtype it does not take is named
+    ops.fused_amsgrad_flat(x.bfloat16(), x, x.abs(), x.bfloat16(), 0.1)
+    assert cada_update.fused_amsgrad_flat.launches == before + 2
+    with pytest.raises(ValueError, match="float16"):
+        ops.fused_amsgrad_flat(x.half(), x, x.abs(), x, 0.1)
+    with pytest.raises(ValueError, match="float64"):
+        ops.fused_amsgrad_flat(x, x, x.abs(), x.double(), 0.1)
     with pytest.raises(ValueError):
         ops.batched_diff_sq_norm(x[None], x[None, :32])
     with pytest.raises(ValueError):
@@ -347,7 +479,7 @@ def test_scan_kernel_mamba2_form_matches_materialised(gen, shape, lowp):
 
 
 @pytest.mark.parametrize("s", [1, 63, 65, 333, 2048])
-@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("window", [0, 100])
 def test_flash_bf16_tensor_core_kernel_matches_plain(gen, s, hd, window):
     """The bf16 instance (tensor cores) at lengths below, at and around
@@ -364,11 +496,13 @@ def test_flash_bf16_tensor_core_kernel_matches_plain(gen, s, hd, window):
     _within_bf16_flash(out, q, k, v, window)
 
 
-@pytest.mark.parametrize("hd", [32, 80, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 128])
 @pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (8, 2, 0),
                                            (4, 2, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gen, hd, hq, hkv, window, dtype):
+    """Every compiled head dim, and 48 and 96, which run zero-padded on the
+    next instance (64, 128) at the scale of their own hd."""
     s = 333     # not a multiple of the 64-row tiles
     q = torch.randn(2, s, hq, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(2, s, hkv, hd, generator=gen, device="cuda").to(dtype)
@@ -391,10 +525,9 @@ def test_lm_kernels_refuse_what_they_do_not_take(gen):
         ops.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         ops.flash_attention(q.half(), q.half(), q.half())
-    for hd in (48, 64):
-        with pytest.raises(ValueError, match="head dim"):
-            qh = q[..., :hd].contiguous()
-            ops.flash_attention(qh, qh, qh)
+    with pytest.raises(ValueError, match="head dim 192"):
+        qh = torch.randn(1, 64, 4, 192, generator=gen, device="cuda")
+        ops.flash_attention(qh, qh, qh)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                             q, q)

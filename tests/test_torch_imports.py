@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's scripts under ``tools/`` import neither JAX nor anything of the JAX
+package ``repro``."""
 import ast
 import os
 import pathlib
@@ -13,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+SCRIPTS = ([ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _port_files():
@@ -54,7 +56,7 @@ def test_no_jax_or_repro_import_in_the_source():
 
 def test_every_module_imports_with_jax_and_repro_refused():
     """In a fresh interpreter whose import hook refuses jax, jaxlib and
-    repro (but not repro_torch), every port module and both scripts import.
+    repro (but not repro_torch), every port module and every script imports.
     The scripts are imported as modules, so their ``__main__`` code does not
     run."""
     code = textwrap.dedent(f"""

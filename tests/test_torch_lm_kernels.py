@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as JC
 from repro.kernels import ops as jops
 from repro_torch import configs as TC
 from repro_torch.convert import tensor_from_numpy
@@ -123,7 +124,7 @@ def _attn_inputs(rng, b, s, hq, hkv, hd):
     return q, k, v
 
 
-@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("hd", [16, 48, 64, 80, 128])
 @pytest.mark.parametrize("window", [0, 100])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
 def test_plain_flash_matches_pallas(hq, hkv, window, hd):
@@ -166,3 +167,29 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                 torch.zeros(1, 8, 4), torch.zeros(1, 8, 4))
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.flash_attention(x, x, x, impl="kernel")
+
+
+@pytest.mark.parametrize("arch", JC.list_archs())
+def test_every_config_head_dim_has_a_flash_instance(arch):
+    """Every head dim of the repo's configs, full and smoke, is served by
+    the card's flash kernel: by its own compiled instance, or zero-padded
+    to the next larger one. None falls through to a refusal."""
+    for cfg in (JC.get_config(arch), JC.get_smoke_config(arch)):
+        if cfg.n_heads == 0:          # no attention layer (falcon-mamba)
+            assert cfg.block == "mamba1"
+            continue
+        inst = tfa.instance_for(cfg.hd)
+        assert inst in tfa.HEAD_DIMS and cfg.hd <= inst
+        assert cfg.hd in tfa.HEAD_DIMS, (arch, cfg.hd)
+
+
+@pytest.mark.parametrize("hd,inst", [(1, 16), (16, 16), (17, 32), (40, 64),
+                                     (48, 64), (64, 64), (72, 80), (96, 128),
+                                     (128, 128)])
+def test_flash_head_dims_map_to_the_next_instance(hd, inst):
+    assert tfa.instance_for(hd) == inst
+
+
+def test_flash_refuses_head_dims_above_its_largest_instance():
+    with pytest.raises(ValueError, match="head dim 192"):
+        tfa.instance_for(192)
