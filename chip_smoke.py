@@ -44,6 +44,23 @@ Phases, each of which raises on failure (the exit code is then not 0):
      Mamba2 layers and the shared block, full width) run with the kernels
      and with ``impl="plain"``: last logits, SSM/conv states and KV cache
      within a stated band.
+  7. training path: the LM trainer (``repro_torch.distributed.trainer``)
+     a. stablelm-1.6b at its published width with 4 of its 24 layers (the
+        one cut: the (M, n_flat) fp32 planes of the round do not fit 80 GB
+        at full depth), 616,581,120 bf16 parameters drawn on the card,
+        remat on; cada2 (c = 1, d_max = 10, max_delay = 50), M = 2, lr
+        3e-4, 8 steps of 4 × 2048 tokens from ``make_token_batches``.
+        Every loss finite, every state tensor on the card, step 0 uploads
+        from both workers, exactly one AMSGrad and one two-operand norm
+        launch per step and nothing else; per-step time (CUDA events),
+        peak memory, and a profile of 2 more steps. Then on the trainer's
+        own operands: AMSGrad on its packed θ, h, v̂ and ∇ (θ', h', v̂'
+        bit-equal to ``impl="plain"``, Σupd² within SUM_RTOL) and the
+        two-operand norm on the next step's (2, n_flat) fresh and second
+        planes (within SUM_RTOL), each timed beside its bound.
+     b. every rule kind for 3 steps on stablelm's smoke config, M = 2:
+        finite losses and the exact launches per kind (the one-operand
+        norm for cinn, laq and topk).
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -73,14 +90,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
+from repro_torch.core.comm import strategy_for  # noqa: E402
 from repro_torch.core.engine import CADAEngine, make_sampler  # noqa: E402
-from repro_torch.core.rules import CommRule  # noqa: E402
+from repro_torch.core.rules import RULES, CommRule  # noqa: E402
 from repro_torch.data import (mnist_like, pad_to_matrix,  # noqa: E402
                               uniform_partition)
 from repro_torch.kernels import build, cada_update, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
+from repro_torch.distributed import trainer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.train import make_token_batches  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
 from repro_torch.models.small import mlp_init, mlp_loss  # noqa: E402
@@ -153,6 +173,24 @@ STAGE_RTOL_F32 = 1e-4     # first stage, fp32, kernels vs plain: the
 #                           GEMMs and nonlinearities, no rounding to bf16
 DECODE_ATOL = DECODE_RTOL = 0.05   # prefill(S-1)+decode vs prefill(S),
 #                                    fp32: the reference's test's band
+# training path (phase 7): stablelm-1.6b at full width, 4 of 24 layers
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_PARAMS = "stablelm-1.6b", 4, 616_581_120
+TRAIN_M, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 2048, 8
+TRAIN_PROFILE_STEPS = 2
+TRAIN_RULE = dict(c=1.0, d_max=10, max_delay=50)   # examples/train_lm_cada.py
+TRAIN_LR = 3e-4
+SMOKE_TRAIN_STEPS = 3
+# kinds of device kernel in a trainer step's profile: a kernel goes to the
+# first group whose key its name holds (fp32 GEMMs before the rest), and
+# to the last group, PyTorch's other eager kernels, when none does
+TRAIN_KERNEL_GROUPS = {"amsgrad_kernel": ("amsgrad_kernel",),
+                       "row_sq_kernel": ("row_sq_kernel",),
+                       "fp32 GEMMs": ("f32f32_f32", "sgemm"),
+                       "other GEMMs": ("gemm", "nvjet", "cutlass"),
+                       "softmax": ("softmax", "SoftMax"),
+                       "reductions": ("reduce_kernel",),
+                       "copies and casts": ("copy_kernel",),
+                       "other elementwise": ()}
 
 
 # ------------------------------------------------------------------ card
@@ -220,17 +258,23 @@ def time_ms(fn, calls: int = 50, repeats: int = 5, warmup: int = 5) -> float:
 
 def device_ms(fn, names: tuple[str, ...] | None = None,
               calls: int = 20) -> float | None:
-    """Device time of one call, summed over the kernels whose names hold
-    one of ``names`` (every kernel when None), from the profiler; None when
-    the profiler records no device time."""
+    """Device time of one call, from the profiler; None when it records no
+    device time. With ``names``: the median over the launches it recorded
+    of the kernels whose names hold one of them (each such call launches
+    one; a median holds when the profiler drops or mistimes a launch);
+    else every kernel's time summed over the window, per call."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    if names is not None:
+        durations = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and any(n in e.name for n in names)]
+        return statistics.median(durations) / 1e3 if durations else None
     tot = sum(getattr(e, "device_time_total", 0)
-              for e in prof.key_averages()
-              if names is None or any(n in e.key for n in names))
+              for e in prof.key_averages())
     return tot / calls / 1e3 if tot > 0 else None
 
 
@@ -294,15 +338,17 @@ def _short(dtype) -> str:
 
 def check_amsgrad(n: int, moment_dtype, rates, gen, theta_dtype=torch.float32,
                   grad_dtype=torch.float32, offset: int = 0,
-                  timed: bool = True, calls: int = 50) -> dict:
+                  timed: bool = True, calls: int = 50, operands=None,
+                  lr: float = 5e-4) -> dict:
     """The AMSGrad kernel against its plain version: θ', h', v̂' bit for bit,
     Σupd² within SUM_RTOL and the same on two calls, one launch per call.
-    With ``offset``, the operands are views that start off 16 bytes (the
-    scalar loads) and Σupd² must also equal, bit for bit, that of aligned
-    copies (the vector loads)."""
-    theta, h, vhat, grad = _amsgrad_operands(n, theta_dtype, moment_dtype,
-                                             grad_dtype, gen, offset)
-    lr = 5e-4
+    The operands are drawn from ``gen``, or are ``operands`` (θ, h, v̂, g,
+    whose dtypes the other arguments then name). With ``offset``, the
+    operands are views that start off 16 bytes (the scalar loads) and
+    Σupd² must also equal, bit for bit, that of aligned copies (the vector
+    loads)."""
+    theta, h, vhat, grad = operands or _amsgrad_operands(
+        n, theta_dtype, moment_dtype, grad_dtype, gen, offset)
     label = (f"amsgrad n={n} theta/g/moments={_short(theta_dtype)}/"
              f"{_short(grad_dtype)}/{_short(moment_dtype)}"
              + (f", views {offset} element(s) off 16 B" if offset else ""))
@@ -375,20 +421,29 @@ def _share(bound: float, dev: float | None) -> str:
     return "not measured" if not dev else f"{100 * bound / dev:.1f}%"
 
 
-def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen) -> dict:
-    dev = "cuda"
-    a = torch.randn(rows, n, generator=gen, device=dev).to(a_dtype)
-    b = torch.randn(rows, n, generator=gen, device=dev).to(b_dtype)
+def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen,
+                  planes=None, calls: int = 50) -> dict:
+    """The two-operand row norm (the gate of lag, cada1, cada2 and avp)
+    against its plain version on two (rows, n) planes drawn from ``gen``,
+    or on ``planes``: rows within SUM_RTOL, the same on two calls, each row
+    bit-equal in a launch over fewer rows, one launch per call."""
+    if planes is None:
+        planes = (torch.randn(rows, n, generator=gen,
+                              device="cuda").to(a_dtype),
+                  torch.randn(rows, n, generator=gen,
+                              device="cuda").to(b_dtype))
+    a, b = planes
+    lo = min(2, rows - 1)
     k = cada_update.batched_diff_sq_norm_flat(a, b)
     k_again = cada_update.batched_diff_sq_norm_flat(a, b)
-    part = cada_update.batched_diff_sq_norm_flat(a[2:5].contiguous(),
-                                                 b[2:5].contiguous())
+    part = cada_update.batched_diff_sq_norm_flat(a[lo:lo + 3].contiguous(),
+                                                 b[lo:lo + 3].contiguous())
     p = ref.batched_diff_sq_norm_ref(a, b)
     torch.cuda.synchronize()
     if not torch.equal(k, k_again):
         raise RuntimeError(f"batched ({rows},{n}): two identical calls "
                            "differ")
-    if not torch.equal(k[2:5], part):
+    if not torch.equal(k[lo:lo + 3], part):
         raise RuntimeError(f"batched ({rows},{n}): rows depend on R")
     err = float((k - p).abs().max())
     rel = _max_rel(k, p)
@@ -403,16 +458,19 @@ def check_batched(rows: int, n: int, a_dtype, b_dtype, rates, gen) -> dict:
         return ref.batched_diff_sq_norm_ref(a, b)
 
     one_launch(kernel, "row_sq_kernel", f"batched_diff_sq ({rows},{n})")
-    ms, plain_ms = time_ms(kernel), time_ms(plain)
-    dev = device_ms(kernel, ("row_sq_kernel",))
-    plain_dev = device_ms(plain)
+    reps, dcalls = (5, 20) if calls >= 50 else (3, 5)
+    ms = time_ms(kernel, calls=calls, repeats=reps)
+    plain_ms = time_ms(plain, calls=calls, repeats=reps)
+    dev = device_ms(kernel, ("row_sq_kernel",), calls=dcalls)
+    plain_dev = device_ms(plain, calls=dcalls)
     print(f"  batched_diff_sq ({rows},{n}) {str(a_dtype)[6:]}/"
           f"{str(b_dtype)[6:]}: max|err| {err:.3g} (rel {rel:.3g}), "
           f"run-to-run identical, rows independent of R, one launch per "
           f"call; kernel "
           f"{ms * 1e3:.2f} us/call (device {_us(dev)}), plain "
           f"{plain_ms * 1e3:.2f} us/call (device {_us(plain_dev)}), bound "
-          f"{bound * 1e3:.3f} us ({nbytes} B)")
+          f"{bound * 1e3:.3f} us ({nbytes} B; device at {_share(bound, dev)} "
+          "of it)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev, "plain_device_ms": plain_dev,
             "bound_ms": bound, "bound_by": bound_by}
@@ -1143,9 +1201,10 @@ def _reset_all_counts() -> None:
         f.launches = 0
 
 
-def _profile(fn, label: str, per: int = 1, top: int = 8) -> None:
+def _profile(fn, label: str, per: int = 1, top: int = 8) -> tuple:
     """Wall time, device-busy share and the kernels that take most of the
-    device time over one call of ``fn`` (which ends in a synchronise)."""
+    device time over one call of ``fn`` (which ends in a synchronise).
+    Returns the device-busy ms per ``per`` and the profiler's events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1162,6 +1221,7 @@ def _profile(fn, label: str, per: int = 1, top: int = 8) -> None:
     for e in events[:top]:
         print(f"    {getattr(e, 'device_time_total', 0) / 1e3 / per:10.3f} "
               f"ms  x{e.count / per:.0f}  {e.key[:90]}")
+    return busy * 1e3 / per, events
 
 
 def _band(got, want, band: float, what: str) -> float:
@@ -1329,6 +1389,166 @@ def phase_serve(card: str) -> dict:
     return {name: got[name] for name in LM_WRAPPERS}
 
 
+# ---------------------------------------------------------- training path
+
+def _train_counts() -> dict:
+    return {**_counts(), **_lm_counts()}
+
+
+def _train_launches(kind: str, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` trainer steps of one rule: the
+    server step every step, the rule's gate norm, nothing of serving (the
+    training route's attention and scan are plain PyTorch)."""
+    return {**expected_launches(kind, steps, "fused"),
+            **dict.fromkeys(LM_WRAPPERS, 0)}
+
+
+def _batch_on_card(tokens) -> dict:
+    return trainer.worker_split({"tokens": torch.from_numpy(tokens).to(
+        device="cuda", dtype=torch.long)}, TRAIN_M)
+
+
+def phase_train(card: str, rates) -> tuple[dict, dict]:
+    """7a: stablelm-1.6b at full width (4 of 24 layers), cada2, M = 2, 8
+    steps of 4 × 2048 tokens; the counts set to 0 just before and read just
+    after: exactly one AMSGrad and one two-operand norm launch per step.
+    Then the kernels on the trainer's own operands. 7b: every rule kind for
+    3 steps at smoke size. Returns the launches of both runs and the
+    kernels' times at the trainer's size."""
+    cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=TRAIN_LAYERS)
+    hp = trainer.TrainHParams(rule=CommRule(kind="cada2", **TRAIN_RULE),
+                              lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init_train_state(cfg, hp, TRAIN_M, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(state.params))
+    if not n_params == param_count(cfg) == TRAIN_PARAMS:
+        raise RuntimeError(f"{n_params} parameters, not {TRAIN_PARAMS}")
+    layout = flat.layout_of(state.params)
+    print(f"  {cfg.name} ({cfg.source}) at full width, {cfg.n_layers} of "
+          f"24 layers: {n_params:,} parameters in {cfg.dtype} (n_flat "
+          f"{layout.n_flat:,}), remat {cfg.remat}, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; cada2 {TRAIN_RULE}, M = "
+          f"{TRAIN_M}, lr {TRAIN_LR}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens")
+    step = trainer.make_train_step(cfg, hp, TRAIN_M)
+    tokens = make_token_batches(cfg, global_batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ,
+                                steps=TRAIN_STEPS + TRAIN_PROFILE_STEPS + 1)
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = _batch_on_card(tokens[i])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, mets = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(mets["loss"]))
+        up = mets["upload_mask"]
+        print(f"  step {i}: loss {losses[-1]:.6f}, uploads "
+              f"{int(mets['uploads'])}/{TRAIN_M} {up.tolist()}, "
+              f"{step_ms[-1]:.2f} ms")
+        if i == 0 and not bool(up.all()):
+            raise RuntimeError("step 0: not every worker uploaded")
+    got, want = _train_counts(), _train_launches("cada2", TRAIN_STEPS)
+    if got != want:
+        raise RuntimeError(f"training path: launches {got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite losses {losses}")
+    if not _all_cuda(state):
+        raise RuntimeError("the trainer's state left the card")
+    steady = statistics.median(step_ms[1:])
+    print(f"  {TRAIN_STEPS} steps: losses finite ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}); step time median {steady:.2f} ms after the "
+          f"first ({step_ms[0]:.2f} ms); peak memory {peak / 2**30:.3f} GiB; "
+          "launches " + ", ".join(f"{k} {v}" for k, v in got.items())
+          + f" on {card}")
+
+    def two_steps():
+        nonlocal state
+        for i in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_PROFILE_STEPS):
+            state, _ = step(state, _batch_on_card(tokens[i]))
+
+    busy, events = _profile(two_steps, f"trainer step profile "
+                            f"({TRAIN_PROFILE_STEPS} steps, per step)",
+                            per=TRAIN_PROFILE_STEPS, top=10)
+    groups = dict.fromkeys(TRAIN_KERNEL_GROUPS, 0.0)
+    for e in events:
+        group = next((g for g, keys in TRAIN_KERNEL_GROUPS.items()
+                      if any(k in e.key for k in keys)),
+                     "other elementwise")
+        groups[group] += getattr(e, "device_time_total", 0) / 1e3 \
+            / TRAIN_PROFILE_STEPS
+    print(f"  device busy {busy:.3f} ms per step under the profiler against "
+          f"{steady:.2f} ms per step by CUDA events without it "
+          f"({100 * busy / steady:.1f}% busy); by kind, ms per step: "
+          + ", ".join(f"{g} {v:.3f}" for g, v in groups.items()))
+
+    # the kernels on the trainer's own operands: the next step's planes,
+    # then the server step on the state it reached
+    print("  the two kernels on the trainer's own operands:")
+    vgrad, vgrad_per = trainer.make_vgrads(cfg, hp, TRAIN_M)
+    _, fresh, second = flat.eval_two_point(
+        strategy_for(hp.rule), layout, state.comm.extras, state.params,
+        _batch_on_card(tokens[-1]), TRAIN_M, vgrad=vgrad,
+        vgrad_per=vgrad_per, fuse_evals=False)
+    sizes = {"batched_diff_sq": check_batched(
+        TRAIN_M, layout.n_flat, fresh.dtype, second.dtype, rates, None,
+        planes=(fresh, second), calls=8)}
+    del fresh, second
+    operands = (layout.pack(state.params), state.h, state.vhat,
+                flat.nabla_f32(state.comm))
+    del state
+    torch.cuda.empty_cache()
+    sizes["amsgrad"] = check_amsgrad(
+        layout.n_flat, operands[1].dtype, rates, None,
+        theta_dtype=operands[0].dtype, grad_dtype=operands[3].dtype,
+        calls=8, operands=operands, lr=TRAIN_LR)
+    del operands
+    torch.cuda.empty_cache()
+
+    # 7b: every rule kind at smoke size through the same trainer
+    smoke = lm_configs.get_smoke_config(TRAIN_ARCH)
+    toks = make_token_batches(smoke, global_batch=TRAIN_BATCH, seq=32,
+                              steps=SMOKE_TRAIN_STEPS)
+    totals = dict(got)
+    per_kind = {}
+    for kind in RULES:
+        hp_k = trainer.TrainHParams(rule=CommRule(kind=kind, **TRAIN_RULE),
+                                    lr=TRAIN_LR)
+        st = trainer.init_train_state(smoke, hp_k, TRAIN_M, 0)
+        step_k = trainer.make_train_step(smoke, hp_k, TRAIN_M)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        k_losses = []
+        for i in range(SMOKE_TRAIN_STEPS):
+            st, mets = step_k(st, _batch_on_card(toks[i]))
+            k_losses.append(float(mets["loss"]))
+        got_k = _train_counts()
+        want_k = _train_launches(kind, SMOKE_TRAIN_STEPS)
+        if got_k != want_k:
+            raise RuntimeError(f"{kind} at smoke size: launches {got_k}, "
+                               f"expected {want_k}")
+        if not all(math.isfinite(v) for v in k_losses) or not _all_cuda(st):
+            raise RuntimeError(f"{kind} at smoke size: losses {k_losses} "
+                               "or the state left the card")
+        for k, v in got_k.items():
+            totals[k] += v
+        per_kind[kind] = got_k
+    print(f"  every rule kind, {SMOKE_TRAIN_STEPS} steps at "
+          f"{smoke.name} size, M = {TRAIN_M}: losses finite, launches exact "
+          "(" + "; ".join(f"{kind} amsgrad {c['amsgrad']}, diff "
+                          f"{c['batched_diff_sq']}, sq {c['batched_sq']}"
+                          for kind, c in per_kind.items()) + ")")
+    return totals, sizes
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -1363,6 +1583,12 @@ def main() -> None:
     phase_lockstep("topk", skipping_c["topk"], params, batches)
     print("[6] serving path")
     launches.update(phase_serve(card))
+    print("[7] training path")
+    train_launches, train_sizes = phase_train(card, rates)
+    for name, v in train_launches.items():
+        launches[name] += v
+    for name, entry in train_sizes.items():
+        main_shape[name]["trainer_size"] = entry
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

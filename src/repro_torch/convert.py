@@ -1,7 +1,8 @@
-"""Carry weights and engine state across from numpy.
+"""Carry weights, engine and trainer state across from numpy.
 
-The JAX package's parameters, ``EngineState`` and LM ``DecodeCache``
-convert to numpy with ``jax.tree.map(np.asarray, ...)``; these functions
+The JAX package's parameters, ``EngineState``, trainer ``DistTrainState``
+and LM ``DecodeCache`` convert to numpy with
+``jax.tree.map(np.asarray, ...)``; these functions
 turn that numpy form into the port's tensors on ``device`` (None means
 ``cuda``, as everywhere in the port). They read fields by name and import
 nothing of the JAX package. An LM's parameters (nested dicts, bf16 leaves
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core.engine import EngineState
 from repro_torch.core.flat import FlatCommState
 from repro_torch.device import resolve_device
+from repro_torch.distributed.trainer import DistTrainState
 from repro_torch.models.model import DecodeCache
 from repro_torch.optim.adam import AdamState
 from repro_torch.optim.fused import FusedState
@@ -57,26 +59,46 @@ def opt_state_from_numpy(opt, device=None):
     return kind(count=int(opt.count), **params_from_numpy(tree, device))
 
 
-def engine_state_from_numpy(state, device=None) -> EngineState:
-    """The JAX engine's flat-plane ``EngineState`` (numpy leaves) as the
-    port's :class:`EngineState`: the server optimizer's state, and the
-    ``FlatCommState`` with every rule's extras (CADA1's snapshot and δ̃
-    plane, CADA2's ring, slots and versions, laq/topk's residual, avp's
+def comm_state_from_numpy(comm, device=None) -> FlatCommState:
+    """The JAX package's flat ``FlatCommState`` (numpy leaves) as the
+    port's, with every rule's extras (CADA1's snapshot and δ̃ plane,
+    CADA2's ring, slots and versions, laq/topk's residual, avp's
     periods)."""
     device = resolve_device(device)
-    comm = state.comm
+    return FlatCommState(
+        nabla=tensor_from_numpy(comm.nabla, device),
+        worker_grads=tensor_from_numpy(comm.worker_grads, device),
+        staleness=tensor_from_numpy(comm.staleness, device),
+        diff_hist=tensor_from_numpy(comm.diff_hist, device),
+        extras=params_from_numpy(dict(comm.extras), device))
+
+
+def engine_state_from_numpy(state, device=None) -> EngineState:
+    """The JAX engine's flat-plane ``EngineState`` (numpy leaves) as the
+    port's :class:`EngineState`: the server optimizer's state and the
+    communication state (:func:`comm_state_from_numpy`)."""
+    device = resolve_device(device)
     return EngineState(
         step=int(state.step),
         params=params_from_numpy(state.params, device),
         opt_state=opt_state_from_numpy(state.opt_state, device),
-        comm=FlatCommState(
-            nabla=tensor_from_numpy(comm.nabla, device),
-            worker_grads=tensor_from_numpy(comm.worker_grads, device),
-            staleness=tensor_from_numpy(comm.staleness, device),
-            diff_hist=tensor_from_numpy(comm.diff_hist, device),
-            extras=params_from_numpy(dict(comm.extras), device)),
+        comm=comm_state_from_numpy(state.comm, device),
         params_flat=tensor_from_numpy(state.params_flat, device),
     )
+
+
+def train_state_from_numpy(state, device=None) -> DistTrainState:
+    """The JAX trainer's flat-plane ``DistTrainState`` (numpy leaves) as
+    the port's: the step as a Python int, the parameters, the (n_flat,)
+    moments, and the communication state (None for a stateless rule)."""
+    device = resolve_device(device)
+    return DistTrainState(
+        step=int(state.step),
+        params=params_from_numpy(state.params, device),
+        h=tensor_from_numpy(state.h, device),
+        vhat=tensor_from_numpy(state.vhat, device),
+        comm=(None if state.comm is None
+              else comm_state_from_numpy(state.comm, device)))
 
 
 def decode_cache_from_numpy(cache, device=None) -> DecodeCache:

@@ -59,6 +59,9 @@ class CommStrategy:
     kind: str = "?"
     #: worker-side gradient evaluations per iteration (paper §2.2)
     grad_evals_per_iter: int = 1
+    #: True ⇒ the rule keeps NO innovation state (the trainer drops the
+    #: whole CommState and runs the lean distributed-baseline step)
+    stateless: bool = False
 
     def __init__(self, rule: CommRule):
         self.rule = rule
@@ -171,6 +174,7 @@ def strategy_for(rule: CommRule) -> CommStrategy:
 class AlwaysStrategy(CommStrategy):
     """Threshold never satisfied ⇒ plain distributed Adam/AMSGrad."""
     kind = "always"
+    stateless = True
 
     def flat_lhs(self, ctx, extras):
         return torch.full((ctx.m,), torch.inf, dtype=torch.float32,

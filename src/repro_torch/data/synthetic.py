@@ -4,6 +4,7 @@ packages).
 
   * ``ijcnn1_like`` — binary, 22-dim, logistic-regression friendly.
   * ``mnist_like``  — 10-class, 28x28 images for the MLP experiments.
+  * ``lm_tokens``   — a Zipfian token stream for the LM trainer.
 
 Every generator is deterministic in (seed, sizes) and returns plain numpy.
 """
@@ -54,3 +55,11 @@ def mnist_like(n: int = 4096, seed: int = 2) -> Dataset:
     x += rng.normal(size=x.shape).astype(np.float32) * 0.3
     x = x.reshape(n, 28, 28, 1)
     return Dataset(x=x, y=y, n_classes=n_classes)
+
+
+def lm_tokens(n_tokens: int, vocab: int, seed: int = 3,
+              zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf-distributed token ids — realistic rank-frequency for LM smoke."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_a, size=n_tokens)
+    return np.minimum(ranks - 1, vocab - 1).astype(np.int32)

@@ -4,15 +4,20 @@ port of the JAX package's ``models/attention.py``: logits and softmax in
 fp32, values in the model dtype, GQA grouped without repeating K/V in the
 model code.
 
-The prefill route differs from the reference's on purpose. The reference
-sends a self-attention of S < 2048 to ``naive_attention`` and one of
-S >= 2048 to its own jnp blockwise loop, and never calls its Pallas flash
-kernel. Here :func:`causal_attention` sends every self-attention with
-standard positions, at every length, through ``ops.flash_attention``: the
-CUDA kernel on the card, its plain version on the CPU. Both compute the
-same causal softmax; they differ from the reference's routes only in
-rounding (the kernel scales q before the product, the reference's routes
-after it).
+:func:`causal_attention` has two routes.
+  * Serving (prefill and forward) differs from the reference's on purpose.
+    The reference sends a self-attention of S < 2048 to
+    ``naive_attention`` and one of S >= 2048 to its own jnp blockwise
+    loop, and never calls its Pallas flash kernel. Here every
+    self-attention with standard positions, at every length, goes through
+    ``ops.flash_attention``: the CUDA kernel on the card, its plain version
+    on the CPU. Both compute the same causal softmax; they differ from the
+    reference's routes only in rounding (the kernel scales q before the
+    product, the reference's routes after it).
+  * Training (``train=True``) makes the reference's choice, in PyTorch
+    under autograd on every device: :func:`blockwise_attention` for a long
+    self-attention, :func:`naive_attention` otherwise. The kernel has no
+    backward, as the reference's Pallas kernel has none.
 """
 from __future__ import annotations
 
@@ -22,6 +27,10 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 _NEG = -1e30
+
+FLASH_THRESHOLD = 2048   # training: blockwise attention at/above this length
+FLASH_Q_CHUNK = 1024
+FLASH_KV_CHUNK = 1024
 
 
 # ----------------------------------------------------------------- RoPE
@@ -107,16 +116,85 @@ def naive_attention(q, k, v, positions_q=None, positions_k=None,
     return _grouped_values(probs, v).to(dtype)
 
 
-def causal_attention(q, k, v, positions_q=None, positions_k=None,
-                     window: int = 0, dtype=torch.bfloat16, impl=None):
-    """Causal (optionally sliding-window) attention for prefill/forward.
+def blockwise_attention(q, k, v, window: int = 0, dtype=torch.bfloat16,
+                        q_chunk: int = FLASH_Q_CHUNK,
+                        kv_chunk: int = FLASH_KV_CHUNK):
+    """Blockwise (flash-style) causal attention, O(S·chunk) memory: the
+    reference's jnp ``flash_attention``, the training route's long
+    self-attention.
 
-    Self-attention with standard positions goes through
-    ``ops.flash_attention`` at every length (see the module docstring).
-    Explicit positions (M-RoPE) have no kernel yet: on the CPU they take
-    :func:`naive_attention`, on the card they raise.
+    A loop over query blocks, each with its KV extent trimmed to the
+    causal/window range, and an inner loop over KV blocks carrying the
+    running (max, sum, acc) softmax state in fp32. Self-attention only
+    (Sq == Sk, standard positions); GQA computed grouped.
+    """
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    kv_chunk = min(kv_chunk, q_chunk)  # causal trim needs kv | q blocks
+    if s % q_chunk or q_chunk % kv_chunk:
+        raise ValueError(f"blockwise attention: S={s}, q_chunk={q_chunk}, "
+                         f"kv_chunk={kv_chunk} do not divide")
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
+    qg = q.reshape(b, s, hkv, g, hd)
+    arange_q = torch.arange(q_chunk, device=q.device)
+    arange_k = torch.arange(kv_chunk, device=q.device)
+    outs = []
+    for q_lo in range(0, s, q_chunk):
+        kv_lo = 0 if not window else max(0, (q_lo - window) // kv_chunk
+                                         * kv_chunk)
+        qb = qg[:, q_lo:q_lo + q_chunk].float()           # (B,qc,Hkv,G,hd)
+        pos_q = q_lo + arange_q
+        m = torch.full((b, hkv, g, q_chunk), _NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, hkv, g, q_chunk, hd), dtype=torch.float32,
+                          device=q.device)
+        for k_lo in range(kv_lo, q_lo + q_chunk, kv_chunk):
+            kc = k[:, k_lo:k_lo + kv_chunk].float()          # (B,kc,Hkv,hd)
+            vc = v[:, k_lo:k_lo + kv_chunk].float()
+            sc = torch.einsum("bqkgh,bskh->bkgqs", qb, kc) * scale
+            rel = pos_q[:, None] - (k_lo + arange_k)[None, :]
+            mask = rel >= 0
+            if window:
+                mask &= rel < window
+            sc = torch.where(mask[None, None, None], sc, _NEG)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, vc)
+            m = m_new
+        ob = acc / l[..., None]                              # (B,Hkv,G,qc,hd)
+        outs.append(ob.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, hq, hd))
+    return torch.cat(outs, dim=1).to(dtype)
+
+
+def causal_attention(q, k, v, positions_q=None, positions_k=None,
+                     window: int = 0, dtype=torch.bfloat16, impl=None,
+                     train=False):
+    """Causal (optionally sliding-window) attention for prefill/forward
+    (see the module docstring for the two routes).
+
+    Serving: self-attention with standard positions goes through
+    ``ops.flash_attention`` at every length. Explicit positions (M-RoPE)
+    have no kernel yet: on the CPU they take :func:`naive_attention`, on
+    the card they raise.
+
+    Training: :func:`blockwise_attention` where Sq = Sk ≥ 2048, both
+    divisible by the chunk, with standard positions; else
+    :func:`naive_attention` (the reference's dispatch).
     """
     standard = positions_q is None and positions_k is None
+    if train:
+        sq, sk = q.shape[1], k.shape[1]
+        if (standard and sq == sk and sq >= FLASH_THRESHOLD
+                and sq % FLASH_Q_CHUNK == 0 and sk % FLASH_KV_CHUNK == 0):
+            return blockwise_attention(q, k, v, window=window, dtype=dtype)
+        return naive_attention(q, k, v, positions_q, positions_k, window,
+                               dtype)
     if standard and q.shape[1] == k.shape[1]:
         return ops.flash_attention(q, k, v, window=window,
                                    impl=impl).to(dtype)

@@ -1,11 +1,20 @@
-"""Model assembly for serving: parameter init, the forward pass, the LM
-loss (forward only), prefill and single-token decode with KV/SSM caches.
-The port of the JAX package's ``models/model.py``.
+"""Model assembly: parameter init, the forward pass, the LM loss and its
+gradients, prefill and single-token decode with KV/SSM caches. The port of
+the JAX package's ``models/model.py``.
+
+Two routes through the layers:
+  * serving (the default): prefill and forward on the kernels, the CUDA
+    flash attention and selective scan on the card (``ops``);
+  * training (``train=True`` on :func:`hidden_states`, :func:`forward`,
+    :func:`lm_loss`): the reference trainer's autograd-friendly code, the
+    naive or blockwise attention and the chunked scan in PyTorch on every
+    device, with ``cfg.remat`` wrapping the bodies the reference wraps in
+    ``jax.checkpoint`` in ``torch.utils.checkpoint``.
 
 Layout conventions (the reference's, so weights convert leaf for leaf)
   * params["blocks"]: every per-layer tensor stacked with a leading
     n_layers axis; a Python loop over layers takes the place of
-    ``lax.scan`` (and ``remat`` has no meaning without gradients);
+    ``lax.scan``;
   * logits are produced in the model dtype; the loss is taken in fp32.
 
 Decode caches
@@ -26,6 +35,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -158,7 +168,8 @@ def layer(blocks: dict, i: int) -> dict:
 
 # ================================================================ forward
 
-def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None):
+def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
+                    train=False):
     """Pre-norm attention + MLP over the full sequence; also returns the
     roped K and V (the decode cache's entries)."""
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
@@ -166,7 +177,7 @@ def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None):
     q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
     k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
     a = attn.causal_attention(q, k, v, window=cfg.sliding_window,
-                              dtype=x.dtype, impl=impl)
+                              dtype=x.dtype, impl=impl, train=train)
     x = x + attn.out_proj(params["attn"], a)
     h2 = rmsnorm(x, params["ln2"], cfg.norm_eps)
     return x + ffn(params["mlp"], cfg, h2), k, v
@@ -231,12 +242,49 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True):
     return x, kv, states
 
 
-def hidden_states(cfg: ModelConfig, params, tokens, impl=None):
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``torch.utils.checkpoint`` where ``cfg.remat`` is set:
+    its activations are recomputed in the backward pass, not kept."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_layers(cfg: ModelConfig, params, x):
+    """Every layer on the training route, in the reference's order, with
+    ``cfg.remat`` wrapping what the reference wraps in ``jax.checkpoint``:
+    each dense block, each pure-SSM layer, and each SSM layer inside a
+    hybrid stage (not the shared attention block)."""
+    cos, sin = _rope_tables(cfg, x.shape[1], x.device)
+    blocks = params["blocks"]
+    if cfg.block == "dense":
+        body = _remat(cfg, lambda h, i: _attn_mlp_block(
+            layer(blocks, i), cfg, h, cos, sin, train=True)[0])
+        for i in range(cfg.n_layers):
+            x = body(x, i)
+        return x
+    ssm_block = (ssm.mamba2_block if cfg.block == "mamba2"
+                 else ssm.mamba1_block)
+    body = _remat(cfg, lambda h, i: ssm_block(layer(blocks, i), cfg, h,
+                                              train=True))
+    for i in range(cfg.n_layers):
+        x = body(x, i)
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            x = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
+                                train=True)[0]
+    return x
+
+
+def hidden_states(cfg: ModelConfig, params, tokens, impl=None, train=False):
     """tokens (B, S) -> final hidden states (B, S, d) and the aux loss (0:
-    no MoE router is ported)."""
+    no MoE router is ported). ``train`` takes the training route (module
+    docstring); ``impl`` applies to the serving route's kernels."""
     check_ported(cfg)
-    x, _, _ = _run_layers(cfg, params, params["embed"][tokens], impl,
-                          cached=False)
+    x = params["embed"][tokens]
+    if train:
+        x = _train_layers(cfg, params, x)
+    else:
+        x, _, _ = _run_layers(cfg, params, x, impl, cached=False)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -247,16 +295,18 @@ def logits_fn(cfg: ModelConfig, params, hidden):
     return hidden @ head
 
 
-def forward(cfg: ModelConfig, params, tokens, impl=None):
-    hidden, aux = hidden_states(cfg, params, tokens, impl)
+def forward(cfg: ModelConfig, params, tokens, impl=None, train=False):
+    hidden, aux = hidden_states(cfg, params, tokens, impl, train)
     return logits_fn(cfg, params, hidden), aux
 
 
-def lm_loss(cfg: ModelConfig, params, batch, impl=None):
+def lm_loss(cfg: ModelConfig, params, batch, impl=None, train=False):
     """batch {"tokens": (B, S+1)} -> (scalar loss, metrics): the mean
-    next-token NLL in fp32 (forward only)."""
+    next-token NLL in fp32. With ``train`` the forward takes the training
+    route, whose every op has a gradient under autograd (the serving
+    route's kernels have none)."""
     inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    logits, aux = forward(cfg, params, inputs, impl)
+    logits, aux = forward(cfg, params, inputs, impl, train)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss = torch.mean(nll)

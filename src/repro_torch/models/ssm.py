@@ -7,13 +7,19 @@ Both variants lower to one generic scan over a flattened channel axis D:
 with the contract (dt, x, a, b, c) -> (y, h_final) of ``ops.selective_scan``,
 h_t = exp(Δ_t A) h + (Δ_t x_t)⊗B_t.
 
-Where the scan runs. The reference defaults to its jnp chunked scan and
-reaches its Pallas kernel by ``set_scan_impl("pallas")``. Here a scan on
-the card from a zero state is always the CUDA kernel; on the CPU it is the
-plain loop over time. Every caller on the prefill/forward path passes
-``h0=None``; a start state on the card raises, since the kernel starts
-from zero. One-token decode steps are plain PyTorch on every device, as
-the reference's are plain jnp.
+Where the scan runs: two routes.
+  * Serving (``train=False``, prefill and forward): a scan on the card
+    from a zero state is always the CUDA kernel; on the CPU it is the
+    plain loop over time. Every caller on this route passes ``h0=None``;
+    a start state on the card raises, since the kernel starts from zero.
+  * Training (``train=True``, the trainer's forward and backward):
+    :func:`selective_scan_chunked`, the reference's chunked
+    ``selective_scan_jnp`` as PyTorch code under autograd, on every
+    device. The reference's trainer takes that jnp scan too (its Pallas
+    kernel is opt-in and has no backward), and so does this one: there is
+    no backward kernel.
+One-token decode steps are plain PyTorch on every device, as the
+reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -25,12 +31,53 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv1d, conv1d_step, rmsnorm
 
 
-def _scan(dt, x, a, b, c, h0, impl=None):
-    """dt/x (B, S, D), a (D, N), b/c (B, S, N) -> (y, h_final). A is passed
+DEFAULT_CHUNK = 128
+
+
+def selective_scan_chunked(dt, x, a, b, c, h0=None,
+                           chunk: int = DEFAULT_CHUNK):
+    """The training route's scan: the reference's ``selective_scan_jnp``
+    with the same contract. dt, x (B, S, D); a (D, N); b, c (B, S, N); h0
+    (B, D, N) or None. All math fp32. Returns (y (B, S, D) without the D·x
+    skip or the gate, h_final (B, D, N)).
+
+    The sequence runs in chunks with the state carried between them, and
+    the decay and drive terms are formed per chunk, so only one
+    (B, chunk, D, N) tile lives at a time. Inside a chunk the recurrence
+    h_t = decay_t·h_{t−1} + drive_t runs step by step (torch has no
+    associative scan; the reference's runs as a tree, so the two round
+    differently)."""
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq len {s} not divisible by chunk {chunk}")
+    dt, x, a = dt.float(), x.float(), a.float()
+    b, c = b.float(), c.float()
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.float())
+    ys = []
+    for lo in range(0, s, chunk):
+        dt_c, x_c = dt[:, lo:lo + chunk], x[:, lo:lo + chunk]
+        b_c, c_c = b[:, lo:lo + chunk], c[:, lo:lo + chunk]
+        decay = torch.exp(dt_c[..., None] * a)              # (B,chunk,D,N)
+        drive = (dt_c * x_c)[..., None] * b_c[:, :, None, :]
+        for t in range(chunk):
+            h = decay[:, t] * h + drive[:, t]
+            ys.append(torch.einsum("bdn,bn->bd", h, c_c[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _scan(dt, x, a, b, c, h0, impl=None, train=False):
+    """dt/x (B, S, D), a (D, N), b/c (B, S, N) -> (y, h_final).
+
+    ``train`` takes :func:`selective_scan_chunked`. Otherwise A is passed
     to the kernel as a zero-stride (B, D, N) view, never materialised (and
     keeps a zero stride on N where it has one); x, b and c go in their own
     dtype (the kernel and the plain version upcast, as the reference's
     ``_scan`` does before its kernel)."""
+    if train:
+        return selective_scan_chunked(dt, x, a, b, c, h0)
     a_g = a.float()[None].expand(dt.shape[0], *a.shape)
     if h0 is None:
         return ops.selective_scan(dt.float(), x, a_g, b, c, impl=impl)
@@ -55,23 +102,23 @@ def _mamba1_scan_inputs(params, xc):
 
 
 def mamba1_inner(params, cfg: ModelConfig, xc, z, h0=None,
-                 return_state: bool = False, impl=None):
+                 return_state: bool = False, impl=None, train=False):
     """Selective scan after the conv. xc (B,S,di) post-conv+silu, z gate."""
     dt, a, b_ssm, c_ssm = _mamba1_scan_inputs(params, xc)
-    y, h_final = _scan(dt, xc, a, b_ssm, c_ssm, h0, impl)
+    y, h_final = _scan(dt, xc, a, b_ssm, c_ssm, h0, impl, train)
     y = y + params["D"].float() * xc.float()
     y = (y * F.silu(z.float())).to(xc.dtype)
     out = y @ params["out_proj"]
     return (out, h_final) if return_state else (out, None)
 
 
-def mamba1_block(params, cfg: ModelConfig, x, impl=None):
+def mamba1_block(params, cfg: ModelConfig, x, impl=None, train=False):
     """Full block: norm -> in_proj -> conv -> selective scan -> out_proj."""
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
     xi = xn @ params["in_x"]                                   # (B,S,di)
     z = xn @ params["in_z"]
     xc = F.silu(causal_conv1d(xi, params["conv_w"], params["conv_b"]))
-    out, _ = mamba1_inner(params, cfg, xc, z, impl=impl)
+    out, _ = mamba1_inner(params, cfg, xc, z, impl=impl, train=train)
     return x + out
 
 
@@ -120,13 +167,14 @@ def _mamba2_scan_inputs(params, cfg: ModelConfig, dt_raw):
 
 
 def mamba2_inner(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
-                 h0=None, return_state: bool = False, impl=None):
+                 h0=None, return_state: bool = False, impl=None,
+                 train=False):
     """xc (B,S,di) post-conv+silu. h0/h_final: (B, H, hd, N)."""
     bsz, s, di = xc.shape
     hn, hd, n = cfg.ssm_heads, cfg.mamba_headdim, cfg.ssm_state
     dt_e, a_e = _mamba2_scan_inputs(params, cfg, dt_raw)
     h0_flat = None if h0 is None else h0.reshape(bsz, di, n)
-    y, h_final = _scan(dt_e, xc, a_e, b_ssm, c_ssm, h0_flat, impl)
+    y, h_final = _scan(dt_e, xc, a_e, b_ssm, c_ssm, h0_flat, impl, train)
     y = y + torch.repeat_interleave(params["D"].float(), hd) * xc.float()
     y = (y * F.silu(z.float())).to(xc.dtype)
     y = rmsnorm(y, params["out_norm"], cfg.norm_eps)
@@ -136,12 +184,12 @@ def mamba2_inner(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
     return out, None
 
 
-def mamba2_block(params, cfg: ModelConfig, x, impl=None):
+def mamba2_block(params, cfg: ModelConfig, x, impl=None, train=False):
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
     z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn)
     xc = F.silu(causal_conv1d(xi, params["conv_w"], params["conv_b"]))
     out, _ = mamba2_inner(params, cfg, xc, z, b_ssm, c_ssm, dt_raw,
-                          impl=impl)
+                          impl=impl, train=train)
     return x + out
 
 

@@ -34,6 +34,8 @@ from repro_torch.core import flat
 from repro_torch.core.engine import CADAEngine
 from repro_torch.core.rules import CommRule
 from repro_torch import configs as TC
+from repro_torch.distributed.trainer import (TrainHParams, init_train_state,
+                                             make_train_step, worker_split)
 from repro_torch.kernels import cada_update, ops, ref, ssm_scan
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import attention as tattn
@@ -598,3 +600,45 @@ def test_prefill_launches_the_kernels_and_decode_none(gen, arch):
     assert (ssm_scan.selective_scan.launches,
             tfa.flash_attention.launches) == mid
     assert bool(torch.isfinite(out).all())
+
+
+# --------------------------------------------------------------- trainer
+
+@pytest.mark.parametrize("kind,norm", [("cada2", "batched_diff_sq_norm_flat"),
+                                       ("laq", "batched_sq_norm_flat"),
+                                       ("always", None)])
+def test_trainer_step_launches_the_kernels_and_matches_plain(gen, kind,
+                                                             norm):
+    """A smoke-size trainer step on the card (stablelm smoke, M = 2): the
+    state defaults to the card, the step launches one AMSGrad step and the
+    rule's one LHS norm and no scan or flash kernel (the training route is
+    plain PyTorch), and a step with ``impl="plain"`` from the same state
+    launches nothing and gives the same masks and θ within 1e-5 of its
+    scale (the two steps' backward passes may round differently)."""
+    cfg = TC.get_smoke_config("stablelm-1.6b")
+    hp = TrainHParams(rule=CommRule(kind=kind, c=20.0, d_max=4,
+                                    max_delay=10), lr=1e-3)
+    state = init_train_state(cfg, hp, 2, 0)
+    assert state.h.is_cuda and all(t.is_cuda for t in _leaves(state.params))
+    batch = worker_split({"tokens": torch.randint(
+        0, cfg.vocab, (4, 33), generator=gen, device="cuda")}, 2)
+    counters = {"amsgrad": cada_update.fused_amsgrad_flat,
+                "batched_diff_sq_norm_flat":
+                    cada_update.batched_diff_sq_norm_flat,
+                "batched_sq_norm_flat": cada_update.batched_sq_norm_flat,
+                "scan": ssm_scan.selective_scan,
+                "flash": tfa.flash_attention}
+    before = {k: f.launches for k, f in counters.items()}
+    new, mets = make_train_step(cfg, hp, 2)(state, batch)
+    torch.cuda.synchronize()
+    got = {k: f.launches - before[k] for k, f in counters.items()}
+    want = {k: int(k == "amsgrad" or k == norm) for k in counters}
+    assert got == want
+    mid = {k: f.launches for k, f in counters.items()}
+    plain, pmets = make_train_step(cfg, hp, 2, impl="plain")(state, batch)
+    assert {k: f.launches for k, f in counters.items()} == mid
+    assert torch.equal(mets["upload_mask"], pmets["upload_mask"])
+    for a, b in zip(_leaves(new.params), _leaves(plain.params)):
+        assert a.is_cuda
+        _within_scale(a, b, 1e-5)
+    assert bool(torch.isfinite(mets["loss"]))

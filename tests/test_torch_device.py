@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from repro_torch import convert
+import repro_torch.configs as TC
 from repro_torch.core.engine import CADAEngine, make_sampler
 from repro_torch.core.rules import CommRule
+from repro_torch.distributed.trainer import TrainHParams, init_train_state
+from repro_torch.launch import train as train_cli
 from repro_torch.models.small import logreg_init, logreg_loss, mlp_init
 from repro_torch.optim.fused import FusedAMSGrad
 
@@ -54,6 +57,13 @@ ENTRY_POINTS = {
     "make_sampler": lambda: make_sampler(
         np.ones((8, 3), np.float32), np.zeros(8, np.int32),
         np.arange(8).reshape(2, 4), 2),
+    "init_train_state": lambda: init_train_state(
+        TC.get_smoke_config("stablelm-1.6b"), TrainHParams(), 2, 0),
+    "train_state_from_numpy": lambda: convert.train_state_from_numpy(
+        numpy_state(init_train_state(TC.get_smoke_config("stablelm-1.6b"),
+                                     TrainHParams(), 2, 0, "cpu"))),
+    "launch.train": lambda: train_cli.main(
+        ["--arch", "stablelm-1.6b", "--smoke", "--steps", "1"]),
 }
 
 

@@ -14,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCRIPTS = ([ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+SCRIPTS = ([ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+            ROOT / "examples" / "train_lm_cada_torch.py"]
            + sorted((ROOT / "tools").glob("*.py")))
 
 
@@ -95,6 +96,14 @@ def test_the_serving_slice_is_covered():
             "repro_torch.models.model", "repro_torch.kernels.ssm_scan",
             "repro_torch.kernels.flash_attention",
             "repro_torch.launch.serve"} <= set(_modules())
+
+
+def test_the_trainer_slice_is_covered():
+    """... and so are the trainer slice's modules."""
+    assert {"repro_torch.distributed", "repro_torch.distributed.trainer",
+            "repro_torch.launch.train", "repro_torch.configs.stablelm_1_6b",
+            "repro_torch.configs.llama3_405b",
+            "repro_torch.configs.yi_34b"} <= set(_modules())
 
 
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(

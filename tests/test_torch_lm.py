@@ -1,10 +1,11 @@
 """The port's LM serving slice against the JAX package's models.
 
-For zamba2-2.7b, falcon-mamba-7b and internlm2-1.8b at their smoke configs
-(fp32), the JAX package's own parameters go to the port through
-``repro_torch.convert``, both sides get the same numpy tokens, and the
-port's forward logits, prefill (last logits and every cache field) and 8
-greedy decode steps are held against the reference's. On the JAX side the
+For zamba2-2.7b, falcon-mamba-7b, internlm2-1.8b, stablelm-1.6b,
+llama3-405b and yi-34b at their smoke configs (fp32), the JAX package's
+own parameters go to the port through ``repro_torch.convert``, both
+sides get the same numpy tokens, and the port's forward logits, prefill
+(last logits and every cache field) and 8 greedy decode steps are held
+against the reference's. On the JAX side the
 zamba2 and falcon-mamba cases run once with the default jnp scan and once
 with ``set_scan_impl("pallas")`` (the Pallas kernel in interpret mode).
 
@@ -38,7 +39,9 @@ from repro_torch.models import model as TM
 
 torch.set_num_threads(1)
 
-ARCHS = ["zamba2-2.7b", "falcon-mamba-7b", "internlm2-1.8b"]
+ARCHS = ["zamba2-2.7b", "falcon-mamba-7b", "internlm2-1.8b",
+         "stablelm-1.6b", "llama3-405b", "yi-34b"]
+SSM_ARCHS = ("zamba2-2.7b", "falcon-mamba-7b")
 RTOL = 1e-5
 B, S, DECODE_STEPS = 2, 24, 8
 
@@ -105,7 +108,7 @@ def _cases():
     out = []
     for arch in ARCHS:
         out.append((arch, "jnp"))
-        if arch != "internlm2-1.8b":
+        if arch in SSM_ARCHS:
             out.append((arch, "pallas"))
     return out
 

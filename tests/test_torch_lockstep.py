@@ -66,7 +66,6 @@ from repro.optim.fused import FusedAMSGrad as JaxFusedAMSGrad
 from repro.optim.sgd import sgd as jax_sgd
 from repro_torch import convert
 from repro_torch.core.engine import CADAEngine
-from repro_torch.core.quantize import topk_count
 from repro_torch.core.rules import CommRule
 from repro_torch.data import (ijcnn1_like, mnist_like, pad_to_matrix,
                               uniform_partition)
@@ -74,6 +73,8 @@ from repro_torch.models.small import logreg_loss, mlp_loss
 from repro_torch.optim.adam import adam
 from repro_torch.optim.fused import FusedAMSGrad
 from repro_torch.optim.sgd import sgd
+
+from lockstep_wire import wire_differences
 
 torch.set_num_threads(1)
 
@@ -161,65 +162,6 @@ def _opt_arrays(opt_state, layout):
     return out
 
 
-def _wire_kind(rule):
-    """(quantizer levels or 0, top-k fraction or None) of a rule's wire."""
-    bits = rule.quantize_bits or (8 if rule.kind in ("cinn", "laq") else 0)
-    levels = float(2 ** (bits - 1) - 1) if bits else 0.0
-    frac = rule.topk_frac if rule.kind == "topk" else None
-    return levels, frac
-
-
-def _wire_differences(rule, layout, wg_prev, wg_ref, wg_port):
-    """(M, n_flat) bool mask of the wire differences (see the module
-    docstring), each checked; returns (mask, largest swap gap / scale).
-
-    An entry is a candidate where it differs beyond STATE_TOL, where it
-    differs by more than half a quantization level (a flip below STATE_TOL
-    still moves the residual), or where one side sent it and the other
-    did not (top-k)."""
-    diff = np.abs(wg_port - wg_ref)
-    tol = STATE_TOL * max(np.abs(wg_ref).max(), 1e-30)
-    levels, frac = _wire_kind(rule)
-    w_ref, w_port = wg_ref - wg_prev, wg_port - wg_prev
-    level = np.zeros_like(w_ref)
-    if levels:
-        for o, s in zip(layout.offsets, layout.sizes):
-            level[:, o:o + s] = np.abs(w_ref[:, o:o + s]).max(
-                axis=1, keepdims=True) / levels
-    flagged = diff > tol
-    if levels:
-        flagged |= diff > level / 2
-    if frac is not None:
-        flagged |= (w_ref == 0.0) != (w_port == 0.0)
-    if not flagged.any():
-        return flagged, 0.0
-    assert levels or frac is not None, (
-        f"{int(flagged.sum())} worker-plane entries beyond STATE_TOL on a "
-        "raw wire")
-    worst_swap = 0.0
-    for w, j in zip(*np.nonzero(flagged)):
-        if levels and diff[w, j] <= level[w, j] * (1 + 1e-3) + tol:
-            continue
-        seg = np.searchsorted(np.asarray(layout.offsets), j, side="right") - 1
-        o, s = layout.offsets[seg], layout.sizes[seg]
-        row = np.abs(w_ref[w, o:o + s])
-        scale = row.max()
-        assert frac is not None, (
-            f"worker {w} entry {j}: |Δ| {diff[w, j]:.3g} is more than one "
-            f"level {level[w, j]:.3g}")
-        kth = np.sort(row)[::-1][topk_count(s, frac) - 1]
-        sent = (w_port[w, j] if w_ref[w, j] == 0.0 else w_ref[w, j])
-        assert w_ref[w, j] == 0.0 or w_port[w, j] == 0.0, (
-            f"worker {w} entry {j}: both sides sent it, {w_ref[w, j]:.6g} "
-            f"vs {w_port[w, j]:.6g}")
-        gap = abs(abs(sent) - kth)
-        assert gap <= STATE_TOL * scale + level[w, j] * (1 + 1e-3), (
-            f"worker {w} entry {j}: a support swap {abs(sent):.6g} away "
-            f"from the k-th magnitude {kth:.6g}")
-        worst_swap = max(worst_swap, gap / scale)
-    return flagged, worst_swap
-
-
 def _run_lockstep(hp, opt, model, participation, c_by_model=None):
     rng = np.random.default_rng(0)
     x, y, params, jax_loss, loss, c, lr = _problem(model, rng)
@@ -286,8 +228,8 @@ def _run_lockstep(hp, opt, model, participation, c_by_model=None):
 
         # wire differences, and the columns they touch
         wg_prev = np.asarray(j_prev.comm.worker_grads, np.float32)
-        flagged, swap = _wire_differences(
-            t_eng.rule, layout, wg_prev,
+        flagged, swap = wire_differences(
+            t_eng.rule, layout, STATE_TOL, wg_prev,
             np.asarray(j.comm.worker_grads, np.float32),
             _np(t_next.comm.worker_grads))
         cols = flagged.any(axis=0)
