@@ -18,7 +18,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
      16 bytes (bit-equal to aligned copies); every CADA kernel runs as one
      launch per call (profiler). The server step and the one-operand norm
      are also timed at LM widths (n = 2^28; (10, 2^24)), where bytes bound
-     them. The wire compressors (plain PyTorch) must give the CPU's bits.
+     them. Eq. (3)'s order-fixed row mean is bit-equal to its plain version
+     at (10, 101,776) and (1, 101,776), an odd n, a view off 16 bytes, and
+     with its zero rows dropped, in fp32 and bf16. The wire compressors
+     (plain PyTorch) must give the CPU's bits.
   4. main path: ``CADAEngine`` on the paper MLP 784→128→10 (M=10, batch 12,
      mnist_like(4096), d_max=10, max_delay=50, c=1.0), each rule at its
      reference defaults on FusedAMSGrad(lr=5e-4): 200 rounds each of always
@@ -61,6 +64,36 @@ Phases, each of which raises on failure (the exit code is then not 0):
      b. every rule kind for 3 steps on stablelm's smoke config, M = 2:
         finite losses and the exact launches per kind (the one-operand
         norm for cinn, laq and topk).
+  8. the paper's problems, the delta rules and checkpoints:
+     a. the paper CNN (54,314 parameters; benchmarks/paper_nn.py:29-41):
+        mnist_like(4096), M = 10 equal shards, minibatch 12, d_max 10,
+        max_delay 50; adam (always on Adam(5e-4)), cada1 and cada2 on
+        Adam(5e-4), lag on SGD(0.05), local_momentum and fedadam with
+        H = 8 (local lr 0.05, server lr 5e-4) and cada2 on
+        FusedAMSGrad(5e-4), 80 iterations each; a gated rule that never
+        skips at c = 1 reruns at the median LHS/RHS of that run. Exact
+        launches (eq. (3) once a round, twice for local momentum), state
+        on the card, finite losses; losses, uploads, grad evals and ms per
+        round printed.
+     b. covtype logreg (benchmarks/paper_logreg.py:31,46): covtype_like(),
+        M = 20 shards of random sizes, batch 32, lr 0.005, H = 20, d_max
+        10, max_delay 100, the same runs for 100 iterations.
+     c. cada2 on FusedAMSGrad on the CNN and local_momentum on covtype,
+        30 rounds, by the kernels and by impl="plain" from the same state
+        each round, held as phase 5 holds its runs.
+     d. the same two runs, 20 rounds straight against 10 rounds, a
+        checkpoint saved and restored into a fresh state, and 10 more:
+        every leaf equal. Where two runs from one state differ (cuDNN's
+        convolution backward), 8c and 8d turn on cuDNN's deterministic
+        algorithms and say so.
+     e. phase 7's model and cut trained by local_momentum and fedadam
+        (H = 2 at local lr 0.01, M = 2, 4 × 2048 tokens a step, 4 steps
+        each): ms per step, peak memory, exactly one AMSGrad and one
+        eq. (3) launch a step (two for local momentum), a profile of one
+        more step; then one more step's own (2, n_flat) wire plane, taken
+        from eq. (3)'s dispatch inside the step: the step's result and
+        the kernel on that plane bit for bit against the plain version,
+        timed beside its bound.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -76,8 +109,10 @@ checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -89,13 +124,16 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
 from repro_torch.core.comm import strategy_for  # noqa: E402
 from repro_torch.core.engine import CADAEngine, make_sampler  # noqa: E402
-from repro_torch.core.rules import RULES, CommRule  # noqa: E402
-from repro_torch.data import (mnist_like, pad_to_matrix,  # noqa: E402
+from repro_torch.core.rules import LOCAL_RULES, RULES, CommRule  # noqa: E402
+from repro_torch.data import (covtype_like, mnist_like,  # noqa: E402
+                              pad_to_matrix, random_sizes_partition,
                               uniform_partition)
 from repro_torch.kernels import build, cada_update, ref  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
 from repro_torch.distributed import trainer  # noqa: E402
@@ -103,7 +141,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
-from repro_torch.models.small import mlp_init, mlp_loss  # noqa: E402
+from repro_torch.models.small import (cnn_init, cnn_loss,  # noqa: E402
+                                      logreg_init, logreg_loss, mlp_init,
+                                      mlp_loss)
+from repro_torch.optim.adam import adam  # noqa: E402
 from repro_torch.optim.fused import FusedAMSGrad  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
 
@@ -146,6 +187,10 @@ LIBRARY_NOTE = {
                       "N) trajectory the kernel exists to avoid",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True) on (B, H, S, hd), timed here",
+    "eq3_row_mean": "plane.float().sum(0) * rcp (torch.sum over the rows), "
+                    "timed here; not bit-equal to the kernel: torch.sum "
+                    "adds the rows in an order of its own, and the fixed "
+                    "order is the kernel's contract",
 }
 # serving path (phase 6): zamba2-2.7b, full width and depth
 SERVE_ARCH, SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS = "zamba2-2.7b", 2, 2048, 32
@@ -180,6 +225,27 @@ TRAIN_PROFILE_STEPS = 2
 TRAIN_RULE = dict(c=1.0, d_max=10, max_delay=50)   # examples/train_lm_cada.py
 TRAIN_LR = 3e-4
 SMOKE_TRAIN_STEPS = 3
+# phase 8: the paper's own problems (benchmarks/paper_nn.py:29-41, the CNN;
+# benchmarks/paper_logreg.py:31,46, covtype) with the six algorithms of
+# their runs and cada2 on the AMSGrad kernel; name: (rule kind, server
+# optimizer: "adam", "sgd", "fused" or None for the rule's own)
+PAPER_RUNS = {"adam": ("always", "adam"), "cada1": ("cada1", "adam"),
+              "cada2": ("cada2", "adam"), "lag": ("lag", "sgd"),
+              "local_momentum": ("local_momentum", None),
+              "fedadam": ("fedadam", None),
+              "cada2-fused": ("cada2", "fused")}
+PAPER_SETUPS = {
+    "cnn": dict(m=10, batch=12, lr=5e-4, lag_lr=0.05, h=8, d_max=10,
+                max_delay=50, iters=80),
+    "covtype": dict(m=20, batch=32, lr=0.005, lag_lr=0.1, h=20, d_max=10,
+                    max_delay=100, iters=100)}
+PAPER_LOCKSTEP_ROUNDS = 30      # 8c
+RESUME_ROUNDS = 20              # 8d: 10 rounds, save, restore, 10 more
+# 8e: the LM trainer with a delta rule, phase 7's model and cut, H = 2;
+# local SGD at the launcher's default 0.1 makes the losses climb at this
+# width, at 0.01 they fall (tools/lm_local_lr_probe.py, PERF.md)
+DELTA_H, DELTA_STEPS, DELTA_LOCAL_LR = 2, 4, 0.01
+EQ3_TRAINER_CALLS = 10
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -261,21 +327,25 @@ def device_ms(fn, names: tuple[str, ...] | None = None,
     """Device time of one call, from the profiler; None when it records no
     device time. With ``names``: the median over the launches it recorded
     of the kernels whose names hold one of them (each such call launches
-    one; a median holds when the profiler drops or mistimes a launch);
-    else every kernel's time summed over the window, per call."""
+    one; a median holds when the profiler drops or mistimes a launch; a
+    window that recorded none of them is profiled once more); else every
+    kernel's time summed over the window, per call."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    if names is not None:
+    for _ in range(1 if names is None else 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        if names is None:
+            tot = sum(getattr(e, "device_time_total", 0)
+                      for e in prof.key_averages())
+            return tot / calls / 1e3 if tot > 0 else None
         durations = [e.time_range.elapsed_us() for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and any(n in e.name for n in names)]
-        return statistics.median(durations) / 1e3 if durations else None
-    tot = sum(getattr(e, "device_time_total", 0)
-              for e in prof.key_averages())
-    return tot / calls / 1e3 if tot > 0 else None
+        if durations:
+            return statistics.median(durations) / 1e3
+    return None
 
 
 def _us(ms: float | None) -> str:
@@ -581,6 +651,90 @@ def check_diff_sq(n: int, dtype, rates, gen) -> dict:
             "library_device_ms": lib_dev}
 
 
+def check_eq3(rows: int, n: int, dtype, rates, gen, plane=None,
+              timed: bool = True, calls: int = 50, offset: int = 0,
+              zero_rows=()) -> dict:
+    """Eq. (3)'s row mean against its plain version on an (rows, n) plane
+    drawn from ``gen`` or on ``plane``: bit for bit (``torch.equal`` of the
+    bits), the same on two calls, one launch per call. With ``zero_rows``
+    those rows are zeroed, and the plane with them dropped must give the
+    same bits; with ``offset`` the plane is a view that starts that many
+    elements into a buffer (off 16 bytes: the scalar loads) and must also
+    give an aligned copy's bits."""
+    if plane is None:
+        buf = torch.randn(rows * n + offset, generator=gen,
+                          device="cuda").to(dtype)
+        plane = buf[offset:].view(rows, n)
+        if zero_rows:
+            plane[list(zero_rows)] = 0.0
+    label = (f"eq3_row_mean ({rows},{n}) {_short(plane.dtype)}"
+             + (f", a view {offset} element(s) off 16 B" if offset else "")
+             + (f", rows {list(zero_rows)} zero" if zero_rows else ""))
+    k = cada_update.eq3_row_mean_flat(plane, rows)
+    k_again = cada_update.eq3_row_mean_flat(plane, rows)
+    p = ref.eq3_row_mean_ref(plane, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(k, k_again):
+        raise RuntimeError(f"{label}: two identical calls differ")
+    if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+        raise RuntimeError(f"{label}: not bit-equal to the plain version "
+                           f"(max |err| {float((k - p).abs().max())})")
+    notes = []
+    if zero_rows:
+        kept = [r for r in range(rows) if r not in zero_rows]
+        dropped = cada_update.eq3_row_mean_flat(plane[kept].contiguous(),
+                                                rows)
+        if not torch.equal(k.view(torch.int32), dropped.view(torch.int32)):
+            raise RuntimeError(f"{label}: the plane without its zero rows "
+                               "gives other bits")
+        notes.append("bit-equal with the zero rows dropped")
+    if offset:
+        if cada_update.vector_ok(plane):
+            raise RuntimeError(f"{label}: the view is aligned")
+        if not torch.equal(k, cada_update.eq3_row_mean_flat(plane.clone(),
+                                                            rows)):
+            raise RuntimeError(f"{label}: differs from an aligned copy")
+        notes.append("bit-equal to an aligned copy's")
+
+    def kernel():
+        return cada_update.eq3_row_mean_flat(plane, rows)
+
+    one_launch(kernel, "row_mean_kernel", label)
+    head = (f"  {label}: bit-equal to plain, run-to-run identical, one "
+            "launch per call" + "".join(f", {x}" for x in notes))
+    if not timed:
+        print(head)
+        return {"max_abs_err": 0.0}
+    rcp = float(torch.tensor(1.0) / torch.tensor(float(rows)))
+
+    def plain():
+        return ref.eq3_row_mean_ref(plane, rows)
+
+    def library():
+        return plane.float().sum(0) * rcp
+
+    lib_err = float((library() - p).abs().max())
+    nbytes = rows * n * plane.element_size() + 4 * n
+    bound, bound_by = _bound(nbytes, rows * n, rates)
+    big = calls < 50
+    reps, dcalls = (3, 5) if big else (5, 20)
+    ms = time_ms(kernel, calls=calls, repeats=reps)
+    plain_ms = time_ms(plain, calls=calls, repeats=reps)
+    lib_ms = time_ms(library, calls=calls, repeats=reps)
+    dev = device_ms(kernel, ("row_mean_kernel",), calls=dcalls)
+    plain_dev = device_ms(plain, calls=dcalls)
+    lib_dev = device_ms(library, calls=dcalls)
+    print(f"{head}; kernel {ms * 1e3:.2f} us/call (device {_us(dev)}), "
+          f"plain {plain_ms * 1e3:.2f} us/call (device {_us(plain_dev)}), "
+          f"sum(0)*rcp {lib_ms * 1e3:.2f} us/call (device {_us(lib_dev)}; "
+          f"max |diff| to plain {lib_err:.3g}), bound {bound * 1e3:.3f} us "
+          f"({nbytes} B; device at {_share(bound, dev)} of it)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev, "plain_device_ms": plain_dev,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "library_max_abs_diff": lib_err}
+
+
 def check_wire(layout, gen) -> None:
     """The wire compressors are plain PyTorch: on the card they must give
     the CPU's bits (quantizer at 8 and 16 bits, top-k, the sparse round
@@ -630,6 +784,14 @@ def phase_kernels(rates, layout) -> dict:
     check_batched_sq(M, 48, f32, rates, gen)
     main["diff_sq"] = check_diff_sq(n_flat, f32, rates, gen)
     check_diff_sq(48, f32, rates, gen)
+    main["eq3_row_mean"] = check_eq3(M, n_flat, f32, rates, gen)
+    check_eq3(M, n_flat, bf16, rates, gen)
+    for dtype in (f32, bf16):
+        check_eq3(1, n_flat, dtype, rates, gen, timed=False)
+        check_eq3(M, n_flat + 1, dtype, rates, gen, timed=False)
+        check_eq3(M, n_flat, dtype, rates, gen, timed=False, offset=1)
+        check_eq3(M, n_flat, dtype, rates, gen, timed=False,
+                  zero_rows=(1, 4, 5, 9))
     check_wire(layout, gen)
     # the two redesigned kernels at LM widths, where bytes bound them
     print(f"  at LM widths (n = {LM_N}; ({M}, {LM_ROW_N}) planes):")
@@ -947,7 +1109,8 @@ def _all_cuda(state) -> bool:
 WRAPPERS = {"amsgrad": cada_update.fused_amsgrad_flat,
             "batched_diff_sq": cada_update.batched_diff_sq_norm_flat,
             "batched_sq": cada_update.batched_sq_norm_flat,
-            "diff_sq": cada_update.diff_sq_norm_flat}
+            "diff_sq": cada_update.diff_sq_norm_flat,
+            "eq3_row_mean": cada_update.eq3_row_mean_flat}
 
 
 def _counts() -> dict:
@@ -987,11 +1150,14 @@ def _engine(kind: str, impl=None, opt: str = "fused",
 
 def expected_launches(kind: str, rounds: int, opt: str) -> dict:
     """Each kernel's launches in ``rounds`` rounds of one run: the server
-    step where FusedAMSGrad serves, the rule's gate norm, no diff_sq."""
+    step where FusedAMSGrad serves, the rule's gate norm, no diff_sq, and
+    eq. (3)'s row mean once a round (twice for local momentum, whose
+    momenta are averaged by it too)."""
     return {"amsgrad": rounds if opt == "fused" else 0,
             "batched_diff_sq": rounds if kind in DIFF_RULES else 0,
             "batched_sq": rounds if kind in SQ_RULES else 0,
-            "diff_sq": 0}
+            "diff_sq": 0,
+            "eq3_row_mean": rounds * (2 if kind == "local_momentum" else 1)}
 
 
 def skip_c(metrics) -> float:
@@ -1094,45 +1260,72 @@ def phase_main(card: str, params, batches, held_out) -> tuple[dict, dict]:
     return totals, skipping_c
 
 
-def profile_rounds(kind: str, params, batches, rounds: int = 20) -> None:
+def profile_engine(label: str, eng, state, batches, rounds: int,
+                   top: int = 8) -> None:
     """Where a round's time goes: device-busy share of the wall time over
-    ``rounds`` rounds after a warm-up, and the kernels that take most of
-    the device time."""
+    ``rounds`` rounds of ``batches`` from ``state``, and the kernels that
+    take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
-    eng = _engine(kind)
-    state, _ = eng.run(eng.init(params), tuple(b[:5] for b in batches))
-    run_batches = tuple(b[5:5 + rounds] for b in batches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(state, run_batches)
+        eng.run(state, batches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = sorted(prof.key_averages(),
                     key=lambda e: -getattr(e, "device_time_total", 0))
     busy = sum(getattr(e, "device_time_total", 0) for e in events) / 1e6
-    print(f"  {kind} profile over {rounds} rounds: wall "
+    print(f"  {label} profile over {rounds} rounds: wall "
           f"{wall * 1e3 / rounds:.3f} ms/round, device busy "
           f"{busy * 1e3 / rounds:.3f} ms/round ({100 * busy / wall:.1f}%, "
           f"idle {100 - 100 * busy / wall:.1f}%),"
           f" {sum(e.count for e in events) / rounds:.0f} kernels/round")
-    for e in events[:8]:
+    for e in events[:top]:
         print(f"    {getattr(e, 'device_time_total', 0) / rounds:9.2f} "
               f"us/round  x{e.count / rounds:.0f}  {e.key[:90]}")
 
 
-def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
-    """``kind`` at ``gate_c`` stepped by the kernels and by the plain versions
-    from the same state each round: integer state equal, float state within
-    8 ULP at each array's scale, the sums (RHS ring, LHS) within SUM_RTOL.
-    At least one gate decision must skip, so the state a skip carries (the
-    stale worker copy, an error-feedback residual) is compared too."""
-    eng_k = _engine(kind, c=gate_c)
-    eng_p = _engine(kind, impl="plain", c=gate_c)
-    state = eng_k.init(params)
+def profile_rounds(kind: str, params, batches, rounds: int = 20) -> None:
+    """:func:`profile_engine` over ``rounds`` rounds of ``kind`` on the
+    paper MLP after 5 warm-up rounds."""
+    eng = _engine(kind)
+    state, _ = eng.run(eng.init(params), tuple(b[:5] for b in batches))
+    profile_engine(kind, eng, state,
+                   tuple(b[5:5 + rounds] for b in batches), rounds)
+
+
+def _state_pairs(sk, sp) -> tuple[list, list]:
+    """(exact, close) (name, kernel's, plain's) pairs of two engine
+    states: integer state to compare exactly, float state (θ, ∇, the
+    worker plane, every tensor of the server optimizer's state and of the
+    rule's extras) within 8 ULP at each array's scale."""
+    exact = [("staleness", sk.comm.staleness, sp.comm.staleness)]
+    close = [("params_flat", sk.params_flat, sp.params_flat),
+             ("nabla", sk.comm.nabla, sp.comm.nabla),
+             ("worker_grads", sk.comm.worker_grads, sp.comm.worker_grads)]
+    close += [(f"opt_state[{i}]", a, b) for i, (a, b) in enumerate(
+        zip(_tensors(sk.opt_state), _tensors(sp.opt_state)))]
+    for name, v in sk.comm.extras.items():
+        for i, (a, b) in enumerate(zip(_tensors(v),
+                                       _tensors(sp.comm.extras[name]))):
+            (close if a.is_floating_point() else exact).append(
+                (f"{name}[{i}]", a, b))
+    return exact, close
+
+
+def lockstep(label: str, eng_k, eng_p, state, batch_at, rounds: int,
+             need_skip: bool = True):
+    """``rounds`` rounds stepped by the kernels (``eng_k``) and by the
+    plain versions (``eng_p``, which must launch nothing) from the same
+    state each round, ``batch_at(i)`` the round's batch: masks equal
+    outside MARGIN_BAND (at most one in-band flip), integer state equal,
+    float state within 8 ULP at each array's scale, the sums (RHS ring,
+    finite LHS) within SUM_RTOL. Where ``need_skip``, some gate decision
+    must skip, so the state a skip carries is compared too. Returns the
+    kernels' last state."""
     flips = skips = 0
-    for i in range(LOCKSTEP_ROUNDS):
-        b = tuple(t[i] for t in batches)
+    for i in range(rounds):
+        b = batch_at(i)
         before = _counts()
         sp, mp = eng_p.step(state, b)
         if _counts() != before:
@@ -1143,46 +1336,44 @@ def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
         if not torch.equal(up_k, up_p):
             margin = (mp["lhs"] - mp["rhs"]).abs()
             if bool((margin[up_k != up_p] > MARGIN_BAND * mp["rhs"]).any()):
-                raise RuntimeError(f"{kind} round {i}: masks differ outside "
+                raise RuntimeError(f"{label} round {i}: masks differ outside "
                                    f"the band: {up_k} vs {up_p}")
             flips += 1
             state = sk
             continue
-        exact = [("staleness", sk.comm.staleness, sp.comm.staleness)]
-        close = [("params_flat", sk.params_flat, sp.params_flat),
-                 ("h", sk.opt_state.h, sp.opt_state.h),
-                 ("vhat", sk.opt_state.vhat, sp.opt_state.vhat),
-                 ("nabla", sk.comm.nabla, sp.comm.nabla),
-                 ("worker_grads", sk.comm.worker_grads,
-                  sp.comm.worker_grads)]
-        for name, v in sk.comm.extras.items():
-            if not torch.is_tensor(v):
-                continue
-            pair = (name, v, sp.comm.extras[name])
-            (close if v.is_floating_point() else exact).append(pair)
+        exact, close = _state_pairs(sk, sp)
         for name, a, c in exact:
             if not torch.equal(a, c):
-                raise RuntimeError(f"{kind} round {i}: {name} differs")
+                raise RuntimeError(f"{label} round {i}: {name} differs")
         for name, a, c in close:
-            if float((a - c).abs().max()) > ULP_SCALE * float(
-                    c.abs().max()):
-                raise RuntimeError(f"{kind} round {i}: {name} differs")
+            if float((a.float() - c.float()).abs().max()) > ULP_SCALE * float(
+                    c.float().abs().max()):
+                raise RuntimeError(f"{label} round {i}: {name} differs")
+        finite = torch.isfinite(mp["lhs"])
         for name, a, c in (("diff_hist", sk.comm.diff_hist,
-                            sp.comm.diff_hist), ("lhs", mk["lhs"],
-                                                 mp["lhs"])):
-            if _max_rel(a, c) > SUM_RTOL:
-                raise RuntimeError(f"{kind} round {i}: {name} differs")
+                            sp.comm.diff_hist),
+                           ("lhs", mk["lhs"][finite], mp["lhs"][finite])):
+            if a.numel() and _max_rel(a, c) > SUM_RTOL:
+                raise RuntimeError(f"{label} round {i}: {name} differs")
         state = sk
     if flips > 1:
-        raise RuntimeError(f"{kind}: {flips} rounds flipped a gate")
-    if skips == 0:
-        raise RuntimeError(f"{kind} at c = {gate_c}: no gate decision "
-                           "skipped")
-    print(f"  {kind} (c={gate_c:.6g}) kernel vs impl='plain': "
-          f"{LOCKSTEP_ROUNDS} rounds in lockstep, {skips} skipped uploads, "
-          f"masks, staleness "
-          f"and integer extras equal, float state and extras within 8 ULP, "
-          f"{flips} in-band flips")
+        raise RuntimeError(f"{label}: {flips} rounds flipped a gate")
+    if need_skip and skips == 0:
+        raise RuntimeError(f"{label}: no gate decision skipped")
+    print(f"  {label} kernel vs impl='plain': {rounds} rounds in lockstep, "
+          f"{skips} skipped uploads, masks, staleness and integer extras "
+          f"equal, float state and extras within 8 ULP, {flips} in-band "
+          "flips")
+    return state
+
+
+def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
+    """``kind`` at ``gate_c`` on the paper MLP, kernels against the plain
+    versions (:func:`lockstep`)."""
+    eng_k = _engine(kind, c=gate_c)
+    lockstep(f"{kind} (c={gate_c:.6g})", eng_k,
+             _engine(kind, impl="plain", c=gate_c), eng_k.init(params),
+             lambda i: tuple(t[i] for t in batches), LOCKSTEP_ROUNDS)
 
 
 # ----------------------------------------------------------- serving path
@@ -1397,10 +1588,14 @@ def _train_counts() -> dict:
 
 def _train_launches(kind: str, steps: int) -> dict:
     """Each kernel's launches in ``steps`` trainer steps of one rule: the
-    server step every step, the rule's gate norm, nothing of serving (the
-    training route's attention and scan are plain PyTorch)."""
-    return {**expected_launches(kind, steps, "fused"),
-            **dict.fromkeys(LM_WRAPPERS, 0)}
+    server step every step, the rule's gate norm, eq. (3) as in the engine
+    except for a stateless rule (always: the trainer's lean step takes the
+    plain mean of the fresh gradients), nothing of serving (the training
+    route's attention and scan are plain PyTorch)."""
+    want = expected_launches(kind, steps, "fused")
+    if strategy_for(CommRule(kind=kind)).stateless:
+        want["eq3_row_mean"] = 0
+    return {**want, **dict.fromkeys(LM_WRAPPERS, 0)}
 
 
 def _batch_on_card(tokens) -> dict:
@@ -1549,6 +1744,402 @@ def phase_train(card: str, rates) -> tuple[dict, dict]:
     return totals, sizes
 
 
+# ------------------------------------------------ the paper's problems
+
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+
+def setup_paper(name: str) -> dict:
+    """The paper's setup ``name`` on the card: its data, partition, model
+    (drawn from seed 0), sampler and the draws of its runs (seed 1): the
+    CNN on mnist_like(4096) over 10 equal shards, or logistic regression on
+    covtype_like() over 20 shards of random sizes."""
+    su = PAPER_SETUPS[name]
+    if name == "cnn":
+        ds = mnist_like(n=N_DATA)
+        shards = uniform_partition(ds.n, su["m"], seed=0)
+        params = cnn_init(torch.Generator().manual_seed(0), ds.n_classes,
+                          device="cuda")
+        loss_fn = cnn_loss
+    else:
+        ds = covtype_like()
+        shards = random_sizes_partition(ds.n, su["m"], seed=0)
+        params = logreg_init(None, ds.x.shape[1], ds.n_classes,
+                             device="cuda")
+        loss_fn = logreg_loss
+    sample = make_sampler(ds.x, ds.y, pad_to_matrix(shards), su["batch"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # enough single-iteration draws for the longest run: the iterations,
+    # or a rerun at a skipping c that outlasts the staleness cap
+    draws = [sample(gen) for _ in range(max(su["iters"], su["max_delay"]
+                                            + su["d_max"]))]
+    return {**su, "name": name, "params": params, "loss": loss_fn,
+            "draws": tuple(torch.stack(t) for t in zip(*draws)),
+            "held_out": (torch.as_tensor(ds.x[:1024], device="cuda"),
+                         torch.as_tensor(ds.y[:1024], device="cuda")),
+            "sizes": sorted(len(x) for x in shards), "n": ds.n}
+
+
+def _paper_engine(p: dict, run: str, c: float = 1.0,
+                  impl=None) -> CADAEngine:
+    """The engine of one of PAPER_RUNS on setup ``p``, as
+    ``benchmarks/common.py::run_engine_algo`` builds it: Adam or the
+    AMSGrad kernel at the setup's lr, lag on SGD at its lag_lr, the delta
+    rules with H local steps at lag_lr and their own servers at lr."""
+    kind, opt = PAPER_RUNS[run]
+    optimizer = {"adam": lambda: adam(p["lr"]),
+                 "sgd": lambda: sgd(p["lag_lr"]),
+                 "fused": lambda: FusedAMSGrad(lr=p["lr"]),
+                 None: lambda: None}[opt]()
+    rule = CommRule(kind=kind, c=c, d_max=p["d_max"],
+                    max_delay=p["max_delay"],
+                    local_steps=p["h"] if kind in LOCAL_RULES else 1,
+                    local_lr=p["lag_lr"], server_lr=p["lr"])
+    return CADAEngine(p["loss"], optimizer, rule, p["m"], impl=impl)
+
+
+def _round_batch(p: dict, run: str, i: int):
+    """Round i's batch: draw i, or for a delta rule the H draws of its
+    round, (H, M, b, ...) (the draws cycle past the last)."""
+    draws = p["draws"]
+    if PAPER_RUNS[run][0] in LOCAL_RULES:
+        h = p["h"]
+        j = i % (draws[0].shape[0] // h)
+        return tuple(t[j * h:(j + 1) * h] for t in draws)
+    return tuple(t[i % draws[0].shape[0]] for t in draws)
+
+
+def _paper_batches(p: dict, run: str, rounds: int, start: int = 0):
+    return tuple(torch.stack(t) for t in zip(
+        *(_round_batch(p, run, i) for i in range(start, start + rounds))))
+
+
+def _paper_rounds(p: dict, run: str) -> int:
+    """Rounds of the setup's iterations: H iterations a round for a delta
+    rule."""
+    local = PAPER_RUNS[run][0] in LOCAL_RULES
+    return p["iters"] // p["h"] if local else p["iters"]
+
+
+def drive_paper(p: dict, run: str, rounds: int, c: float, card: str,
+                totals: dict, label: str | None = None) -> dict:
+    """One run on the card: exact launches, state on the card, finite
+    losses and parameters. Prints the losses, uploads, grad evals and ms
+    per round; returns the metrics."""
+    kind, opt = PAPER_RUNS[run]
+    label = label or run
+    eng = _paper_engine(p, run, c)
+    state = eng.init(p["params"])
+    batches = _paper_batches(p, run, rounds)
+    loss0 = float(p["loss"](state.params, p["held_out"]))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, mets = eng.run(state, batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, want = _counts(), expected_launches(kind, rounds, opt)
+    if got != want:
+        raise RuntimeError(f"{p['name']} {label}: launches {got}, expected "
+                           f"{want}")
+    for k, v in got.items():
+        totals[k] += v
+    if not _all_cuda(state):
+        raise RuntimeError(f"{p['name']} {label}: state left the card")
+    losses = mets["loss"]
+    loss1 = float(p["loss"](state.params, p["held_out"]))
+    if not (bool(torch.isfinite(losses).all())
+            and bool(torch.isfinite(state.params_flat).all())
+            and math.isfinite(loss1)):
+        raise RuntimeError(f"{p['name']} {label}: non-finite losses or "
+                           "parameters")
+    local = kind in LOCAL_RULES
+    iters = rounds * (p["h"] if local else 1)
+    print(f"  {p['name']} {label} (c={c:.6g}): {rounds} rounds, {iters} "
+          f"iterations, {secs * 1e3 / rounds:.2f} ms/round on {card}; loss "
+          f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}, held-out "
+          f"{loss0:.5f} -> {loss1:.5f}; uploads "
+          f"{int(mets['uploads'].sum())} / {rounds * p['m']}, grad evals "
+          f"{int(mets['grad_evals'].sum())}; launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items()))
+    return mets
+
+
+def phase_paper(p: dict, card: str, totals: dict) -> dict:
+    """8a / 8b: every run of PAPER_RUNS on setup ``p`` at c = 1 for the
+    setup's iterations. A gated rule that never skips an upload and
+    uploads again after it reruns for max_delay + d_max rounds at
+    :func:`skip_c` of its c = 1 run, where it must. Returns each gated
+    run's :func:`skip_c`, the c at which about half its decisions skip
+    once the RHS ring is full."""
+    ratio_c = {}
+    for run, (kind, _) in PAPER_RUNS.items():
+        mets = drive_paper(p, run, _paper_rounds(p, run), 1.0, card, totals)
+        if kind == "always" or kind in LOCAL_RULES:
+            if not bool(mets["upload_mask"].all()):
+                raise RuntimeError(f"{p['name']} {run}: a worker skipped")
+            continue
+        ratio_c[run] = c = skip_c(mets)
+        if resumes(mets["upload_mask"]):
+            continue
+        mets = drive_paper(p, run, p["max_delay"] + p["d_max"], c, card,
+                           totals, label=f"{run}@skip")
+        if not resumes(mets["upload_mask"]):
+            raise RuntimeError(f"{p['name']} {run}: at c = {c} no worker "
+                               "uploaded after a skip")
+    return ratio_c
+
+
+def _leaf_diffs(a, b) -> list[str]:
+    """Paths at which two states differ (tensors by torch.equal)."""
+    pa, la = ckpt._flatten_with_paths(a)
+    pb, lb = ckpt._flatten_with_paths(b)
+    if pa != pb:
+        return ["the structure"]
+    return [p for p, x, y in zip(pa, la, lb)
+            if (not torch.equal(x, y) if torch.is_tensor(x) else x != y)]
+
+
+def resume_check(p: dict, run: str, c: float) -> None:
+    """8d: ``run`` on setup ``p`` for RESUME_ROUNDS rounds straight, and
+    for half of them, saved (``repro_torch.checkpoint``), restored into a
+    fresh state and run the other half on the same batches: every leaf
+    of the two final states equal."""
+    eng = _paper_engine(p, run, c)
+    half = RESUME_ROUNDS // 2
+    first = _paper_batches(p, run, half)
+    second = _paper_batches(p, run, half, start=half)
+    both = tuple(torch.cat([a, b]) for a, b in zip(first, second))
+    straight, _ = eng.run(eng.init(p["params"]), both)
+    mid, _ = eng.run(eng.init(p["params"]), first)
+    path = CKPT_DIR / f"{p['name']}-{run}" / f"step_{half}"
+    ckpt.save(str(path), mid, step=mid.step, flat_meta=eng._layout)
+    back, step = ckpt.restore(str(path), eng.init(p["params"]))
+    if step != half or back.step != half or not _all_cuda(back):
+        raise RuntimeError(f"{p['name']} {run}: restored step {step}, "
+                           "or the state is not on the card")
+    if _leaf_diffs(back, mid):
+        raise RuntimeError(f"{p['name']} {run}: the restored state differs "
+                           f"at {_leaf_diffs(back, mid)}")
+    resumed, _ = eng.run(back, second)
+    diffs = _leaf_diffs(resumed, straight)
+    if diffs:
+        raise RuntimeError(f"{p['name']} {run}: {RESUME_ROUNDS} rounds "
+                           f"straight and resumed after {half} differ at "
+                           f"{diffs}")
+    n_leaves = len(ckpt._flatten_with_paths(straight)[1])
+    print(f"  {p['name']} {run} (c={c:.6g}): {RESUME_ROUNDS} rounds straight "
+          f"and {half} + save/restore + {half} equal in all {n_leaves} "
+          "leaves")
+
+
+def _repeat_diffs(p: dict, run: str, c: float) -> list[str]:
+    """Where two runs of RESUME_ROUNDS rounds from the same state differ
+    (cuDNN may pick a convolution backward whose sums are taken in a
+    run-dependent order)."""
+    eng = _paper_engine(p, run, c)
+    batches = _paper_batches(p, run, RESUME_ROUNDS)
+    a, _ = eng.run(eng.init(p["params"]), batches)
+    b, _ = eng.run(eng.init(p["params"]), batches)
+    return _leaf_diffs(a, b)
+
+
+def _batch_on_card_h(tokens, h: int) -> dict:
+    return trainer.worker_split({"tokens": torch.from_numpy(tokens).to(
+        device="cuda", dtype=torch.long)}, TRAIN_M, local_steps=h)
+
+
+def delta_run(cfg, tokens, kind: str, local_lr: float, steps: int):
+    """``steps`` trainer steps of the delta rule ``kind`` on ``cfg`` from a
+    fresh state (H = DELTA_H local steps at ``local_lr``, M = TRAIN_M, the
+    AMSGrad server step at TRAIN_LR), step i on ``tokens[i]``, every
+    launch count set to 0 just before the first step. Raises where a
+    worker skipped. Returns (hparams, state, step, losses, ms per step)."""
+    hp = trainer.TrainHParams(rule=CommRule(kind=kind, local_steps=DELTA_H,
+                                            local_lr=local_lr, **TRAIN_RULE),
+                              lr=TRAIN_LR)
+    state = trainer.init_train_state(cfg, hp, TRAIN_M, 0)
+    step = trainer.make_train_step(cfg, hp, TRAIN_M)
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    step_ms, losses = [], []
+    for i in range(steps):
+        batch = _batch_on_card_h(tokens[i], DELTA_H)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, mets = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(mets["loss"]))
+        if not bool(mets["upload_mask"].all()):
+            raise RuntimeError(f"{kind} step {i}: a worker skipped")
+    return hp, state, step, losses, step_ms
+
+
+def step_wire(step, state, batch):
+    """One more trainer step, with eq. (3)'s dispatch wrapped for its
+    length: returns (the new state, the (M, n_flat) wire plane that the
+    step fed to eq. (3), and what the kernel gave the step for it)."""
+    real, seen = kops.eq3_row_mean, []
+
+    def capture(plane, m_total, *, impl=None):
+        out = real(plane, m_total, impl=impl)
+        if m_total == TRAIN_M and not seen:   # the wire; momenta take 1
+            seen.append((plane, out))
+        return out
+
+    kops.eq3_row_mean = capture
+    try:
+        state, _ = step(state, batch)
+    finally:
+        kops.eq3_row_mean = real
+    if not seen:
+        raise RuntimeError("the step never called eq. (3) on its wire")
+    return (state, *seen[0])
+
+
+def phase_train_delta(card: str, rates) -> tuple[dict, dict]:
+    """8e: phase 7's model and cut (stablelm-1.6b at full width, 4 of 24
+    layers) trained by local_momentum and fedadam, H = 2 local steps at
+    local lr DELTA_LOCAL_LR, M = 2, 4 × 2048 tokens a step (b_m = 1),
+    DELTA_STEPS steps each, and a profile of one more step; the
+    counts set to 0 just before each run and read just after: one AMSGrad
+    launch a step, eq. (3) once a step (twice for local momentum), no row
+    norm. Then one more step whose own (2, n_flat) wire plane is taken
+    from eq. (3)'s dispatch: the step's result and the kernel, on that
+    plane, bit for bit against the plain version. Returns the launches
+    and the kernel's numbers at that size."""
+    cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=TRAIN_LAYERS)
+    tokens = make_token_batches(cfg, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                steps=DELTA_STEPS + 2)
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    size = None
+    for kind in LOCAL_RULES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step, losses, step_ms = delta_run(
+            cfg, tokens, kind, DELTA_LOCAL_LR, DELTA_STEPS)
+        got, want = _train_counts(), _train_launches(kind, DELTA_STEPS)
+        if got != want:
+            raise RuntimeError(f"8e {kind}: launches {got}, expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(v) for v in losses) or not _all_cuda(state):
+            raise RuntimeError(f"8e {kind}: losses {losses}, or the state "
+                               "left the card")
+        def one_step():
+            nonlocal state
+            state, _ = step(state, _batch_on_card_h(tokens[DELTA_STEPS],
+                                                    DELTA_H))
+
+        print(f"  {cfg.name}, {cfg.n_layers} of 24 layers, {kind} H = "
+              f"{DELTA_H}, M = {TRAIN_M}, {DELTA_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+              + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; ms per step " + ", ".join(f"{v:.2f}" for v in step_ms)
+              + f" (median after the first "
+              f"{statistics.median(step_ms[1:]):.2f}); peak memory "
+              f"{peak / 2**30:.3f} GiB; launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items()) + f" on {card}")
+        _profile(one_step, f"{kind} step profile (one step)", top=6)
+        if size is None:
+            state, wire, out = step_wire(
+                step, state, _batch_on_card_h(tokens[DELTA_STEPS + 1],
+                                              DELTA_H))
+            want = ref.eq3_row_mean_ref(wire, TRAIN_M)
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(
+                    f"8e {kind}: the step's eq. (3) result differs from the "
+                    f"plain version on its own wire plane (max |err| "
+                    f"{float((out - want).abs().max())})")
+            del out, want
+            torch.cuda.empty_cache()
+            print(f"  eq. (3) on the ({TRAIN_M}, {wire.shape[1]}) wire plane "
+                  f"that a {kind} step fed it: the step's result bit-equal "
+                  "to the plain version's")
+            size = check_eq3(TRAIN_M, wire.shape[1], wire.dtype, rates, None,
+                             plane=wire, calls=EQ3_TRAINER_CALLS)
+            del wire
+        del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, size
+
+
+def phase_paper_all(card: str, rates) -> tuple[dict, dict]:
+    """Phase 8: 8a the CNN and 8b covtype with the six algorithms and
+    cada2 on the AMSGrad kernel; 8c kernels against plain end to end; 8d
+    resume from a checkpoint; 8e the LM trainer with the delta rules.
+    Returns the launches and eq. (3)'s numbers at the trainer's size."""
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    cnn, cov = setup_paper("cnn"), setup_paper("covtype")
+    n_cnn = sum(t.numel() for t in _tensors(cnn["params"]))
+    print(f"  8a paper CNN (benchmarks/paper_nn.py): {n_cnn:,} parameters, "
+          f"mnist_like({cnn['n']}), M = {cnn['m']} equal shards, batch "
+          f"{cnn['batch']}, d_max {cnn['d_max']}, max_delay "
+          f"{cnn['max_delay']}, H = {cnn['h']} for the delta rules")
+    if n_cnn != 54_314:
+        raise RuntimeError(f"the CNN has {n_cnn} parameters, not 54,314")
+    ratio_cnn = phase_paper(cnn, card, totals)
+    print(f"  8b paper covtype logreg (benchmarks/paper_logreg.py): "
+          f"covtype_like({cov['n']}), M = {cov['m']} shards of sizes "
+          f"{cov['sizes'][0]}..{cov['sizes'][-1]}, batch {cov['batch']}, "
+          f"lr {cov['lr']}, H = {cov['h']}, d_max {cov['d_max']}, "
+          f"max_delay {cov['max_delay']}")
+    phase_paper(cov, card, totals)
+    # where a round's time goes: cada2 on the kernel (10 rounds) and the
+    # delta rules (2 rounds of H local steps) on the CNN, after 2 rounds
+    for run, rounds in (("cada2-fused", 10), ("local_momentum", 2),
+                        ("fedadam", 2)):
+        eng = _paper_engine(cnn, run)
+        state, _ = eng.run(eng.init(cnn["params"]),
+                           _paper_batches(cnn, run, 2))
+        profile_engine(f"cnn {run}", eng, state,
+                       _paper_batches(cnn, run, rounds, start=2), rounds,
+                       top=5)
+
+    print("  8c kernels against impl='plain', end to end:")
+    # cada2 at the c where about half its decisions skip, so the state a
+    # skip carries is compared within the 30 rounds
+    checked = ((cnn, "cada2-fused", ratio_cnn["cada2-fused"]),
+               (cov, "local_momentum", 1.0))
+    for p, run, c in checked:
+        diffs = _repeat_diffs(p, run, c)
+        if diffs:
+            print(f"  two runs of {p['name']} {run} from one state differ "
+                  f"at {diffs[:4]}: cuDNN's deterministic algorithms on for "
+                  "8c and 8d")
+            torch.backends.cudnn.deterministic = True
+            diffs = _repeat_diffs(p, run, c)
+            if diffs:
+                raise RuntimeError(f"{p['name']} {run}: two runs still "
+                                   f"differ at {diffs[:4]}")
+    try:
+        for p, run, c in checked:
+            eng_k = _paper_engine(p, run, c)
+            lockstep(f"{p['name']} {run} (c={c:.6g})", eng_k,
+                     _paper_engine(p, run, c, impl="plain"),
+                     eng_k.init(p["params"]),
+                     lambda i, p=p, run=run: _round_batch(p, run, i),
+                     PAPER_LOCKSTEP_ROUNDS,
+                     need_skip=PAPER_RUNS[run][0] not in LOCAL_RULES)
+        print("  8d resume from a checkpoint:")
+        for p, run, c in checked:
+            resume_check(p, run, c)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del cnn, cov
+    print("  8e the LM trainer with the delta rules at full width:")
+    train_totals, size = phase_train_delta(card, rates)
+    for k, v in train_totals.items():
+        totals[k] += v
+    return totals, size
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -1589,21 +2180,35 @@ def main() -> None:
         launches[name] += v
     for name, entry in train_sizes.items():
         main_shape[name]["trainer_size"] = entry
+    print("[8] the paper's problems, the delta rules, checkpoints")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    paper_launches, eq3_trainer = phase_paper_all(card, rates)
+    for name, v in paper_launches.items():
+        launches[name] += v
+    main_shape["eq3_row_mean"]["trainer_size"] = eq3_trainer
+    print(f"    phase 8 took {time.perf_counter() - t8:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",
+              "eq3_row_mean": "cada_update.cu",
               "selective_scan": "ssm_scan.cu",
               "flash_attention": "flash_attention.cu"}
     replaces = {"amsgrad": "src/repro/kernels/cada_update.py:34",
                 "batched_diff_sq": "src/repro/kernels/cada_update.py:106",
                 "batched_sq": "src/repro/kernels/cada_update.py:144",
                 "diff_sq": "src/repro/kernels/cada_update.py:174",
+                "eq3_row_mean": "src/repro/kernels/ops.py:126",
                 "selective_scan": "src/repro/kernels/ssm_scan.py:39",
                 "flash_attention": "src/repro/kernels/flash_attention.py:33"}
+    notes = {"eq3_row_mean": "a fori_loop in the JAX package, not Pallas: "
+                             "its row order is the bit contract"}
     kernels = [{"name": name, "route": "cuda", "source": csrc + source[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "library_ms": None, **main_shape[name],
-                "library_note": LIBRARY_NOTE[name]}
+                "library_note": LIBRARY_NOTE[name],
+                **({"replaces_note": notes[name]} if name in notes else {})}
                for name in (*WRAPPERS, *LM_WRAPPERS)]
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ and LM ``DecodeCache`` convert to numpy with
 turn that numpy form into the port's tensors on ``device`` (None means
 ``cuda``, as everywhere in the port). They read fields by name and import
 nothing of the JAX package. An LM's parameters (nested dicts, bf16 leaves
-included) go through :func:`params_from_numpy` leaf for leaf.
+included) and the CNN's (HWIO kernels, as the reference keeps them) go
+through :func:`params_from_numpy` leaf for leaf. To move a state through
+a file instead, :mod:`repro_torch.checkpoint` reads and writes the
+reference's checkpoint format.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ def params_from_numpy(tree, device=None):
 def opt_state_from_numpy(opt, device=None):
     """A server-optimizer state of the JAX package (numpy leaves) as the
     port's, read by field names: ``FusedState`` (count, h, vhat),
-    ``AdamState`` (count, h, v, vhat), ``MomentumState`` (count, momentum),
-    or SGD's bare step count."""
+    ``AdamState`` (count, h, v, vhat; FedAdam's non-AMSGrad server too),
+    ``MomentumState`` (count, momentum), or SGD's bare step count (local
+    momentum's sgd(1.0) server)."""
     device = resolve_device(device)
     fields = getattr(opt, "_fields", None)
     if fields is None:
@@ -63,7 +67,7 @@ def comm_state_from_numpy(comm, device=None) -> FlatCommState:
     """The JAX package's flat ``FlatCommState`` (numpy leaves) as the
     port's, with every rule's extras (CADA1's snapshot and δ̃ plane,
     CADA2's ring, slots and versions, laq/topk's residual, avp's
-    periods)."""
+    periods, local momentum's momenta plane)."""
     device = resolve_device(device)
     return FlatCommState(
         nabla=tensor_from_numpy(comm.nabla, device),

@@ -2,10 +2,12 @@
 from repro_torch.core.comm import (CommStrategy, register, strategy_for,
                                    strategy_kinds)
 from repro_torch.core.engine import CADAEngine, EngineState, make_sampler
+from repro_torch.core.local_update import LocalState, LocalUpdateEngine
 from repro_torch.core.rules import RULES, CommRule
 
 __all__ = [
     "CADAEngine", "EngineState", "make_sampler",
+    "LocalState", "LocalUpdateEngine",
     "CommRule", "RULES",
     "CommStrategy", "register", "strategy_for", "strategy_kinds",
 ]

@@ -24,8 +24,10 @@ every rule shares.
   ==========  =======================  ====================================
 
 ``quantize_bits`` puts the b-bit wire quantizer under any kind. The
-reference's delta-payload rules (``local_momentum``, ``fedadam``) are not
-ported yet: :func:`strategy_for` refuses them by name.
+delta-payload rules ``local_momentum`` and ``fedadam`` (local momentum SGD
+and FedAdam, the paper's local-update baselines) are registered by
+:mod:`repro_torch.core.local_update`, which the package imports after this
+module.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.core.flat import (per_worker_quantize_dequantize_flat,
                                    per_worker_topk_extract_flat,
                                    per_worker_topk_sparsify_flat)
 from repro_torch.core.quantize import ef_correct, ef_residual, topk_count
-from repro_torch.core.rules import CommRule, LOCAL_RULES
+from repro_torch.core.rules import CommRule
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.trees import tree_map
 
@@ -62,9 +64,17 @@ class CommStrategy:
     #: True ⇒ the rule keeps NO innovation state (the trainer drops the
     #: whole CommState and runs the lean distributed-baseline step)
     stateless: bool = False
+    #: True ⇒ the payload is the model delta of local optimizer steps, not
+    #: a fresh gradient (core/local_update.py)
+    delta_payload: bool = False
 
     def __init__(self, rule: CommRule):
         self.rule = rule
+
+    def server_optimizer(self):
+        """The server optimizer the rule prescribes (the engine takes it
+        when none is given), or None for the engine's default."""
+        return None
 
     def init_flat_extras(self, layout, params, params_flat, m: int,
                          grad_dtype) -> dict:
@@ -158,10 +168,6 @@ def strategy_kinds() -> tuple[str, ...]:
 
 
 def strategy_for(rule: CommRule) -> CommStrategy:
-    if rule.kind in LOCAL_RULES:
-        raise ValueError(
-            f"rule kind {rule.kind!r} (a delta-payload rule) is not yet "
-            f"ported to repro_torch; ported: {strategy_kinds()}")
     try:
         return STRATEGIES[rule.kind](rule)
     except KeyError:

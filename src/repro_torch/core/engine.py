@@ -8,6 +8,9 @@ is the fused AMSGrad kernel, whose free ||Δθ||² feeds the RHS ring, or any
 protocol optimizer (``optim/sgd.py``, ``optim/adam.py``: the paper runs
 its LAG baseline on SGD), for which ∇ is unpacked to fp32 leaves and
 ||Δθ||² is the sum of the updates' squares in the reference's leaf order.
+The delta-payload rules (``local_momentum``, ``fedadam``) prescribe their
+own server optimizer (sgd(1.0), server Adam), which the engine takes when
+it is given none, and their batches lead with the local-steps axis H.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no ``device`` it raises.
@@ -43,7 +46,9 @@ class CADAEngine:
       loss_fn: scalar loss ``loss_fn(params, (x, y))`` for ONE worker batch.
       optimizer: the server optimizer: :class:`FusedAMSGrad` (the paper's
         AMSGrad form, one kernel) or a protocol :class:`Optimizer` such as
-        ``sgd(0.05)`` or ``adam()``. Default ``FusedAMSGrad(lr=1e-3)``.
+        ``sgd(0.05)`` or ``adam()``. Default: the rule's prescribed one
+        (``strategy.server_optimizer()``, the delta-payload rules'), else
+        ``FusedAMSGrad(lr=1e-3)``.
       rule: the communication rule (a kind ported in core/comm.py).
       n_workers: M.
       fuse_evals: stack the rule's per-worker second gradient evaluation
@@ -51,6 +56,10 @@ class CADAEngine:
         reference).
       impl: dispatch override of kernels/ops.py (None on the main path).
       device: where the state lives; None means ``cuda``.
+
+    A rule with ``adapt_local_steps`` is refused: the bare engine has no
+    clock to adapt H against (the reference's message names its sim
+    runtime, which the port does not have yet).
     """
 
     def __init__(self, loss_fn: Callable,
@@ -61,7 +70,15 @@ class CADAEngine:
         self.loss_fn = loss_fn
         self.rule = CommRule() if rule is None else rule
         self.strategy = strategy_for(self.rule)
-        optimizer = FusedAMSGrad(lr=1e-3) if optimizer is None else optimizer
+        if self.rule.adapt_local_steps:
+            raise ValueError(
+                "adapt_local_steps adapts H against MEASURED communication "
+                "time — the bare engine has no clock. Run it through the "
+                "sim runtime (repro.sim, --runtime sim), which prices every "
+                "round and passes the adapted schedule back in.")
+        if optimizer is None:
+            optimizer = (self.strategy.server_optimizer()
+                         or FusedAMSGrad(lr=1e-3))
         self._fused_opt = isinstance(optimizer, FusedAMSGrad)
         if not (self._fused_opt or isinstance(optimizer, Optimizer)):
             raise TypeError(f"optimizer must be a FusedAMSGrad or an "
@@ -104,10 +121,13 @@ class CADAEngine:
         )
 
     # -------------------------------------------------------------- step
-    def step(self, state: EngineState, batch, participation=None
-             ) -> tuple[EngineState, dict]:
+    def step(self, state: EngineState, batch, participation=None,
+             local_steps=None) -> tuple[EngineState, dict]:
         """One iteration of Algorithm 1. ``batch`` is an (x, y) pair with
-        leading axis M; ``participation`` an optional (M,) bool mask."""
+        leading axis M, or (H, M, ...) for a delta-payload rule that runs
+        H local steps (``flat.batch_has_local_axis``); ``participation`` an
+        optional (M,) bool mask; ``local_steps`` (None, a scalar or (M,))
+        the per-worker step counts of a delta-payload round."""
         if state.params_flat.device != self.device:
             raise ValueError(f"the state lies on {state.params_flat.device}, "
                              f"the engine on {self.device}")
@@ -122,7 +142,8 @@ class CADAEngine:
             self.strategy, layout, state.comm, state.params,
             state.params_flat, batch, k, vgrad=self._vgrad,
             vgrad_per=self._vgrad_per, fuse_evals=self._fuse_evals,
-            impl=self._impl, participation=participation)
+            impl=self._impl, participation=participation,
+            local_steps=local_steps)
 
         # Lines 16-17: server step driven by ∇^k (eqs. 2a-2c).
         nabla = F.nabla_f32(out.comm)
@@ -146,17 +167,20 @@ class CADAEngine:
         return new_state, {"loss": out.losses.mean(), **out.metrics}
 
     # --------------------------------------------------------------- run
-    def run(self, state: EngineState, batches, participation=None
-            ) -> tuple[EngineState, dict]:
+    def run(self, state: EngineState, batches, participation=None,
+            local_steps=None) -> tuple[EngineState, dict]:
         """Step over pre-sampled batches: an (x, y) pair with leading axes
-        (steps, M, ...). ``participation`` is an optional (steps, M) bool
-        tensor. Returns the last state and each metric stacked over steps."""
+        (steps, M, ...), or (steps, H, M, ...) for a delta-payload rule
+        running H local steps. ``participation`` is an optional (steps, M)
+        bool tensor, ``local_steps`` an optional (steps, M) int tensor.
+        Returns the last state and each metric stacked over steps."""
         steps = batches[0].shape[0]
         rows: list[dict] = []
         for i in range(steps):
             state, metrics = self.step(
                 state, tuple(b[i] for b in batches),
-                None if participation is None else participation[i])
+                None if participation is None else participation[i],
+                None if local_steps is None else local_steps[i])
             rows.append(metrics)
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 

@@ -14,7 +14,11 @@ buffers instead of per-leaf dicts (the dense part of the JAX package's
     (worker, leaf segment), exact top-k per segment, and the (values,
     indices) sparse wire with its server-side scatter;
   * :func:`flat_comm_round` — one round of Algorithm 1 (lines 4-15) as
-    whole-plane ops, the rule LHS norms through the batched kernels.
+    whole-plane ops, the rule LHS norms through the batched kernels and
+    eq. (3)'s aggregate through its order-fixed row-mean kernel; for the
+    delta-payload rules (``local_momentum``, ``fedadam``) the round's
+    payload is the model delta of H local steps (the local-steps cadence:
+    :func:`batch_has_local_axis`, :func:`local_steps_vector`).
 
 Rule-specific behaviour lives in the strategy objects of
 :mod:`repro_torch.core.comm`. State is never updated in place: every round
@@ -69,6 +73,16 @@ class FlatLayout:
         m = leaves[0].shape[0]
         flat = torch.cat([l.reshape(m, -1).to(dtype) for l in leaves], dim=1)
         return F.pad(flat, (0, self.n_flat - self.n))
+
+    def unpack_worker(self, buf, dtypes=None) -> dict:
+        """(M, n_flat) plane -> M-leading dict (leaves cast to the layout
+        dtypes)."""
+        dtypes = dtypes or self.dtypes
+        m = buf.shape[0]
+        outs = [buf[:, o:o + s].reshape((m,) + shp).to(dt)
+                for o, s, shp, dt in zip(self.offsets, self.sizes,
+                                         self.shapes, dtypes)]
+        return tree_unflatten(self.paths, outs)
 
     def unpack(self, buf, dtypes=None) -> dict:
         """(n_flat,) buffer -> dict (leaves cast to the layout dtypes)."""
@@ -198,6 +212,50 @@ def sparse_rows_to_dense(idx, vals, n_flat: int) -> torch.Tensor:
                        device=vals.device).scatter_add_(1, idx, vals)
 
 
+# ----------------------------------------------------- local-steps cadence
+
+def batch_map(f, batch):
+    """``f`` on every tensor of a batch: an (x, y) tuple, a dict or one
+    tensor."""
+    if isinstance(batch, dict):
+        return {k: batch_map(f, v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(batch_map(f, v) for v in batch)
+    return f(batch)
+
+
+def batch_lead(batch) -> int:
+    """The length of a batch's leading axis."""
+    if isinstance(batch, dict):
+        return batch_lead(next(iter(batch.values())))
+    if isinstance(batch, (tuple, list)):
+        return batch_lead(batch[0])
+    return batch.shape[0]
+
+
+def batch_has_local_axis(rule, local_steps) -> bool:
+    """Whether a delta-payload round's batch leads with the H axis: when
+    the rule runs more than one local step (``rule.local_steps > 1``) or a
+    per-round schedule is passed (``local_steps is not None``). With H = 1
+    and no schedule the batch keeps the plain (M, b, ...) form of the
+    gradient rules."""
+    return rule.local_steps > 1 or local_steps is not None
+
+
+def local_steps_vector(m: int, batch_h, local_steps,
+                       device=None) -> torch.Tensor:
+    """(M,) int32 per-worker local-step counts of one delta-payload round.
+    ``batch_h`` leads with the local-steps axis H, the padding bound;
+    ``local_steps`` (None, a scalar or (M,)) is how many of those H steps
+    each worker runs, clipped into [1, H] so a stale schedule never
+    indexes past the batch; None runs all H."""
+    h_max = batch_lead(batch_h)
+    if local_steps is None:
+        return torch.full((m,), h_max, dtype=torch.int32, device=device)
+    h = torch.as_tensor(local_steps, dtype=torch.int32, device=device)
+    return torch.clamp(h.expand((m,)), 1, h_max).to(torch.int32)
+
+
 # -------------------------------------------------------------- comm state
 
 class FlatCommState(NamedTuple):
@@ -309,30 +367,64 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                     params, params_flat, batch, k: int, *, vgrad,
                     vgrad_per: Callable | None = None,
                     fuse_evals: bool = True, impl=None,
-                    participation=None) -> FlatCommRoundResult:
+                    participation=None,
+                    local_steps=None) -> FlatCommRoundResult:
     """One communication round of Algorithm 1 (lines 4-15) on flat buffers.
 
     ``participation`` ((M,) bool or None) models partial participation: a
     non-participating worker never uploads this round, not even when its
     staleness is capped, and its staleness keeps growing.
+
+    ``local_steps`` (None, a scalar or (M,)) is legal for the delta-payload
+    rules only (``strategy.delta_payload``): each worker runs that many of
+    the batch's H padded local steps and ships the model delta
+    θ^k − θ_m^(h) in place of a fresh gradient; the batch leads with H
+    where :func:`batch_has_local_axis` says so. Such a round always
+    uploads (LHS +∞), and its grad evals are Σ_active h_w.
     """
     r = strategy.rule
     m = comm.staleness.shape[0]
+    if local_steps is not None and not strategy.delta_payload:
+        raise ValueError(
+            f"rule kind {r.kind!r} ships per-iteration gradients; "
+            "local_steps is only meaningful for delta-payload rules "
+            "(local_momentum, fedadam)")
 
     # Line 4 (rule-owned): e.g. CADA1 snapshot refresh every D iterations.
     extras = strategy.flat_pre_step(comm.extras, params, params_flat, k)
 
-    # Lines 6/8: fresh gradients at θ^k, plus the rule's second evaluation.
-    losses, fresh, second = eval_two_point(
-        strategy, layout, extras, params, batch, m, vgrad=vgrad,
-        vgrad_per=vgrad_per, fuse_evals=fuse_evals)
+    if strategy.delta_payload:
+        # the worker runs h_w local optimizer steps and ships the model
+        # delta in place of the fresh gradient; with the always-upload
+        # cadence the worker copies telescope to the last payload, so
+        # ∇ = mean_m(payload) and the rule's server optimizer closes the
+        # round (periodic averaging, FedAdam)
+        batch_h = (batch if batch_has_local_axis(r, local_steps)
+                   else batch_map(lambda x: x[None], batch))
+        h_steps = local_steps_vector(m, batch_h, local_steps,
+                                     device=params_flat.device)
+        losses, fresh, cache = strategy.flat_local_payload(
+            layout, extras, params_flat, batch_h, m, vgrad_per, h_steps)
+        second = None
+    else:
+        h_steps = None
+        # Lines 6/8: fresh gradients at θ^k, plus the rule's second
+        # evaluation.
+        losses, fresh, second = eval_two_point(
+            strategy, layout, extras, params, batch, m, vgrad=vgrad,
+            vgrad_per=vgrad_per, fuse_evals=fuse_evals)
     ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
                           second=second, comm=comm._replace(extras=extras),
                           step=k, m=m, impl=impl,
                           participation=participation)
 
-    # Lines 7/9: rule LHS vs the shared recent-progress RHS.
-    lhs, cache = strategy.flat_lhs(ctx, extras)
+    # Lines 7/9: rule LHS vs the shared recent-progress RHS; a delta round
+    # always uploads (the "skip" axis is folded into h_w).
+    if strategy.delta_payload:
+        lhs = torch.full((m,), torch.inf, dtype=torch.float32,
+                         device=fresh.device)
+    else:
+        lhs, cache = strategy.flat_lhs(ctx, extras)
     rhs = r.rhs(comm.diff_hist)
     # Line 10: upload if the condition is VIOLATED or staleness capped.
     upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
@@ -356,7 +448,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         wire = torch.where(upload[:, None], delta, 0.0).to(
             comm.worker_grads.dtype)
     # Order-fixed row accumulation: masked zero rows are exact no-ops.
-    nabla = (comm.nabla.float() + kops.eq3_row_mean(wire, m)).to(
+    nabla = (comm.nabla.float() + kops.eq3_row_mean(wire, m, impl=impl)).to(
         comm.nabla.dtype)
     worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
 
@@ -368,6 +460,13 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     n_active = (torch.tensor(m, dtype=torch.int32, device=upload.device)
                 if participation is None
                 else participation.sum(dtype=torch.int32))
+    if strategy.delta_payload:
+        # one eval per local step: Σ_active h_w
+        grad_evals = (h_steps if participation is None
+                      else torch.where(participation, h_steps, 0)
+                      ).sum(dtype=torch.int32)
+    else:
+        grad_evals = n_active * strategy.grad_evals_per_iter
     metrics = {
         "uploads": uploads,
         "skip_rate": 1.0 - uploads.float() / n_active,
@@ -377,7 +476,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         "lhs": lhs,
         "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
         "max_staleness": staleness.max(),
-        "grad_evals": n_active * strategy.grad_evals_per_iter,
+        "grad_evals": grad_evals,
         "bytes_up": uploads.float() * strategy.bytes_per_upload(layout.n),
     }
     new_comm = FlatCommState(nabla=nabla, worker_grads=worker_grads,

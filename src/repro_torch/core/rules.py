@@ -7,11 +7,9 @@ stochastic gradient is informative enough to upload. All rules share the RHS
 (the recent-progress measure, a ring buffer of d_max scalars) and the
 max-staleness override τ_m ≥ D.
 
-The hyper-parameters of every kind of the reference validate here; which
-kinds the port can RUN is up to :func:`repro_torch.core.comm.strategy_for`,
-which names the kinds not yet ported (the delta-payload rules
-``local_momentum`` and ``fedadam``). ``quantize_bits`` puts a b-bit wire
-under any kind. The paper's rules:
+The hyper-parameters of every kind of the reference validate here, and the
+port runs every kind (:func:`repro_torch.core.comm.strategy_for`).
+``quantize_bits`` puts a b-bit wire under any kind. The paper's rules:
 
   * ``cada1``  (eq. 7)  — SVRG-style innovation vs. a snapshot θ̃ refreshed
     every D iterations:  ||δ̃_m^k − δ̃_m^{k−τ}||² ≤ RHS.
@@ -33,6 +31,14 @@ Beyond-paper rules, which both skip uploads and shrink the ones sent:
     masked plane.
   * ``avp``  — per-worker upload periods in [period_min, period_max],
     adapted against the RHS; ``avp_compose`` also asks ||δ_m||² > RHS.
+
+The delta-payload rules (the paper's local-update baselines) run
+``local_steps`` H local steps per round and ship the model delta:
+
+  * ``local_momentum`` — local heavy-ball SGD (``local_lr``,
+    ``local_beta``), the models and momenta averaged every round.
+  * ``fedadam`` — local SGD at ``local_lr``, a server Adam step at
+    ``server_lr`` on the mean delta.
 """
 from __future__ import annotations
 

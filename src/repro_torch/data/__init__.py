@@ -1,7 +1,9 @@
 from repro_torch.data.partition import (dirichlet_partition, pad_to_matrix,
+                                        random_sizes_partition,
                                         uniform_partition)
-from repro_torch.data.synthetic import (Dataset, ijcnn1_like, lm_tokens,
-                                        mnist_like)
+from repro_torch.data.synthetic import (Dataset, covtype_like, ijcnn1_like,
+                                        lm_tokens, mnist_like)
 
-__all__ = ["Dataset", "ijcnn1_like", "lm_tokens", "mnist_like",
-           "dirichlet_partition", "pad_to_matrix", "uniform_partition"]
+__all__ = ["Dataset", "covtype_like", "ijcnn1_like", "lm_tokens",
+           "mnist_like", "dirichlet_partition", "pad_to_matrix",
+           "random_sizes_partition", "uniform_partition"]

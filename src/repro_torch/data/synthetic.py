@@ -1,7 +1,9 @@
-"""Synthetic datasets standing in for the paper's ijcnn1 / MNIST (copies of
-the JAX package's numpy generators, so one seed gives the same data in both
-packages).
+"""Synthetic datasets standing in for the paper's covtype / ijcnn1 / MNIST
+(copies of the JAX package's numpy generators, so one seed gives the same
+data in both packages).
 
+  * ``covtype_like`` — 7-class, 54-dim, for the paper's covtype setup
+    (20 workers on a random unequal split).
   * ``ijcnn1_like`` — binary, 22-dim, logistic-regression friendly.
   * ``mnist_like``  — 10-class, 28x28 images for the MLP experiments.
   * ``lm_tokens``   — a Zipfian token stream for the LM trainer.
@@ -36,6 +38,12 @@ def _cluster_classification(rng, n, dim, n_classes, noise=1.0, margin=2.0):
     flip = rng.random(n) < 0.01
     y = np.where(flip, rng.integers(0, n_classes, size=n), y)
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def covtype_like(n: int = 20000, seed: int = 0) -> Dataset:
+    rng = np.random.default_rng(seed)
+    x, y = _cluster_classification(rng, n, dim=54, n_classes=7, noise=1.5)
+    return Dataset(x=x, y=y, n_classes=7)
 
 
 def ijcnn1_like(n: int = 10000, seed: int = 1) -> Dataset:

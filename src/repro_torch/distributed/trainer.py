@@ -17,6 +17,14 @@ loop returns the M-stacked gradient trees ``flat_comm_round`` expects; the
 rule's second evaluation runs per worker (``fuse_evals=False``), as on the
 reference's per-worker route.
 
+The delta-payload rules (``local_momentum``, ``fedadam``) ride the same
+flat step: the round returns the workers' mean model delta as ∇ and the
+trainer's AMSGrad server step consumes it (the reference's "FedAMSGrad":
+server momentum over deltas; the engine runs the rules' own sgd(1.0) and
+Adam servers). Their batches lead with the local-steps axis H
+(``worker_split(..., local_steps=H)``), and each local step is one more
+loop over the workers, one worker's activations live at a time.
+
 The forward takes the model's training route (``lm_loss(train=True)``):
 the reference's jnp attention and chunked scan, here in PyTorch under
 autograd. The kernels on the step's path are the server step and the rule
@@ -106,18 +114,25 @@ class DistTrainState(NamedTuple):
     comm: Any                # FlatCommState (None for stateless rules)
 
 
-def worker_split(batch: dict, m: int) -> dict:
+def worker_split(batch: dict, m: int, local_steps: int = 1) -> dict:
     """Global batch -> (M, b_m, ...) per-worker leading axis (positions:
-    (3, B, S) -> (M, 3, b_m, S)). Leaves may be tensors or numpy arrays."""
+    (3, B, S) -> (M, 3, b_m, S)). ``local_steps`` H > 1 (delta-payload
+    rules) carves the batch into H per-local-step slices first:
+    (H, M, b_m, ...) with b_m = B / (H · M), so a round consumes the same
+    global sample count whatever the cadence. Leaves may be tensors or
+    numpy arrays."""
+    hm = local_steps * m
     out = {}
     for key, leaf in batch.items():
         if key == "positions":
             three, b = leaf.shape[0], leaf.shape[1]
-            out[key] = leaf.reshape((three, m, b // m)
-                                    + tuple(leaf.shape[2:])).swapaxes(0, 1)
+            split = leaf.reshape((three, hm, b // hm)
+                                 + tuple(leaf.shape[2:])).swapaxes(0, 1)
         else:
             b = leaf.shape[0]
-            out[key] = leaf.reshape((m, b // m) + tuple(leaf.shape[1:]))
+            split = leaf.reshape((hm, b // hm) + tuple(leaf.shape[1:]))
+        out[key] = (split.reshape((local_steps, m) + tuple(split.shape[1:]))
+                    if local_steps > 1 else split)
     return out
 
 
@@ -218,7 +233,8 @@ def make_vgrads(cfg: ModelConfig, hp: TrainHParams, m: int):
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
                     impl=None):
     """``step(state, batch) -> (state, metrics)``: one round of Algorithm 1
-    on the LM. ``batch`` leaves carry an (M,)-leading worker axis
+    on the LM. ``batch`` leaves carry an (M,)-leading worker axis, or
+    (H, M) for a delta-payload rule with H local steps
     (:func:`worker_split`). ``impl`` is the dispatch override of
     ``kernels/ops.py`` (None on the main path). The state is not updated in
     place."""

@@ -4,11 +4,12 @@ Each wrapper checks its operands (device, dtype, shape, contiguity),
 allocates its outputs with ``torch.empty``, launches one kernel on PyTorch's
 current stream and raises if the launch failed. The kernels' partial sums
 and ticket counters live in a workspace that is allocated and zeroed once
-per (device, stream) and reused (:func:`workspace`). Each wrapper keeps a
-plain integer count of its launches (``fused_amsgrad_flat.launches``,
-``batched_diff_sq_norm_flat.launches``, ``batched_sq_norm_flat.launches``,
-``diff_sq_norm_flat.launches``), so a run can show that it went through the
-kernel.
+per (device, stream) and reused (:func:`workspace`); eq. (3)'s row mean
+needs none. Each wrapper keeps a plain integer count of its launches
+(``fused_amsgrad_flat.launches``, ``batched_diff_sq_norm_flat.launches``,
+``batched_sq_norm_flat.launches``, ``diff_sq_norm_flat.launches``,
+``eq3_row_mean_flat.launches``), so a run can show that it went through
+the kernel.
 
 The launch plan is a function of n alone (:func:`amsgrad_blocks`,
 :func:`row_chunks`); the operands' alignment only decides whether a pack
@@ -23,6 +24,7 @@ import ctypes
 import functools
 import operator
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -53,6 +55,8 @@ def _lib() -> ctypes.CDLL:
     lib.cada_batched_diff_sq.restype = _I
     lib.cada_batched_sq.argtypes = [_P] * 4 + [_L, _L, _I, _I, _I, _P]
     lib.cada_batched_sq.restype = _I
+    lib.cada_row_mean.argtypes = [_P, _P, _L, _L, _F, _I, _I, _I, _P]
+    lib.cada_row_mean.restype = _I
     lib.cada_error_string.argtypes = [_I]
     lib.cada_error_string.restype = ctypes.c_char_p
     return lib
@@ -276,3 +280,39 @@ def batched_sq_norm_flat(a):
 
 
 batched_sq_norm_flat.launches = 0
+
+
+MEAN_MAX_BLOCKS = 1 << 20   # then a grid-stride loop
+
+
+def mean_blocks(n: int) -> int:
+    """Blocks of eq. (3)'s row mean: one pack of ROW_PACK columns per
+    thread. No sum crosses threads, so the grid changes no bit."""
+    return min(_cdiv(_cdiv(n, ROW_PACK), THREADS), MEAN_MAX_BLOCKS)
+
+
+def eq3_row_mean_flat(plane, m_total: int):
+    """Eq. (3)'s aggregate increment on the card, one launch: the (n,) fp32
+    Σ_rows(plane) · fp32(1)/fp32(m_total) of an (R, n) fp32 or bf16 plane,
+    the rows added in descending order from +0.0, bit-equal to
+    ``ref.eq3_row_mean_ref``."""
+    name = "eq3_row_mean_flat"
+    _need_plane(name, plane)
+    if plane.dim() != 2 or plane.numel() == 0:
+        raise ValueError(f"{name}: need a non-empty (R, n) plane, got "
+                         f"{tuple(plane.shape)}")
+    if int(m_total) < 1:
+        raise ValueError(f"{name}: m_total must be >= 1, got {m_total}")
+    rows, n = plane.shape
+    rcp = float(np.float32(1.0) / np.float32(m_total))
+    lib, stream = _lib(), _stream(plane.device.index)
+    out = torch.empty(n, dtype=torch.float32, device=plane.device)
+    err = lib.cada_row_mean(plane.data_ptr(), out.data_ptr(), rows, n, rcp,
+                            mean_blocks(n), plane.dtype == torch.bfloat16,
+                            rows_vector_ok(plane) and vector_ok(out), stream)
+    _check(lib, err, name)
+    eq3_row_mean_flat.launches += 1
+    return out
+
+
+eq3_row_mean_flat.launches = 0

@@ -1,12 +1,17 @@
-// Fused CADA/AMSGrad server step and the rule-LHS norms for Hopper (sm_90a).
+// Fused CADA/AMSGrad server step, the rule-LHS norms and eq. (3)'s
+// order-fixed row mean for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package, and one op that is a
+// `fori_loop` there, not Pallas:
 //   * amsgrad_kernel  <- src/repro/kernels/cada_update.py::_amsgrad_kernel
 //                        (:34)
 //   * row_sq_kernel   <- two operands: src/repro/kernels/cada_update.py::
 //                        _batched_diff_sq_kernel and, launched with one row
 //                        (R = 1), ::_diff_sq_kernel; one operand:
 //                        ::_batched_sq_kernel
+//   * row_mean_kernel <- src/repro/kernels/ops.py::eq3_row_mean (:126), the
+//                        server's eq. (3) aggregate with its row order
+//                        fixed (see the kernel's own note below)
 //
 // What bounds them on an H100: all are streaming passes that read each byte
 // once and do O(1) flops per element, so device-memory bytes bound them:
@@ -369,6 +374,71 @@ row_sq_kernel(const RowArgs r) {
                  blockIdx.y, r.counters + row, r.out + row);
 }
 
+// Eq. (3)'s order-fixed row mean: out[j] = (Σ over r from R−1 down to 0 of
+// plane[r, j]) · rcp, in fp32, for an (R, n) fp32 or bf16 plane.
+//
+// The order is the contract. The sum starts from +0.0 and adds the rows in
+// descending order, each add rounded on its own (__fadd_rn: nvcc cannot
+// contract it), then multiplies once by rcp = fp32(1) / fp32(m_total)
+// (__fmul_rn), as repro_torch/kernels/ref.py::eq3_row_mean_ref does. So
+// the result equals the plain version bit for bit, and an all-zero row
+// changes no bit: +0.0 added to any sum is that sum (the sum is never
+// −0.0: it starts at +0.0 and no add of two values reaches −0.0 unless
+// both are). That is what lets a plane with its zero rows dropped give the
+// same bits.
+//
+// What bounds it: bytes. Each element is read once and each output written
+// once, (R·size + 4) bytes per column: at the paper MLP's (10, 101,776)
+// fp32 4.5 MB (1.3 us at 3.35 TB/s, below one launch), at the LM trainer's
+// (2, 616,581,120) fp32 7.4 GB (2.21 ms).
+//
+// Design: one thread owns a pack of kRowPack adjacent columns (16-byte
+// vectors where every row starts on 16 bytes, scalar loads of the same
+// pack otherwise) and walks the rows; there is no reduction across
+// threads, so no ticket and no workspace. Loads of kRowGroup rows are
+// issued before their adds, so a thread has that many vectors in flight
+// while the adds stay in order.
+constexpr int kRowGroup = 4;
+
+struct MeanArgs {
+  const void* plane;
+  float* out;
+  int64_t rows, n;
+  float rcp;
+  bool vec;
+};
+
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+row_mean_kernel(const MeanArgs m) {
+  constexpr int P = kRowPack;
+  const int64_t n = m.n, packs = (n + P - 1) / P;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const A* plane = static_cast<const A*>(m.plane);
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       q < packs; q += stride) {
+    const int cnt = pack_count<P>(q, packs, n);
+    float acc[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc[k] = 0.f;
+    for (int64_t top = m.rows - 1; top >= 0; top -= kRowGroup) {
+      float v[kRowGroup][P];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g)
+        if (top - g >= 0)
+          load_pack(plane + (top - g) * n + q * P, m.vec, cnt, v[g]);
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g)
+        if (top - g >= 0)
+#pragma unroll
+          for (int k = 0; k < P; ++k) acc[k] = __fadd_rn(acc[k], v[g][k]);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc[k] = __fmul_rn(acc[k], m.rcp);
+    store_pack(m.out + q * P, m.vec, cnt, acc);
+  }
+}
+
 template <typename T, typename M, typename G>
 cudaError_t launch_amsgrad(const AmsgradArgs& a, int blocks,
                            cudaStream_t s) {
@@ -396,6 +466,12 @@ cudaError_t launch_rows(const RowArgs& r, int64_t rows, int chunks,
                         cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks));
   row_sq_kernel<A, B, kTwo><<<grid, kThreads, 0, s>>>(r);
+  return cudaGetLastError();
+}
+
+template <typename A>
+cudaError_t launch_mean(const MeanArgs& m, int blocks, cudaStream_t s) {
+  row_mean_kernel<A><<<blocks, kThreads, 0, s>>>(m);
   return cudaGetLastError();
 }
 
@@ -462,6 +538,19 @@ int cada_batched_sq(const void* a, void* counters, void* partials, void* out,
   const cudaError_t err =
       a_bf16 ? launch_rows<bf16, bf16, false>(r, rows, chunks, s)
              : launch_rows<float, float, false>(r, rows, chunks, s);
+  return static_cast<int>(err);
+}
+
+// plane (rows, n) contiguous, fp32 or bf16 (a_bf16); out fp32 (n,); vec
+// where every row of the plane and out start on 16 bytes; rcp the fp32
+// reciprocal of m_total. blocks: the grid (a grid-stride loop covers the
+// rest).
+int cada_row_mean(const void* plane, void* out, long long rows, long long n,
+                  float rcp, int blocks, int a_bf16, int vec, void* stream) {
+  const MeanArgs m{plane, static_cast<float*>(out), rows, n, rcp, vec != 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = a_bf16 ? launch_mean<bf16>(m, blocks, s)
+                                 : launch_mean<float>(m, blocks, s);
   return static_cast<int>(err);
 }
 

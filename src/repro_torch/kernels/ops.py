@@ -81,9 +81,13 @@ def diff_sq_norm(tree_a, tree_b, *, impl=None):
     return diff_sq_norm_flat(af, bf, impl=impl)
 
 
-def eq3_row_mean(plane, m_total: int):
-    """Eq. (3) aggregate increment, order-fixed (see ``ref.eq3_row_mean_ref``).
-    The same plain loop runs on both devices until its kernel is ported."""
+def eq3_row_mean(plane, m_total: int, *, impl=None):
+    """Eq. (3) aggregate increment Σ_rows(plane) / m_total of an (R, n)
+    plane as (n,) fp32, order-fixed (see ``ref.eq3_row_mean_ref``): the
+    same bits on both routes, and the same bits with all-zero rows
+    dropped."""
+    if use_kernel(plane, impl):
+        return _cu.eq3_row_mean_flat(plane, m_total)
     return _ref.eq3_row_mean_ref(plane, m_total)
 
 

@@ -2,10 +2,16 @@
 
     python -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
         --device cpu --workers 2 --steps 8 --global-batch 4 --seq 32
+    python -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
+        --device cpu --workers 2 --steps 8 --global-batch 8 --seq 32 \\
+        --rule local_momentum --local-steps 2
 
 Runs the LM trainer (``distributed/trainer.py``) with M simulated workers
 on one device, the card unless ``--device cpu``: the mesh-free flags of the
 JAX package's ``launch/train.py`` and its ``loss= uploads= skip=`` lines.
+A delta-payload rule runs ``--local-steps`` H local steps per round, each
+on its own B / (H · M) slice of the global batch, and the AMSGrad server
+step at ``--lr`` consumes the mean delta.
 Weights are drawn from seed 0 on the device; the token stream is the
 reference's (``make_token_batches``), the same tokens in both packages.
 """
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs as C
-from repro_torch.core.comm import strategy_kinds
+from repro_torch.core.comm import STRATEGIES, strategy_kinds
 from repro_torch.core.rules import CommRule
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.device import resolve_device
@@ -32,6 +38,21 @@ def make_token_batches(cfg, *, global_batch, seq, steps, seed=0):
                      seed=seed)
     n = steps * global_batch * (seq + 1)
     return toks[:n].reshape(steps, global_batch, seq + 1)
+
+
+def _round_local_steps(rule: CommRule, args) -> int:
+    """The local-step axis H of one round's batch: the rule's fixed period
+    for a delta-payload rule, 1 for a gradient rule. The global batch must
+    divide into H · M per-local-step slices."""
+    if not STRATEGIES[rule.kind].delta_payload:
+        return 1
+    h = rule.local_steps
+    if args.global_batch % (h * args.workers):
+        raise SystemExit(
+            f"--global-batch {args.global_batch} must divide into "
+            f"local_steps*workers = {h}*{args.workers} per-local-step "
+            "slices")
+    return h
 
 
 def main(argv=None) -> list[dict]:
@@ -55,6 +76,11 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--avp-compose", action="store_true",
                    help="avp rule: upload only when due AND the "
                         "innovation energy clears the CADA RHS")
+    p.add_argument("--local-steps", type=int, default=1,
+                   help="delta-payload rules (local_momentum | fedadam): "
+                        "local optimizer steps per communication round")
+    p.add_argument("--local-lr", type=float, default=0.1,
+                   help="delta-payload rules: local optimizer step size")
     p.add_argument("--moments-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the flat {h, v̂} moment planes")
@@ -82,9 +108,12 @@ def main(argv=None) -> list[dict]:
                     quantize_bits=args.quantize_bits,
                     error_feedback=not args.no_error_feedback,
                     topk_frac=args.topk_frac, sparse_wire=args.sparse_wire,
-                    avp_compose=args.avp_compose)
+                    avp_compose=args.avp_compose,
+                    local_steps=args.local_steps, local_lr=args.local_lr,
+                    server_lr=args.lr)
     hp = TrainHParams(rule=rule, lr=args.lr, microbatches=args.microbatches,
                       moments_dtype=args.moments_dtype)
+    h = _round_local_steps(rule, args)
     step = make_train_step(cfg, hp, m)
     state = init_train_state(cfg, hp, m, 0, device)
     batches = make_token_batches(cfg, global_batch=args.global_batch,
@@ -95,7 +124,8 @@ def main(argv=None) -> list[dict]:
     for i in range(args.steps):
         tokens = torch.from_numpy(batches[i]).to(device=device,
                                                   dtype=torch.long)
-        state, mets = step(state, worker_split({"tokens": tokens}, m))
+        state, mets = step(state, worker_split({"tokens": tokens}, m,
+                                               local_steps=h))
         if i % args.log_every == 0 or i == args.steps - 1:
             row = {k: float(v) for k, v in mets.items() if v.ndim == 0}
             row["step"] = i

@@ -13,7 +13,10 @@ or bf16 and moments in fp32 or bf16 (the kernel rounds each operation as
 the plain version does, in its order); Σupd² and the difference-norm rows
 rtol 1e-5,
 the one-operand rows and the scalar ‖a−b‖² rtol 1e-6 (summation order);
-run-to-run results bitwise identical. The wire compressors are plain
+run-to-run results bitwise identical. Eq. (3)'s row mean is bit-equal to
+its plain version (the rows added in the same order from +0.0, one rounded
+add each, then one multiply), with its zero rows dropped too. The wire
+compressors are plain
 PyTorch on both devices and must give the same bits on the card as on the
 CPU. The selective scan: within 1e-5 of each array's scale, max |plain|
 (fp32 on both sides; y_t's N-sum runs in another order, and its rounding
@@ -237,6 +240,95 @@ def test_workspace_is_per_stream_and_reused(gen):
         ops.batched_sq_norm(a)
     assert {k: cada_update._WORKSPACES[k].buf.data_ptr()
             for k in keys} == before
+
+
+def _eq3_equal(plane, m_total):
+    got = cada_update.eq3_row_mean_flat(plane, m_total)
+    want = ref.eq3_row_mean_ref(plane, m_total)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("shape", [(10, 101_776), (1, 101_776), (10, 48),
+                                   (10, 101_777), (3, 1), (2, 1_000_003),
+                                   (37, 4_099)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq3_row_mean_kernel_matches_plain_bit_for_bit(gen, shape, dtype):
+    plane = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    _eq3_equal(plane, shape[0])
+    _eq3_equal(plane, 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq3_row_mean_kernel_on_an_unaligned_view(gen, dtype):
+    """A contiguous view that starts off 16 bytes takes the scalar loads and
+    still gives the plain version's bits, and the aligned copy's."""
+    buf = torch.randn(10 * 101_776 + 1, generator=gen,
+                      device="cuda").to(dtype)
+    plane = buf[1:].view(10, 101_776)
+    assert not cada_update.vector_ok(plane)
+    got = _eq3_equal(plane, 10)
+    assert torch.equal(got, cada_update.eq3_row_mean_flat(plane.clone(), 10))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eq3_row_mean_kernel_drops_zero_rows_exactly(gen, dtype):
+    """A masked plane (zero rows) and its nonzero rows alone give the same
+    bits: the contract the cohort plane rests on."""
+    plane = torch.randn(10, 101_776, generator=gen, device="cuda")
+    plane[[1, 4, 5, 9]] = 0.0
+    plane = plane.to(dtype)
+    kept = plane[[0, 2, 3, 6, 7, 8]].contiguous()
+    full = _eq3_equal(plane, 10)
+    assert torch.equal(full, _eq3_equal(kept, 10))
+
+
+def test_eq3_row_mean_kernel_launches_once_per_call(gen):
+    plane = torch.randn(10, 101_776, generator=gen, device="cuda")
+    names = _kernels_per_call(lambda: ops.eq3_row_mean(plane, 10))
+    assert 1 <= len(names) <= 5 and all("row_mean_kernel" in nm
+                                        for nm in names), names
+    before = cada_update.eq3_row_mean_flat.launches
+    ops.eq3_row_mean(plane, 10)
+    ops.eq3_row_mean(plane, 10, impl="plain")
+    assert cada_update.eq3_row_mean_flat.launches == before + 1
+    with pytest.raises(ValueError):
+        ops.eq3_row_mean(plane.double(), 10)
+    with pytest.raises(ValueError):
+        ops.eq3_row_mean(plane.t(), 10)
+
+
+@pytest.mark.parametrize("kind", ["local_momentum", "fedadam"])
+def test_delta_rule_engine_on_the_card(gen, kind):
+    """The engine with a delta-payload rule on the card: the prescribed
+    protocol server (no AMSGrad launch), eq. (3)'s kernel once per round
+    and, for local momentum, once more for the momenta; no LHS norm; and
+    the kernels' state within 1e-5 of scale of ``impl="plain"``'s (the
+    same masks)."""
+    rule = CommRule(kind=kind, local_steps=3, local_lr=0.05, max_delay=5)
+    eng = CADAEngine(logreg_loss, None, rule, 4)
+    state = eng.init(logreg_init(None, 6, 2))
+    x = torch.randn(2, 3, 4, 5, 6, generator=gen, device="cuda")
+    y = torch.randint(0, 2, (2, 3, 4, 5), generator=gen, device="cuda")
+    counters = (cada_update.fused_amsgrad_flat,
+                cada_update.batched_diff_sq_norm_flat,
+                cada_update.batched_sq_norm_flat,
+                cada_update.eq3_row_mean_flat)
+    before = [f.launches for f in counters]
+    st, mets = eng.run(state, (x, y))
+    per_round = 2 if kind == "local_momentum" else 1
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        0, 0, 0, 2 * per_round]
+    assert st.params_flat.is_cuda and bool(mets["uploads"].eq(4).all())
+    assert mets["grad_evals"].tolist() == [12, 12]
+    plain = CADAEngine(logreg_loss, None, rule, 4, impl="plain")
+    pst, _ = plain.run(state, (x, y))
+    _within_scale(st.params_flat, pst.params_flat, 1e-5)
+    if kind == "local_momentum":
+        _within_scale(st.comm.extras["momenta"], pst.comm.extras["momenta"],
+                      1e-5)
 
 
 @pytest.mark.parametrize("n", [1, 48, 101_776, 1_000_003])
@@ -642,3 +734,35 @@ def test_trainer_step_launches_the_kernels_and_matches_plain(gen, kind,
         assert a.is_cuda
         _within_scale(a, b, 1e-5)
     assert bool(torch.isfinite(mets["loss"]))
+
+
+@pytest.mark.parametrize("kind", ["local_momentum", "fedadam"])
+def test_trainer_delta_step_launches_the_kernels_and_matches_plain(gen,
+                                                                   kind):
+    """A smoke-size trainer step of a delta rule on the card (H = 2,
+    M = 2): one AMSGrad launch, eq. (3) once (twice for local momentum),
+    no LHS norm; ``impl="plain"`` from the same state launches nothing and
+    gives θ within 1e-5 of its scale."""
+    cfg = TC.get_smoke_config("stablelm-1.6b")
+    hp = TrainHParams(rule=CommRule(kind=kind, local_steps=2, c=20.0,
+                                    d_max=4, max_delay=10), lr=1e-3)
+    state = init_train_state(cfg, hp, 2, 0)
+    batch = worker_split({"tokens": torch.randint(
+        0, cfg.vocab, (4, 33), generator=gen, device="cuda")}, 2,
+        local_steps=2)
+    counters = (cada_update.fused_amsgrad_flat,
+                cada_update.batched_diff_sq_norm_flat,
+                cada_update.batched_sq_norm_flat,
+                cada_update.eq3_row_mean_flat)
+    before = [f.launches for f in counters]
+    new, mets = make_train_step(cfg, hp, 2)(state, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        1, 0, 0, 2 if kind == "local_momentum" else 1]
+    mid = [f.launches for f in counters]
+    plain, pmets = make_train_step(cfg, hp, 2, impl="plain")(state, batch)
+    assert [f.launches for f in counters] == mid
+    assert int(mets["grad_evals"]) == 4 and bool(mets["upload_mask"].all())
+    for a, b in zip(_leaves(new.params), _leaves(plain.params)):
+        assert a.is_cuda
+        _within_scale(a, b, 1e-5)

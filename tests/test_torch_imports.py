@@ -106,6 +106,15 @@ def test_the_trainer_slice_is_covered():
             "repro_torch.configs.yi_34b"} <= set(_modules())
 
 
+def test_the_delta_rule_and_checkpoint_slice_is_covered():
+    """... and so are the modules of the delta-payload rules, the
+    checkpoint and the paper's remaining problems."""
+    assert {"repro_torch.core.local_update", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.io", "repro_torch.models.small",
+            "repro_torch.data.synthetic",
+            "repro_torch.data.partition"} <= set(_modules())
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no

@@ -223,6 +223,46 @@ def test_eq3_row_mean_drops_zero_rows_exactly(rng):
                        ref.eq3_row_mean_ref(kept, 8))
 
 
+def test_eq3_row_mean_bf16_plane_bit_equal(rng):
+    """A bf16 wire plane (bf16 CADA state) widens exactly and sums in the
+    same order: the same bits as the reference."""
+    plane = rng.normal(size=(5, 777)).astype(np.float32)
+    plane[2] = 0.0
+    jplane = jnp.asarray(plane, jnp.bfloat16)
+    want = np.asarray(jops.eq3_row_mean(jplane, 5))
+    got = ops.eq3_row_mean(
+        torch.from_numpy(plane).to(torch.bfloat16), 5).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_eq3_row_mean_takes_the_plain_route_on_cpu_and_no_fallback(rng):
+    """A CPU plane takes the plain loop and launches nothing;
+    ``impl="kernel"`` and the CUDA wrapper raise on it."""
+    plane = torch.from_numpy(rng.normal(size=(3, 40)).astype(np.float32))
+    before = cada_update.eq3_row_mean_flat.launches
+    assert torch.equal(ops.eq3_row_mean(plane, 4),
+                       ref.eq3_row_mean_ref(plane, 4))
+    assert torch.equal(ops.eq3_row_mean(plane, 4, impl="plain"),
+                       ref.eq3_row_mean_ref(plane, 4))
+    assert cada_update.eq3_row_mean_flat.launches == before
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.eq3_row_mean(plane, 4, impl="kernel")
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        cada_update.eq3_row_mean_flat(plane, 4)
+
+
+def test_eq3_row_mean_grid_covers_every_column():
+    """One pack of ROW_PACK columns per thread until the cap, then a
+    grid-stride loop: every column has a thread."""
+    threads, pack = cada_update.THREADS, cada_update.ROW_PACK
+    for n in (1, 8, 9, 101_776, 616_581_120, 10 ** 10):
+        blocks = cada_update.mean_blocks(n)
+        assert 1 <= blocks <= cada_update.MEAN_MAX_BLOCKS
+        packs = -(-n // pack)
+        assert blocks == min(-(-packs // threads),
+                             cada_update.MEAN_MAX_BLOCKS)
+
+
 def _launch_counts():
     return (cada_update.fused_amsgrad_flat.launches,
             cada_update.batched_diff_sq_norm_flat.launches,

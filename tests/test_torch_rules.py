@@ -1,6 +1,6 @@
-"""The port's ``CommRule`` against the reference's, its strategies'
-accounting against the reference's, and its refusal of the rule kinds that
-are not ported yet."""
+"""The port's ``CommRule`` against the reference's, and its strategies'
+accounting against the reference's, for every rule kind (the eight
+gradient rules and the two delta-payload rules)."""
 import dataclasses
 
 import numpy as np
@@ -65,21 +65,23 @@ def test_rhs_matches_reference():
     np.testing.assert_allclose(float(ours), float(ref), rtol=1e-7)
 
 
-KINDS = ["always", "lag", "cada1", "cada2", "cinn", "laq", "topk", "avp"]
+KINDS = ["always", "lag", "cada1", "cada2", "cinn", "laq", "topk", "avp",
+         "local_momentum", "fedadam"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_ported_kinds_build_their_strategy(kind):
     rule = CommRule(kind=kind)
     s = comm.strategy_for(rule)
+    ref = jax_comm.strategy_for(JaxRule(kind=kind))
     assert s.kind == kind and s.rule is rule
     assert rule.grad_evals_per_iter == JaxRule(kind=kind).grad_evals_per_iter
+    assert s.delta_payload == ref.delta_payload
+    assert (s.server_optimizer() is None) == (ref.server_optimizer() is None)
 
 
-@pytest.mark.parametrize("kind", ["local_momentum", "fedadam"])
-def test_unported_kinds_are_refused_by_name(kind):
-    with pytest.raises(ValueError, match="not yet ported"):
-        comm.strategy_for(CommRule(kind=kind))
+def test_every_reference_kind_is_registered_in_its_order():
+    assert comm.strategy_kinds() == jax_comm.strategy_kinds() == tuple(KINDS)
 
 
 WIRES = [dict(), dict(quantize_bits=4), dict(quantize_bits=8),

@@ -5,7 +5,9 @@ token batch, the reference parity test's rule settings (c = 20,
 d_max = 4, max_delay = 10, lr = 1e-3; ``tests/test_parity_engine_trainer.py``),
 for every kind in ``RULES``, and cada2 twice more: with bf16 moments and
 bf16 CADA state (``moments_dtype``, ``cada_dtype``), and with two
-microbatches per worker. Each step, the reference's step-k state is loaded
+microbatches per worker; and the delta-payload rules ``local_momentum`` and
+``fedadam`` at H = 2 local steps (the batch split (H, M, 1, 33); the mean
+delta feeds the trainer's AMSGrad server step on both sides). Each step, the reference's step-k state is loaded
 into the port (``convert.train_state_from_numpy``), both trainers take the
 same numpy batch, each takes one step, and the results are compared.
 Reloading every step keeps a near-threshold gate flip from snowballing.
@@ -29,7 +31,9 @@ Contract:
     gradients' rounding (the LM loss's own band,
     ``test_torch_train_loss.py``) and XLA's FMA in the moment update; θ's
     update, AMSGrad's normalized step, which divides small gradient
-    entries by roots near √ε, takes them to 5.3e-6 of its scale.
+    entries by roots near √ε, takes them to 5.3e-6 of its scale. The
+    delta rules' two local steps compound the gradients' gap: up to 4.3e-6
+    of scale (FedAdam's h).
   * With bf16 moments and CADA state, every array may also differ by
     BF16_BAND = 2⁻⁷ of its scale, one bf16 rounding step at its largest
     entry: an innovation entry, its worker mean, ∇ and the moments each
@@ -54,7 +58,7 @@ from repro.distributed import trainer as JT
 import repro_torch.configs as TC
 from repro_torch import convert
 from repro_torch.core import flat as F
-from repro_torch.core.rules import RULES, CommRule
+from repro_torch.core.rules import LOCAL_RULES, RULES, CommRule
 from repro_torch.distributed import trainer as TT
 from repro_torch.utils.trees import tree_leaves
 from lockstep_wire import wire_differences
@@ -74,7 +78,9 @@ CASES = {**{kind: (dict(kind=kind), {}) for kind in RULES},
          "cada2-bf16-state": (dict(kind="cada2"),
                               dict(moments_dtype="bfloat16",
                                    cada_dtype="bfloat16")),
-         "cada2-microbatches2": (dict(kind="cada2"), dict(microbatches=2))}
+         "cada2-microbatches2": (dict(kind="cada2"), dict(microbatches=2)),
+         **{f"{kind}-h2": (dict(kind=kind, local_steps=2), {})
+            for kind in LOCAL_RULES}}
 
 
 def _np(x):
@@ -123,6 +129,7 @@ def _run(case):
     j_state = JT.init_train_state(jcfg, jhp, M, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     bf16 = thp.moments_dtype == "bfloat16"
+    h = thp.rule.local_steps
 
     flips = uploads = skips = wire_diffs = uploaded_entries = 0
     worst = (0.0, "")
@@ -132,9 +139,9 @@ def _run(case):
         t_state = convert.train_state_from_numpy(j_prev, "cpu")
         assert t_state.step == k
         j_state, jm = j_step(j_state, JT.worker_split(
-            {"tokens": jnp.asarray(toks)}, M))
+            {"tokens": jnp.asarray(toks)}, M, local_steps=h))
         t_next, tm = t_step(t_state, TT.worker_split(
-            {"tokens": torch.from_numpy(toks).long()}, M))
+            {"tokens": torch.from_numpy(toks).long()}, M, local_steps=h))
         layout = F.layout_of(t_state.params)
         j = jax.tree.map(np.asarray, j_state)
         jm = jax.tree.map(np.asarray, jm)
@@ -237,5 +244,5 @@ def test_trainer_lockstep_step(case):
     assert flips <= 1
     assert uploads > 0
     assert wire_diffs <= MAX_WIRE_DIFF_SHARE * entries
-    if CASES[case][0]["kind"] not in ("always", "topk"):
+    if CASES[case][0]["kind"] not in ("always", "topk", *LOCAL_RULES):
         assert skips > 0, "the gate never skipped: the test is vacuous"
