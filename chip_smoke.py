@@ -94,6 +94,39 @@ Phases, each of which raises on failure (the exit code is then not 0):
         from eq. (3)'s dispatch inside the step: the step's result and
         the kernel on that plane bit for bit against the plain version,
         timed beside its bound.
+  9. the cohort plane (``CADAEngine.init_cohort``/``run_cohort``, the
+     trainer's ``make_cohort_train_step``/``run_cohort_train``): the host's
+     MemTotal and MemAvailable first, then
+     a. every rule kind on the paper MLP at M = 256 workers, C = 32 a
+        round, batch 12, 40 rounds of ``sample_cohorts`` (the gated rules
+        at phase 4's skipping c, the delta rules at H = 2 on their own
+        servers): the pipelined run equals the serial one bit for bit
+        (state, every pool plane, every metric), exact launches per
+        round, the ``CommLedger`` totals equal the summed bytes_up;
+     b. cada2 at M = 10^4, C = 64, mnist_like(20,000) in shards of 2:
+        30 rounds serial, pipelined, and pipelined over a memmap pool in a
+        directory the phase removes, the three bit-equal; the host pool
+        4.07 GB, nothing O(M·n) on the card (no state tensor, and the
+        peak rise below the pool's bytes); ms per round, the pipeline
+        track, the pinned copy rates, and a profile of 10 pipelined
+        rounds (device-busy share, the block copies' time against their
+        bytes over those rates, their overlap with kernels);
+     c. cada2, cada1, laq and local_momentum at M = 64, C = 16, 20
+        rounds: the cohort plane against the dense plane with the cohort
+        as its participation mask, masks and staleness exact, whether the
+        float state is bit-equal printed; where it is not, the gradient
+        rows of both evaluation forms at C·b against M·b rows, and one
+        round from the same state with the same gradient rows fed to both
+        planes, which must be bit-equal;
+     d. phase 7's model and cut through the trainer's cohort step: cada2
+        with bf16 CADA state, M = 8 (4 if the host is short, said so),
+        C = 2, 4 rounds of 2 × 2048 tokens a cohort member, serial and
+        pipelined bit-equal, exactly one AMSGrad, one two-operand norm
+        and one eq. (3) launch a step; ms per step, peak memory, the
+        pipeline track;
+     e. 9b's pipelined trace exported and validated, and a pipelined run
+        stopped at round 25 of 9a's schedule: ``metrics_out`` and the
+        pool equal the serial oracle's through round 24.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -119,6 +152,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -127,8 +161,13 @@ from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
 from repro_torch.core.comm import strategy_for  # noqa: E402
-from repro_torch.core.engine import CADAEngine, make_sampler  # noqa: E402
-from repro_torch.core.rules import LOCAL_RULES, RULES, CommRule  # noqa: E402
+from repro_torch.core.engine import (CADAEngine,  # noqa: E402
+                                     CohortEngineState,
+                                     cohorts_to_participation,
+                                     make_cohort_sampler, make_sampler,
+                                     sample_cohorts)
+from repro_torch.core.rules import (KINDS, LOCAL_RULES, RULES,  # noqa: E402
+                                    CommRule)
 from repro_torch.data import (covtype_like, mnist_like,  # noqa: E402
                               pad_to_matrix, random_sizes_partition,
                               uniform_partition)
@@ -141,6 +180,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
+from repro_torch.obs import (CommLedger, Tracer,  # noqa: E402
+                             validate_chrome_trace, write_chrome_trace)
+from repro_torch.obs import export as obs_export  # noqa: E402
 from repro_torch.models.small import (cnn_init, cnn_loss,  # noqa: E402
                                       logreg_init, logreg_loss, mlp_init,
                                       mlp_loss)
@@ -246,6 +288,21 @@ RESUME_ROUNDS = 20              # 8d: 10 rounds, save, restore, 10 more
 # width, at 0.01 they fall (tools/lm_local_lr_probe.py, PERF.md)
 DELTA_H, DELTA_STEPS, DELTA_LOCAL_LR = 2, 4, 0.01
 EQ3_TRAINER_CALLS = 10
+# phase 9: the cohort plane. 9a every kind at the paper MLP's width on
+# M = 256 workers, C = 32 a round (the delta rules at H = 2, local lr 0.05,
+# FedAdam's server lr 5e-4, as phase 8a runs the CNN); 9b M = 10^4, C = 64
+# over mnist_like(20,000) in shards of 2 (the reference's M = 10^4 smoke,
+# tests/test_cohort_plane.py:296); 9c cohort against dense at M = 64,
+# C = 16; 9d phase 7's model and cut at M = 8, C = 2; 9e a run stopped at
+# round COHORT_FAIL_AT of 9a's schedule
+COHORT_M, COHORT_C, COHORT_ROUNDS, COHORT_FAIL_AT = 256, 32, 40, 25
+COHORT_H, COHORT_LOCAL_LR, COHORT_SERVER_LR = 2, 0.05, 5e-4
+FED_M, FED_C, FED_ROUNDS, FED_DATA = 10_000, 64, 30, 20_000
+FED_PROFILE_ROUNDS = 10
+VS_M, VS_C, VS_ROUNDS = 64, 16, 20
+VS_RULES = ("cada2", "cada1", "laq", "local_momentum")
+LM_COHORT_M, LM_COHORT_C, LM_COHORT_ROUNDS = 8, 2, 4
+POOL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pool"
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -1688,7 +1745,7 @@ def phase_train(card: str, rates) -> tuple[dict, dict]:
     # the kernels on the trainer's own operands: the next step's planes,
     # then the server step on the state it reached
     print("  the two kernels on the trainer's own operands:")
-    vgrad, vgrad_per = trainer.make_vgrads(cfg, hp, TRAIN_M)
+    vgrad, vgrad_per = trainer.make_vgrads(cfg, hp)
     _, fresh, second = flat.eval_two_point(
         strategy_for(hp.rule), layout, state.comm.extras, state.params,
         _batch_on_card(tokens[-1]), TRAIN_M, vgrad=vgrad,
@@ -2140,6 +2197,694 @@ def phase_paper_all(card: str, rates) -> tuple[dict, dict]:
     return totals, size
 
 
+# --------------------------------------------------------- the cohort plane
+
+def _mem_gib() -> tuple[float, float]:
+    """(MemTotal, MemAvailable) of the host in GiB, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            info[key] = int(val.split()[0]) * 1024
+    return info["MemTotal"] / 2**30, info["MemAvailable"] / 2**30
+
+
+def _same_run(a, b, label: str) -> None:
+    """Two cohort runs' (state, pool, metrics) bit for bit: every state
+    tensor, every pool plane, every metric; raises naming the first
+    difference."""
+    (sa, pa, ma), (sb, pb, mb) = a, b
+    if sa.step != sb.step or len(ma) != len(mb):
+        raise RuntimeError(f"{label}: steps {sa.step}/{sb.step}, "
+                           f"{len(ma)}/{len(mb)} rounds of metrics")
+    ta, tb = _tensors(sa), _tensors(sb)
+    if len(ta) != len(tb):
+        raise RuntimeError(f"{label}: states of different structure")
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{label}: state tensor {i} {tuple(x.shape)} "
+                               "differs")
+    for name in pa.plane_order:
+        if not torch.equal(pa.planes[name], pb.planes[name]):
+            raise RuntimeError(f"{label}: pool plane {name} differs")
+    for i, (x, y) in enumerate(zip(ma, mb)):
+        for key in x:
+            if not np.array_equal(x[key], y[key]):
+                raise RuntimeError(f"{label}: metric {key} of round {i} "
+                                   "differs")
+
+
+def _cohort_rule(kind: str, c: float) -> CommRule:
+    kw = (dict(local_steps=COHORT_H, local_lr=COHORT_LOCAL_LR,
+               server_lr=COHORT_SERVER_LR) if kind in LOCAL_RULES else {})
+    return CommRule(kind=kind, c=c, d_max=D_MAX, max_delay=MAX_DELAY, **kw)
+
+
+def _cohort_engine(kind: str, m: int, c: float) -> CADAEngine:
+    """The paper MLP's engine at M = ``m``: FusedAMSGrad(5e-4) for the
+    gradient rules, their own servers for the delta rules."""
+    return CADAEngine(mlp_loss, (None if kind in LOCAL_RULES
+                                 else FusedAMSGrad(lr=5e-4)),
+                      _cohort_rule(kind, c), m)
+
+
+def setup_cohort(m: int, c: int, rounds: int, n_data: int, seed: int,
+                 h: int = 1):
+    """mnist_like(n_data) in M equal shards, the paper MLP drawn from seed
+    0, a (rounds, C) cohort schedule from ``seed`` and each round's cohort
+    batch (BATCH samples a worker, (H, C, ...) for H > 1) drawn on the
+    card from ``make_cohort_sampler`` before any run, so every run of a
+    comparison takes the same batches."""
+    ds = mnist_like(n=n_data)
+    x = ds.x.reshape(ds.n, -1)
+    mtx = pad_to_matrix(uniform_partition(ds.n, m, seed=0))
+    sample = make_cohort_sampler(x, ds.y, mtx, BATCH)
+    cohorts = sample_cohorts(m, c, rounds, seed=seed)
+    cohorts_dev = torch.as_tensor(cohorts, dtype=torch.long, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = []
+    for i in range(rounds):
+        draws = [sample(gen, cohorts_dev[i]) for _ in range(h)]
+        batches.append(draws[0] if h == 1 else tuple(
+            torch.stack(t) for t in zip(*draws)))
+    params = mlp_init(torch.Generator().manual_seed(0), *DIMS,
+                      device="cuda")
+    return dict(params=params, cohorts=cohorts, batches=batches,
+                mtx_shape=mtx.shape)
+
+
+def drive_cohort(eng, p: dict, pipeline: bool, rounds: int | None = None,
+                 **kw):
+    """One cohort run from a fresh state over ``p``'s schedule, every
+    launch count set to 0 just before and read just after. Returns
+    ((state, pool, metrics), launches, seconds)."""
+    rounds = rounds or len(p["cohorts"])
+    state, pool = eng.init_cohort(p["params"], **kw.pop("init", {}))
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    state, mets = eng.run_cohort(state, pool, p["batches"][:rounds],
+                                 p["cohorts"][:rounds], pipeline=pipeline,
+                                 **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (state, pool, mets), _counts(), secs
+
+
+def phase_cohort_kinds(card: str, skipping_c: dict, totals: dict) -> dict:
+    """9a: every rule kind on the engine's cohort plane at the paper MLP's
+    width (M = 256, C = 32, 40 rounds), serial and pipelined: bit for bit
+    equal, exact launches per round, ledger totals equal to the summed
+    bytes_up. Returns the cada2 runs' (setup, serial run) for 9e."""
+    p = setup_cohort(COHORT_M, COHORT_C, COHORT_ROUNDS, N_DATA, seed=11)
+    pd = setup_cohort(COHORT_M, COHORT_C, COHORT_ROUNDS, N_DATA, seed=11,
+                      h=COHORT_H)
+    print(f"  9a paper MLP {DIMS} (n_flat {flat.layout_of(p['params']).n_flat:,}),"
+          f" mnist_like({N_DATA}) in {COHORT_M} shards, C = {COHORT_C}, "
+          f"batch {BATCH}, {COHORT_ROUNDS} rounds of sample_cohorts; the "
+          f"delta rules H = {COHORT_H} on their own servers")
+    # warm-up: the first cohort run allocates the pinned slots and the
+    # allocator's blocks; no run below is timed with them
+    drive_cohort(_cohort_engine("always", COHORT_M, 1.0), p, False, rounds=2)
+    keep = None
+    for kind in KINDS:
+        c = skipping_c.get(kind, 1.0)
+        setup = pd if kind in LOCAL_RULES else p
+        runs, secs = {}, {}
+        for pipeline in (False, True):
+            eng = _cohort_engine(kind, COHORT_M, c)
+            runs[pipeline], got, secs[pipeline] = drive_cohort(
+                eng, setup, pipeline)
+            want = expected_launches(
+                kind, COHORT_ROUNDS,
+                "own" if kind in LOCAL_RULES else "fused")
+            if got != want:
+                raise RuntimeError(f"9a {kind} pipeline={pipeline}: "
+                                   f"launches {got}, expected {want}")
+            for k, v in got.items():
+                totals[k] += v
+            mets = runs[pipeline][2]
+            led = CommLedger.for_strategy(eng.strategy)
+            for met in mets:
+                led.observe_round(met)
+            if (led.uploads != sum(int(m["uploads"]) for m in mets)
+                    or led.bytes_up != sum(float(m["bytes_up"])
+                                           for m in mets)):
+                raise RuntimeError(f"9a {kind}: the ledger's totals differ "
+                                   "from the summed round metrics")
+            if not all(math.isfinite(float(m["loss"])) for m in mets):
+                raise RuntimeError(f"9a {kind}: non-finite loss")
+            if not _all_cuda(runs[pipeline][0]):
+                raise RuntimeError(f"9a {kind}: the state left the card")
+        _same_run(runs[True], runs[False], f"9a {kind} pipelined vs serial")
+        mets = runs[True][2]
+        uploads = sum(int(m["uploads"]) for m in mets)
+        print(f"  {kind} (c={c:.6g}): pipelined = serial bit for bit; "
+              f"{uploads} uploads, {COHORT_ROUNDS * COHORT_C - uploads} "
+              f"skips, {led.bytes_up:.0f} B up (ledger = metrics); ms per "
+              f"round serial {secs[False] * 1e3 / COHORT_ROUNDS:.3f}, "
+              f"pipelined {secs[True] * 1e3 / COHORT_ROUNDS:.3f}; launches "
+              "per run " + ", ".join(f"{k} {v}" for k, v in got.items())
+              + f" on {card}")
+        if kind == "cada2":
+            keep = (p, c, runs[False])
+        del runs
+    return keep
+
+
+def pcie_rates() -> tuple[float, float]:
+    """Pinned host ↔ card copy rates in bytes/s (256 MiB, CUDA events,
+    median of 5)."""
+    n = 1 << 26
+    host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.float32, device="cuda")
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), calls=3,
+                  repeats=5, warmup=2)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), calls=3,
+                  repeats=5, warmup=2)
+    return 4 * n / (h2d * 1e-3), 4 * n / (d2h * 1e-3)
+
+
+def _intervals(events, pred) -> list:
+    return sorted((e.time_range.start, e.time_range.end) for e in events
+                  if pred(e.name))
+
+
+def _merge(iv: list) -> list:
+    out = []
+    for s, e in iv:
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap_us(iv: list, union: list) -> float:
+    """Microseconds of the intervals ``iv`` that lie inside ``union``."""
+    tot = 0.0
+    for s, e in iv:
+        for us, ue in union:
+            if ue <= s:
+                continue
+            if us >= e:
+                break
+            tot += min(e, ue) - max(s, us)
+    return tot
+
+
+def profile_cohort(eng, p: dict, rounds: int, row_bytes: int,
+                   rates: tuple, card: str) -> None:
+    """A profile of ``rounds`` pipelined rounds (after the state of a
+    fresh init): device-busy share, the H2D and D2H copies' time against
+    their bytes over the measured PCIe rates, and how much of the copy
+    time overlaps a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    state, pool = eng.init_cohort(p["params"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_cohort(state, pool, p["batches"][:rounds],
+                       p["cohorts"][:rounds], pipeline=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    h2d = _intervals(evs, lambda n: "HtoD" in n)
+    d2h = _intervals(evs, lambda n: "DtoH" in n)
+    kern = _merge(_intervals(evs, lambda n: "Memcpy" not in n
+                             and "Memset" not in n))
+    busy = sum(e - s for s, e in _merge(sorted(h2d + d2h + [
+        tuple(k) for k in kern])))
+    kbusy = sum(e - s for s, e in kern)
+    # the block copies: the ``rounds`` longest of each direction (the rest
+    # are the schedule's upload and the metrics' fetches)
+    blocks = {"H2D": sorted(h2d, key=lambda iv: iv[0] - iv[1])[:rounds],
+              "D2H": sorted(d2h, key=lambda iv: iv[0] - iv[1])[:rounds]}
+    print(f"  9b profile of {rounds} pipelined rounds: wall "
+          f"{wall * 1e3 / rounds:.3f} ms/round, device busy (kernels and "
+          f"copies) {busy / 1e3 / rounds:.3f} ms/round "
+          f"({100 * busy / 1e6 / wall:.1f}%, idle "
+          f"{100 - 100 * busy / 1e6 / wall:.1f}%), kernels alone "
+          f"{kbusy / 1e3 / rounds:.3f} ms/round on {card}")
+    for (name, iv), rate in zip(blocks.items(), rates):
+        per = [e - s for s, e in iv]
+        if not per:
+            raise RuntimeError(f"9b: the profiler recorded no {name} copy")
+        print(f"    {name} block copies: {len(per)}, median "
+              f"{statistics.median(per) / 1e3:.4f} ms for {row_bytes:,} B "
+              f"(over the measured {rate / 1e9:.2f} GB/s: "
+              f"{row_bytes / rate * 1e3:.4f} ms); "
+              f"{100 * _overlap_us(iv, kern) / sum(per):.1f}% of their time "
+              "overlaps a kernel")
+
+
+def phase_federated(card: str, c_cada2: float, totals: dict) -> Tracer:
+    """9b: cada2 on FusedAMSGrad at M = 10⁴, C = 64, the paper MLP on
+    mnist_like(20,000) in shards of 2; 30 rounds serial, pipelined, and
+    pipelined over a memmap pool in a directory the phase removes: the
+    three bit-equal, nothing O(M·n) on the card. Returns the pipelined
+    RAM run's trace."""
+    p = setup_cohort(FED_M, FED_C, FED_ROUNDS, FED_DATA, seed=21)
+    n_flat = flat.layout_of(p["params"]).n_flat
+    if p["mtx_shape"] != (FED_M, FED_DATA // FED_M):
+        raise RuntimeError(f"9b: shards {p['mtx_shape']}")
+    rates = pcie_rates()
+    print(f"  9b federated: M = {FED_M:,}, C = {FED_C}, mnist_like"
+          f"({FED_DATA:,}) in shards of {FED_DATA // FED_M}, batch {BATCH}, "
+          f"cada2 (c={c_cada2:.6g}) on FusedAMSGrad(5e-4), {FED_ROUNDS} "
+          f"rounds; pinned copies measured at {rates[0] / 1e9:.2f} GB/s "
+          f"H2D, {rates[1] / 1e9:.2f} GB/s D2H on {card}")
+    trace = Tracer()
+    runs, secs = {}, {}
+    POOL_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        for label, pipeline, kw in (
+                ("serial", False, {}),
+                ("pipelined", True, {"trace": trace}),
+                ("pipelined, memmap", True,
+                 {"init": {"pool_storage": "memmap",
+                           "pool_path": str(POOL_DIR)}})):
+            eng = _cohort_engine("cada2", FED_M, c_cada2)
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run, got, secs[label] = drive_cohort(eng, p, pipeline, **kw)
+            rise = torch.cuda.max_memory_allocated() - base
+            state, pool, mets = run
+            want = expected_launches("cada2", FED_ROUNDS, "fused")
+            if got != want:
+                raise RuntimeError(f"9b {label}: launches {got}, expected "
+                                   f"{want}")
+            for k, v in got.items():
+                totals[k] += v
+            if pool.device_row_bytes(FED_C) != FED_C * n_flat * 4:
+                raise RuntimeError("9b: device_row_bytes")
+            if pool.nbytes != FED_M * n_flat * 4:
+                raise RuntimeError("9b: the pool's bytes")
+            planes = [t for t in _tensors(state) if t.dim() >= 2
+                      and t.shape[0] == FED_M and t.shape[-1] == n_flat]
+            if planes or rise >= pool.nbytes:
+                raise RuntimeError(f"9b {label}: an O(M·n) tensor on the "
+                                   f"card ({planes}, peak rise {rise} B)")
+            if int(mets[0]["uploads"]) != FED_C or not all(
+                    math.isfinite(float(m["loss"])) for m in mets):
+                raise RuntimeError(f"9b {label}: round 0 uploads "
+                                   f"{int(mets[0]['uploads'])}, or a loss "
+                                   "is not finite")
+            print(f"    {label}: {secs[label] * 1e3 / FED_ROUNDS:.3f} ms per "
+                  f"round; pool {pool.nbytes:,} B ({pool.storage}, resident "
+                  f"{pool.resident_nbytes:,} B, mapped "
+                  f"{pool.mapped_nbytes:,} B), a round's rows "
+                  f"{pool.device_row_bytes(FED_C):,} B; peak device memory "
+                  f"rise {rise / 2**20:.1f} MiB; uploads "
+                  f"{sum(int(m['uploads']) for m in mets)} on {card}")
+            runs[label] = run
+            if label != "serial":
+                _same_run(run, runs["serial"], f"9b {label} vs serial")
+            del run, state, pool, mets
+            if label != "serial":
+                runs.pop(label)
+                gc.collect()
+    finally:
+        shutil.rmtree(POOL_DIR, ignore_errors=True)
+    print("    the three runs are bit-equal (state, pool, metrics)")
+    agg = trace.aggregate("pipeline")
+    print("    pipeline track (host clock) of the pipelined run: " + "; ".join(
+        f"{name} x{a['count']} {a['total_s'] * 1e3 / a['count']:.3f} ms "
+        f"mean, {a['max_s'] * 1e3:.3f} max" for name, a in agg.items())
+        + f" on {card}")
+    del runs
+    gc.collect()
+    profile_cohort(_cohort_engine("cada2", FED_M, c_cada2), p,
+                   FED_PROFILE_ROUNDS, FED_C * n_flat * 4, rates, card)
+    return trace
+
+
+def _dense_to_cohort(eng, st):
+    """A dense engine state as the cohort plane's (state, pool): the
+    worker planes to a host pool, the rest as it is."""
+    pooled = eng.strategy.pooled_extras()
+    planes = {"worker_grads": st.comm.worker_grads.cpu()}
+    planes.update({n: st.comm.extras[n].cpu() for n in pooled})
+    server = flat.CohortServerState(
+        nabla=st.comm.nabla, staleness=st.comm.staleness,
+        diff_hist=st.comm.diff_hist,
+        extras={k: v for k, v in st.comm.extras.items() if k not in pooled})
+    pool = flat.WorkerPool(planes)
+    eng._adopt_pool(pool)
+    return CohortEngineState(step=st.step, params=st.params,
+                             opt_state=st.opt_state, server=server,
+                             params_flat=st.params_flat), pool
+
+
+def _recording(fn, log):
+    def f(params, batch):
+        out = fn(params, batch)
+        log.append(out)
+        return out
+    return f
+
+
+def _replaying(log, idx):
+    calls = iter(log)
+
+    def f(params, batch):
+        losses, grads = next(calls)
+        return losses[idx], {k: v[idx] for k, v in grads.items()}
+    return f
+
+
+def _diff_report(pairs) -> list[str]:
+    """'name max|Δ|' of the pairs that are not bit-equal."""
+    out = []
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            out.append(f"{name} {float((a.double() - b.double()).abs().max()):.3g}")
+    return out
+
+
+def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
+    """9c: cada2, cada1, laq and local_momentum at M = 64, C = 16, 20
+    rounds: the cohort plane against the dense plane with the cohort as
+    its participation mask. Masks and staleness must match (a flip only
+    within MARGIN_BAND of the gate, after which the runs differ); whether
+    the float state is bit-equal is reported. Where it is not: the
+    gradient rows of the C·b-row call against the same workers' rows of
+    the M·b-row call, and one round from the same state with the SAME
+    gradient rows fed to both planes, which must be bit-equal."""
+    found = {}
+    for kind in VS_RULES:
+        c = skipping_c.get(kind, 1.0)
+        h = COHORT_H if kind in LOCAL_RULES else 1
+        p = setup_cohort(VS_M, VS_C, VS_ROUNDS, N_DATA, seed=31, h=h)
+        # the dense plane's batches: the cohort's rows in place, the other
+        # workers' rows from a second draw (offline, they upload nothing)
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        x_all = torch.randn((VS_ROUNDS, h, VS_M, BATCH, DIMS[0]),
+                            generator=gen, device="cuda")
+        y_all = torch.randint(0, DIMS[-1], (VS_ROUNDS, h, VS_M, BATCH),
+                              generator=gen, device="cuda",
+                              dtype=p["batches"][0][1].dtype)
+        for i, co in enumerate(p["cohorts"]):
+            bx, by = p["batches"][i]
+            x_all[i][:, co] = bx if h > 1 else bx[None]
+            y_all[i][:, co] = by if h > 1 else by[None]
+        dense_batches = ((x_all, y_all) if h > 1 else (x_all[:, 0],
+                                                        y_all[:, 0]))
+        part = torch.as_tensor(cohorts_to_participation(p["cohorts"], VS_M),
+                               device="cuda")
+        eng_d = _cohort_engine(kind, VS_M, c)
+        st_d, m_d = eng_d.run(eng_d.init(p["params"]), dense_batches,
+                              participation=part)
+        eng_c = _cohort_engine(kind, VS_M, c)
+        (st_c, pool, m_c), _, _ = drive_cohort(eng_c, p, pipeline=True)
+        rounds_equal = VS_ROUNDS
+        for i, mm in enumerate(m_c):
+            co = p["cohorts"][i]
+            dm = m_d["upload_mask"][i].cpu().numpy()
+            off = np.ones(VS_M, bool)
+            off[co] = False
+            if dm[off].any():
+                raise RuntimeError(f"9c {kind}: the dense plane uploaded "
+                                   f"outside the cohort in round {i}")
+            stale_ok = np.array_equal(mm["staleness"],
+                                      m_d["staleness"][i].cpu().numpy()[co])
+            if np.array_equal(mm["upload_mask"], dm[co]) and stale_ok:
+                continue
+            flipped = mm["upload_mask"] != dm[co]
+            margin = np.abs(m_d["lhs"][i].cpu().numpy()[co]
+                            - float(m_d["rhs"][i]))
+            if not stale_ok or (margin[flipped]
+                                > MARGIN_BAND * float(m_d["rhs"][i])).any():
+                raise RuntimeError(f"9c {kind}: round {i} masks or "
+                                   "staleness differ outside the margin "
+                                   "band")
+            rounds_equal = i
+            break
+        dev = st_d.params_flat.device
+        pairs = [("params_flat", st_c.params_flat, st_d.params_flat),
+                 ("nabla", st_c.server.nabla, st_d.comm.nabla),
+                 ("worker_grads", pool.planes["worker_grads"].to(dev),
+                  st_d.comm.worker_grads)]
+        pairs += [(n, pool.planes[n].to(dev), st_d.comm.extras[n])
+                  for n in eng_c.strategy.pooled_extras()]
+        diffs = _diff_report(pairs) if rounds_equal == VS_ROUNDS else []
+        verdict = ("bit-equal" if rounds_equal == VS_ROUNDS and not diffs
+                   else "NOT bit-equal")
+        print(f"  9c {kind} (c={c:.6g}), M = {VS_M}, C = {VS_C}, "
+              f"{VS_ROUNDS} rounds: masks and staleness "
+              + ("exact" if rounds_equal == VS_ROUNDS
+                 else f"exact through round {rounds_equal - 1}, then an "
+                      "in-band gate flip")
+              + f"; float state {verdict}"
+              + (f" ({', '.join(diffs)})" if diffs else ""))
+        found[kind] = verdict
+        if verdict == "bit-equal":
+            continue
+        # the first op that differs: the gradient rows of the round's
+        # evaluation at C·b rows against the same workers' rows at M·b,
+        # in the form the engine runs and in the other
+        r = VS_ROUNDS // 2
+        co = p["cohorts"][r]
+        idx = torch.as_tensor(co, dtype=torch.long, device=dev)
+        xb, yb = (t[r] if h == 1 else t[r][0] for t in dense_batches)
+        layout = flat.layout_of(st_d.params)
+        for fuse in (True, False):
+            _, f_m, s_m = flat.eval_two_point(
+                eng_d.strategy, layout, st_d.comm.extras, st_d.params,
+                (xb, yb), VS_M, vgrad=eng_d._vgrad,
+                vgrad_per=eng_d._vgrad_per, fuse_evals=fuse)
+            _, f_c, s_c = flat.eval_two_point(
+                eng_d.strategy, layout, st_d.comm.extras, st_d.params,
+                (xb[co], yb[co]), VS_C, vgrad=eng_d._vgrad,
+                vgrad_per=eng_d._vgrad_per, fuse_evals=fuse, cohort=idx)
+            rows = [("fresh", f_m[idx], f_c)]
+            if s_m is not None:
+                rows.append(("second", s_m[idx], s_c))
+            print(f"    {'stacked' if fuse else 'gathered'} evaluation "
+                  f"(the engine's is {'stacked' if eng_d._fuse_evals else 'gathered'}),"
+                  f" {VS_C}·{BATCH} rows against the same workers' rows of "
+                  f"{VS_M}·{BATCH}: " + ", ".join(
+                      f"{n} " + ("bit-equal" if torch.equal(a, b) else
+                                 f"differs (max |Δ| "
+                                 f"{float((a - b).abs().max()):.3g})")
+                      for n, a, b in rows))
+        # the round's own part, on the same gradient rows
+        eng_d2 = _cohort_engine(kind, VS_M, c)
+        eng_d2._fuse_evals = False
+        st0, _ = eng_d2.run(eng_d2.init(p["params"]),
+                            tuple(t[:r] for t in dense_batches),
+                            participation=part[:r])
+        eng_c2 = _cohort_engine(kind, VS_M, c)
+        eng_c2._fuse_evals = False
+        st0_c, pool0 = _dense_to_cohort(eng_c2, st0)
+        log_v, log_p = [], []
+        eng_d2._vgrad = _recording(eng_d2._vgrad, log_v)
+        eng_d2._vgrad_per = _recording(eng_d2._vgrad_per, log_p)
+        st1, md = eng_d2.step(st0, tuple(t[r] for t in dense_batches),
+                              participation=part[r])
+        eng_c2._vgrad = _replaying(log_v, idx)
+        eng_c2._vgrad_per = _replaying(log_p, idx)
+        st1_c, mc = eng_c2.step_cohort(st0_c, pool0, p["batches"][r], co)
+        pairs = [("upload_mask", mc["upload_mask"], md["upload_mask"][idx]),
+                 ("lhs", mc["lhs"], md["lhs"][idx]),
+                 ("eq. (3) nabla", st1_c.server.nabla, st1.comm.nabla),
+                 ("server params_flat", st1_c.params_flat, st1.params_flat),
+                 ("pool worker_grads",
+                  pool0.planes["worker_grads"].to(dev),
+                  st1.comm.worker_grads)]
+        pairs += [(f"server {i}", a, b) for i, (a, b) in enumerate(
+            zip(_tensors(st1_c.opt_state), _tensors(st1.opt_state)))]
+        pairs += [(f"pool {n}", pool0.planes[n].to(dev), st1.comm.extras[n])
+                  for n in eng_c2.strategy.pooled_extras()]
+        bad = _diff_report(pairs)
+        if bad:
+            raise RuntimeError(f"9c {kind}: on the same gradient rows the "
+                               f"cohort round differs from the dense one: "
+                               f"{bad}")
+        print(f"    round {r} from the same state with the same gradient "
+              "rows fed to both planes: LHS, eq. (3)'s ∇, the server "
+              "step's outputs and the pool rows bit-equal")
+    return found
+
+
+def _to_host(x):
+    """A state's tensors copied to the host, its structure kept."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_host(v) for v in x))
+    return x
+
+
+class _Planes:
+    """A pool's planes without its staging slots."""
+
+    def __init__(self, pool):
+        self.plane_order, self.planes = pool.plane_order, dict(pool.planes)
+
+
+def phase_lm_cohort(card: str, totals: dict) -> None:
+    """9d: phase 7's model and cut (stablelm-1.6b at full width, 4 of 24
+    layers) through the trainer's cohort step: cada2 with bf16 CADA state,
+    M = 8 workers in a host pool (4 when the host has too little memory
+    available, said so), C = 2, 4 rounds of 2 × 2048 tokens per cohort
+    member, serial and pipelined, bit-equal; exactly one AMSGrad, one
+    two-operand norm and one eq. (3) launch per step."""
+    cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=TRAIN_LAYERS)
+    hp = trainer.TrainHParams(rule=CommRule(kind="cada2", **TRAIN_RULE),
+                              lr=TRAIN_LR, cada_dtype="bfloat16")
+    row = TRAIN_PARAMS * 2                     # one bf16 row of a plane
+    m = LM_COHORT_M
+    total, avail = _mem_gib()
+    need = (m * row + 2 * LM_COHORT_C * row) / 2**30
+    if avail < need * 1.5:
+        print(f"  9d: MemAvailable {avail:.1f} GiB is short of 1.5 x the "
+              f"{need:.1f} GiB that M = {m} needs on the host; M = 4")
+        m = 4
+    rounds = LM_COHORT_ROUNDS
+    tokens = make_token_batches(cfg, global_batch=LM_COHORT_C * 2,
+                                seq=TRAIN_SEQ, steps=rounds)
+    batches = [trainer.worker_split({"tokens": torch.from_numpy(t).to(
+        device="cuda", dtype=torch.long)}, LM_COHORT_C) for t in tokens]
+    cohorts = sample_cohorts(m, LM_COHORT_C, rounds, seed=41)
+    print(f"  9d {cfg.name} at full width, {cfg.n_layers} of 24 layers "
+          f"(n_flat {TRAIN_PARAMS:,}), cada2 {TRAIN_RULE}, bf16 CADA state, "
+          f"M = {m}, C = {LM_COHORT_C}, {rounds} rounds of "
+          f"{LM_COHORT_C} x 2 x {TRAIN_SEQ} tokens; host pool "
+          f"{m * row / 1e9:.2f} GB, pinned staging "
+          f"{2 * LM_COHORT_C * row / 1e9:.2f} GB, cada2's ring of "
+          f"{min(m, MAX_DELAY) + 1} rows {(min(m, MAX_DELAY) + 1) * row / 1e9:.2f} "
+          f"GB on the card; cohorts {cohorts.tolist()}")
+    step = trainer.make_cohort_train_step(cfg, hp, m)
+    runs = {}
+    for pipeline in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, pool = trainer.init_cohort_train_state(cfg, hp, m, 0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        trace = Tracer()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        state, mets = trainer.run_cohort_train(
+            step, state, pool, batches, cohorts, pipeline=pipeline,
+            trace=trace)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _train_counts()
+        want = _train_launches("cada2", rounds)
+        if got != want:
+            raise RuntimeError(f"9d pipeline={pipeline}: launches {got}, "
+                               f"expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        losses = [float(mm["loss"]) for mm in mets]
+        if not all(math.isfinite(v) for v in losses) or not _all_cuda(state):
+            raise RuntimeError(f"9d: losses {losses}, or the state left "
+                               "the card")
+        if int(mets[0]["uploads"]) != LM_COHORT_C:
+            raise RuntimeError("9d: round 0 did not upload its cohort")
+        agg = trace.aggregate("pipeline")
+        print(f"    {'pipelined' if pipeline else 'serial'}: "
+              f"{secs * 1e3 / rounds:.1f} ms per step (init {t_init:.2f} s);"
+              f" losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; uploads {[int(mm['uploads']) for mm in mets]}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+              f" GiB; pinned staging {pool.resident_nbytes - pool.nbytes:,} B;"
+              " pipeline track (host clock) " + "; ".join(
+                  f"{n} x{a['count']} {a['total_s'] * 1e3 / a['count']:.1f} "
+                  "ms mean" for n, a in agg.items())
+              + "; launches " + ", ".join(f"{k} {v}" for k, v in got.items()
+                                          if v) + f" on {card}")
+        # the host keeps each run's result: the card holds one run at a time
+        runs[pipeline] = (_to_host(state), _Planes(pool), mets)
+        del state, pool, mets
+    _same_run(runs[True], runs[False], "9d pipelined vs serial")
+    print("    pipelined = serial bit for bit (state, host pool, metrics)")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_telemetry(trace: Tracer, keep) -> None:
+    """9e: 9b's pipelined trace exported and validated; a pipelined run
+    that raises at round COHORT_FAIL_AT leaves ``metrics_out`` and the
+    pool equal to the serial oracle's through the last completed round."""
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_cohort_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    obj = write_chrome_trace(trace, str(path),
+                             meta={"runtime": "cohort", "m": FED_M,
+                                   "c": FED_C})
+    n = validate_chrome_trace(obj)
+    if obs_export.main(["--validate", str(path)]) != 0:
+        raise RuntimeError("9e: the exported trace does not validate")
+    print(f"  9e the pipelined 9b run's trace: {n} events, valid "
+          f"({path.name})")
+    p, c, (st_s, pool_s, mets_s) = keep
+    j = COHORT_FAIL_AT
+
+    class Stop(RuntimeError):
+        pass
+
+    def failing(i, cohort):
+        if i == j:
+            raise Stop
+        return p["batches"][i]
+
+    eng = _cohort_engine("cada2", COHORT_M, c)
+    state, pool = eng.init_cohort(p["params"])
+    out: list = []
+    try:
+        eng.run_cohort(state, pool, failing, p["cohorts"], pipeline=True,
+                       metrics_every=4, metrics_out=out)
+    except Stop:
+        pass
+    else:
+        raise RuntimeError("9e: the run did not raise")
+    (_, pool_t, mets_t), _, _ = drive_cohort(_cohort_engine(
+        "cada2", COHORT_M, c), p, pipeline=False, rounds=j)
+    if len(out) != j:
+        raise RuntimeError(f"9e: metrics_out holds {len(out)} rounds, "
+                           f"not {j}")
+    for i, (a, b) in enumerate(zip(out, mets_t)):
+        for key in a:
+            if not np.array_equal(a[key], b[key]):
+                raise RuntimeError(f"9e: metrics_out[{i}][{key}] differs")
+    for name in pool.plane_order:
+        if not torch.equal(pool.planes[name], pool_t.planes[name]):
+            raise RuntimeError(f"9e: pool plane {name} differs from the "
+                               f"serial oracle's after {j} rounds")
+    print(f"  9e a pipelined cada2 run raising at round {j} of "
+          f"{COHORT_ROUNDS}: metrics_out holds rounds 0..{j - 1}, equal "
+          "to the serial oracle's, and the pool equals its pool after "
+          f"{j} rounds")
+
+
+def phase_cohort(card: str, skipping_c: dict) -> dict:
+    """Phase 9: the cohort plane on the card (9a–9e). Returns the
+    launches of its main-path runs."""
+    total, avail = _mem_gib()
+    print(f"  host memory (/proc/meminfo): MemTotal {total:.1f} GiB, "
+          f"MemAvailable {avail:.1f} GiB")
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    keep = phase_cohort_kinds(card, skipping_c, totals)
+    trace = phase_federated(card, skipping_c.get("cada2", 1.0), totals)
+    phase_cohort_vs_dense(card, skipping_c)
+    phase_telemetry(trace, keep)
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm_cohort(card, totals)
+    return totals
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -2189,6 +2934,13 @@ def main() -> None:
         launches[name] += v
     main_shape["eq3_row_mean"]["trainer_size"] = eq3_trainer
     print(f"    phase 8 took {time.perf_counter() - t8:.1f} s")
+    print("[9] the cohort plane")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    for name, v in phase_cohort(card, skipping_c).items():
+        launches[name] += v
+    print(f"    phase 9 took {time.perf_counter() - t9:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

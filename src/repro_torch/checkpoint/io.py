@@ -16,6 +16,12 @@ reference) is saved as an int32 0-d array and restored to an int. A bf16
 leaf is stored widened to fp32 (npz has no bf16) under its logical dtype
 ``bfloat16``, and restored by rounding to nearest even, which is exact
 for a value that was bf16.
+
+A cohort plane's host ``WorkerPool`` rides as ordinary leaves
+(``{"pool": pool.state_dict()}``): its (M, n_flat) planes reshard through
+:func:`_reshard_flat` like any flat worker plane, bf16 planes are widened
+in the file, and ``pool.load_state_dict`` writes the restored planes in
+place, so a memmap pool stays mapped.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Carry weights, engine and trainer state across from numpy.
 
-The JAX package's parameters, ``EngineState``, trainer ``DistTrainState``
-and LM ``DecodeCache`` convert to numpy with
-``jax.tree.map(np.asarray, ...)``; these functions
-turn that numpy form into the port's tensors on ``device`` (None means
-``cuda``, as everywhere in the port). They read fields by name and import
+The JAX package's parameters, ``EngineState``, trainer ``DistTrainState``,
+cohort-plane states (``CohortEngineState``, ``CohortTrainState``) and LM
+``DecodeCache`` convert to numpy with ``jax.tree.map(np.asarray, ...)``;
+these functions turn that numpy form into the port's tensors on
+``device`` (None means ``cuda``, as everywhere in the port), and a JAX
+``WorkerPool``'s host planes into the port's pool. They read fields by name and import
 nothing of the JAX package. An LM's parameters (nested dicts, bf16 leaves
 included) and the CNN's (HWIO kernels, as the reference keeps them) go
 through :func:`params_from_numpy` leaf for leaf. To move a state through
@@ -16,10 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.engine import EngineState
-from repro_torch.core.flat import FlatCommState
+from repro_torch.core.engine import CohortEngineState, EngineState
+from repro_torch.core.flat import CohortServerState, FlatCommState, WorkerPool
 from repro_torch.device import resolve_device
-from repro_torch.distributed.trainer import DistTrainState
+from repro_torch.distributed.trainer import CohortTrainState, DistTrainState
 from repro_torch.models.model import DecodeCache
 from repro_torch.optim.adam import AdamState
 from repro_torch.optim.fused import FusedState
@@ -28,12 +29,7 @@ from repro_torch.optim.sgd import MomentumState
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """One numpy array (bf16 arrays included) as a tensor on ``device``."""
-    device = resolve_device(device)
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+    return _host_tensor(np.asarray(a)).to(resolve_device(device))
 
 
 def params_from_numpy(tree, device=None):
@@ -103,6 +99,54 @@ def train_state_from_numpy(state, device=None) -> DistTrainState:
         vhat=tensor_from_numpy(state.vhat, device),
         comm=(None if state.comm is None
               else comm_state_from_numpy(state.comm, device)))
+
+
+def cohort_state_from_numpy(state, device=None):
+    """The JAX package's cohort-plane state (numpy leaves) as the port's:
+    an engine ``CohortEngineState`` (step, params, opt_state, server,
+    params_flat) or a trainer ``CohortTrainState`` (step, params, h, vhat,
+    server, params_flat), told apart by their fields. The server state
+    carries ∇, the (M,) staleness, the RHS ring and the non-pooled extras;
+    the pooled planes go through :func:`pool_from_numpy`."""
+    device = resolve_device(device)
+    srv = state.server
+    server = CohortServerState(
+        nabla=tensor_from_numpy(srv.nabla, device),
+        staleness=tensor_from_numpy(srv.staleness, device),
+        diff_hist=tensor_from_numpy(srv.diff_hist, device),
+        extras=params_from_numpy(dict(srv.extras), device))
+    common = dict(step=int(state.step),
+                  params=params_from_numpy(state.params, device),
+                  server=server,
+                  params_flat=tensor_from_numpy(state.params_flat, device))
+    if hasattr(state, "opt_state"):
+        return CohortEngineState(
+            opt_state=opt_state_from_numpy(state.opt_state, device),
+            **common)
+    return CohortTrainState(h=tensor_from_numpy(state.h, device),
+                            vhat=tensor_from_numpy(state.vhat, device),
+                            **common)
+
+
+def pool_from_numpy(pool, storage: str = "ram", path: str | None = None,
+                    device=None) -> WorkerPool:
+    """A JAX ``WorkerPool`` (or a dict of (M, n_flat) numpy planes) as the
+    port's :class:`WorkerPool`: the same planes in its ``plane_order`` and
+    storage dtype (bf16 by its bits), RAM or memmap as ``storage`` says,
+    staging for ``device``."""
+    planes = pool.planes if hasattr(pool, "planes") else pool
+    order = getattr(pool, "plane_order", tuple(planes))
+    return WorkerPool({name: _host_tensor(planes[name]) for name in order},
+                      storage=storage, path=path, device=device)
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """One numpy array as a host tensor that owns a copy of it (bf16 by
+    its uint16 bits)."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def decode_cache_from_numpy(cache, device=None) -> DecodeCache:

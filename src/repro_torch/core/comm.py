@@ -82,6 +82,29 @@ class CommStrategy:
         del layout, params, params_flat, m, grad_dtype
         return {}
 
+    def pooled_extras(self) -> tuple:
+        """Keys of the extras that are O(M·n) per-worker PLANES: the entries
+        the cohort plane (``flat.flat_cohort_round``) keeps in the host
+        :class:`~repro_torch.core.flat.WorkerPool` and moves to the device C
+        rows at a time (CADA1's ``worker_delta``, laq/topk's error-feedback
+        ``residual``, local momentum's ``momenta``). Everything else stays
+        on the device in the cohort server state: shared dicts (snapshots,
+        rings) and (M,) vectors (slots, periods) are O(n) / O(M). A pooled
+        entry's hooks see (C, n_flat) rows; hooks that touch a NON-pooled
+        (M,) extra must index it by ``ctx.cohort`` when that is set (see
+        CADA2 and avp).
+
+        Writeback-ordering contract (the pipelined cohort driver): the
+        host pool is written back LATE — under ``pipeline=True`` round i's
+        rows land in the pool one round later, and the rows that
+        consecutive cohorts share are forwarded on the device instead
+        (``flat.run_cohort_rounds``). Hooks therefore take the in-round
+        rows and the extras they return as the only truth of pooled state
+        and never read the host pool mid-round; every hook is a function
+        of its device inputs, which is what keeps the reordered transfers
+        bit-exact."""
+        return ()
+
     def flat_pre_step(self, extras: dict, params, params_flat, k: int
                       ) -> dict:
         """Start-of-iteration transition (e.g. CADA1 snapshot refresh)."""
@@ -218,6 +241,10 @@ class CADA1Strategy(CommStrategy):
             return {**extras, "snapshot": params}
         return extras
 
+    def pooled_extras(self):
+        # δ̃ is the one O(M·n) plane; θ̃ is shared and stays on the device
+        return ("worker_delta",)
+
     def second_eval_shared(self, extras):
         return extras["snapshot"]
 
@@ -284,7 +311,20 @@ class CADA2Strategy(CommStrategy):
         # one free; under partial participation an offline worker's row
         # may be evicted, but only once it is ≥ D versions old, so that
         # worker's next upload is already forced by the staleness cap.
+        #
+        # A cohort round's ``upload`` covers only its C rows, but the
+        # refcount spans ALL M workers: an offline worker keeps its row as
+        # a dense-plane non-participant does (keep = 1), so both planes
+        # evict the same row.
         keep = torch.where(upload, 0, 1).to(torch.int32)
+        if ctx.cohort is not None:
+            cohort = ctx.cohort
+            keep = torch.ones_like(slot).index_copy(0, cohort, keep)
+            upload_m = torch.zeros(slot.shape, dtype=torch.bool,
+                                   device=slot.device).index_copy(
+                                       0, cohort, upload)
+        else:
+            upload_m = upload
         refs = torch.zeros((rr,), dtype=torch.int32,
                            device=slot.device).index_add_(0, slot.long(),
                                                           keep)
@@ -292,17 +332,24 @@ class CADA2Strategy(CommStrategy):
         # The ring is written only when some worker uploads; the choice
         # stays on the device (no host read of the mask).
         written = upload.any()
-        ring = tree_map(
-            lambda row, p: row.index_copy(
-                0, s, torch.where(written, p.to(row.dtype),
-                                  row.index_select(0, s)[0])[None]),
-            extras["ring"], ctx.params)
+
+        def write(row, p):
+            new_row = torch.where(written, p.to(row.dtype),
+                                  row.index_select(0, s)[0])[None]
+            # a cohort round consumes its server state, as the reference's
+            # donated cohort step does, so its ring (R rows of the model)
+            # is written in place; the dense round returns a new ring
+            if ctx.cohort is not None:
+                return row.index_copy_(0, s, new_row)
+            return row.index_copy(0, s, new_row)
+
+        ring = tree_map(write, extras["ring"], ctx.params)
         version = version.index_copy(
             0, s, torch.where(written, ctx.step + 1,
                               version.index_select(0, s)).to(version.dtype))
         return {**extras,
                 "ring": ring,
-                "slot": torch.where(upload, s.to(slot.dtype), slot),
+                "slot": torch.where(upload_m, s.to(slot.dtype), slot),
                 "ring_version": version}
 
 
@@ -340,6 +387,10 @@ class ErrorFeedbackStrategy(CommStrategy):
             return {}
         return {"residual": torch.zeros((m, layout.n_flat), dtype=grad_dtype,
                                         device=params_flat.device)}
+
+    def pooled_extras(self):
+        # e_m is a worker-plane: pooled where it exists at all
+        return ("residual",) if self.rule.error_feedback else ()
 
     def flat_lhs(self, ctx, extras):
         delta = ctx.fresh - ctx.comm.worker_grads.float()
@@ -440,10 +491,22 @@ class AVPStrategy(CommStrategy):
     def flat_lhs(self, ctx, extras):
         energy = kops.batched_diff_sq_norm(
             ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl)
-        return self._gate(ctx.comm.staleness, extras["period"],
-                          energy), energy
+        # a cohort round gates its C rows against their own periods; the
+        # (M,) period vector stays on the server
+        period = extras["period"]
+        if ctx.cohort is not None:
+            period = period[ctx.cohort]
+        return self._gate(ctx.comm.staleness, period, energy), energy
 
     def flat_post_upload(self, extras, energy, upload, ctx):
+        if ctx.cohort is not None:
+            # the cohort's form of the participation freeze: only the
+            # sampled rows evaluated a gradient, so only their periods
+            # adapt (the dense plane's integers exactly)
+            period = extras["period"]
+            return {**extras, "period": period.index_copy(
+                0, ctx.cohort, self._adapt(period[ctx.cohort], energy,
+                                           ctx.comm.diff_hist))}
         period = self._adapt(extras["period"], energy, ctx.comm.diff_hist)
         if ctx.participation is not None:
             period = torch.where(ctx.participation, period,

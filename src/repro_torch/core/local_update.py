@@ -225,7 +225,9 @@ class LocalMomentumStrategy(LocalUpdateStrategy):
     θ ← θ − mean_m(Δ_m) = mean_m(θ_m), the standalone engine's averaging.
     The momenta are an (M, n_flat) plane that persists across rounds; after
     each round the uploaders' momenta are replaced by their mean (offline
-    workers took no local steps and keep theirs)."""
+    workers took no local steps and keep theirs). The cohort plane pools
+    them with the worker copies; its C-row average takes the dense masked
+    plane's bits, as eq. (3)'s aggregate does."""
 
     kind = "local_momentum"
 
@@ -243,6 +245,9 @@ class LocalMomentumStrategy(LocalUpdateStrategy):
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         return {"momenta": torch.zeros((m, layout.n_flat), dtype=grad_dtype,
                                        device=params_flat.device)}
+
+    def pooled_extras(self):
+        return ("momenta",)
 
     def flat_post_upload(self, extras, cache, upload, ctx):
         mom_run = cache   # the momenta after the local run

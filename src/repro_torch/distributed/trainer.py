@@ -30,17 +30,25 @@ the reference's jnp attention and chunked scan, here in PyTorch under
 autograd. The kernels on the step's path are the server step and the rule
 LHS norms (``kernels/ops.py``): on a CUDA tensor they launch or raise.
 
+The federated form (:func:`init_cohort_train_state`,
+:func:`make_cohort_train_step`, :func:`run_cohort_train`) keeps the M
+workers' (M, n_flat) planes in a host ``flat.WorkerPool`` and moves only
+the C sampled workers' rows to the device each round, through the cohort
+round (``flat.flat_cohort_round``) and its pipelined driver; its
+per-worker gradients come from the same loop, its server step is the
+same AMSGrad kernel.
+
 Not here, and refused by name where a field asks for them: the mesh, FSDP
 and ZeRO-sharded state (``fsdp``, ``fsdp_axes``, ``state_fsdp_axes``,
 ``shard_cada_state``), the grouped second evaluation (``group_evals``),
-the per-leaf debug plane (``fused=False``), the cohort step and the pod
-shard_map.
+the per-leaf debug plane (``fused=False``) and the pod shard_map.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import flat as F
@@ -205,16 +213,18 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
-def make_vgrads(cfg: ModelConfig, hp: TrainHParams, m: int):
-    """``(vgrad, vgrad_per)``: the M workers' (losses (M,), M-stacked
+def make_vgrads(cfg: ModelConfig, hp: TrainHParams):
+    """``(vgrad, vgrad_per)``: the workers' (losses (M,), M-stacked
     gradient trees), each worker on its own slice of the batch, at one
     shared parameter tree (``vgrad``) or at its own row of an M-leading one
-    (``vgrad_per``). A loop over the workers, one at a time."""
+    (``vgrad_per``). A loop over the batch's leading (worker) axis, one
+    worker at a time: M workers on the dense plane, C on the cohort
+    plane."""
     worker_grad = make_worker_grad(cfg, hp)
 
     def run(point, batch):
         losses, grads = [], []
-        for i in range(m):
+        for i in range(next(iter(batch.values())).shape[0]):
             loss, g = worker_grad(point(i), {k: v[i]
                                              for k, v in batch.items()})
             losses.append(loss)
@@ -239,7 +249,7 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     ``kernels/ops.py`` (None on the main path). The state is not updated in
     place."""
     strategy = strategy_for(hp.rule)
-    vgrad, vgrad_per = make_vgrads(cfg, hp, m)
+    vgrad, vgrad_per = make_vgrads(cfg, hp)
 
     def fused_update(layout, pflat, h, vhat, grad_flat):
         """The server step on the packed fp32 plane (the AMSGrad kernel on
@@ -292,3 +302,121 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
                            **out.metrics}
 
     return step_flat
+
+
+# ------------------------------------------------------- federated cohort
+
+class CohortTrainState(NamedTuple):
+    """Trainer state on the cohort plane: the (M, n_flat) per-worker
+    planes live in a host ``flat.WorkerPool``; this holds the O(n) server
+    buffers and the O(M) vectors."""
+    step: int
+    params: Any
+    h: torch.Tensor          # (n_flat,) first moment
+    vhat: torch.Tensor       # (n_flat,) running max second moment
+    server: Any              # flat.CohortServerState
+    params_flat: torch.Tensor
+
+
+def init_cohort_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
+                            seed: int = 0, *, pool_storage: str = "ram",
+                            pool_path: str | None = None, device=None):
+    """(CohortTrainState, WorkerPool) for M federated workers, parameters
+    drawn on ``device`` (None: the card) from ``seed``: device memory
+    O(n), the host pool O(M·n) (``pool_storage="memmap"`` and
+    ``pool_path`` put it in files)."""
+    device = resolve_device(device)
+    params = init_params(cfg, seed, device)
+    layout = F.layout_of(params)
+    params_flat = layout.pack(params)
+    server, pool = F.init_cohort_state(
+        strategy_for(hp.rule), layout, params, m,
+        grad_dtype=hp.cada_torch_dtype, params_flat=params_flat,
+        pool_storage=pool_storage, pool_path=pool_path)
+    state = CohortTrainState(
+        step=0, params=params,
+        h=torch.zeros((layout.n_flat,), dtype=hp.moments_torch_dtype,
+                      device=device),
+        vhat=torch.zeros((layout.n_flat,), dtype=hp.moments_torch_dtype,
+                         device=device),
+        server=server, params_flat=params_flat)
+    return state, pool
+
+
+def make_cohort_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
+                           impl=None):
+    """The federated LM step: ``train_step(state, pool, batch, cohort) ->
+    (state, metrics)``.
+
+    A round moves only the C sampled workers' rows: the gather from the
+    host pool, one cohort round (``flat.flat_cohort_round``, bit-exact to
+    the dense plane with the cohort as its participation mask), the
+    AMSGrad server step, the scatter back. ``batch`` holds ONLY the
+    cohort's rows ((C, b, ...) leaves from :func:`worker_split`; at
+    federated M an (M, b, ...) batch is itself the memory wall); the
+    per-worker gradients are :func:`make_vgrads`' loop over them.
+    ``train_step.fused_step_for(pool)`` is the block step the pipelined
+    driver (:func:`run_cohort_train`) runs."""
+    strategy = strategy_for(hp.rule)
+    vgrad, vgrad_per = make_vgrads(cfg, hp)
+
+    def fused_step_for(pool):
+        """The fused-block step bound to ``pool``'s block layout (the
+        planes' stacking order and storage dtype)."""
+        order, dtype = pool.plane_order, pool.plane_dtype
+
+        def step(state: CohortTrainState, fused, batch, cohort):
+            k = state.step
+            layout = F.layout_of(state.params)
+            out = F.flat_cohort_round(
+                strategy, layout, state.server,
+                F.split_fused_rows(fused, order), state.params,
+                state.params_flat, batch, k, cohort, m_total=m,
+                vgrad=vgrad, vgrad_per=vgrad_per, fuse_evals=False,
+                impl=impl)
+            theta, h, vhat, dsq = kops.fused_amsgrad_flat(
+                state.params_flat, state.h, state.vhat,
+                out.server.nabla.float(), hp.lr, b1=hp.b1, b2=hp.b2,
+                eps=hp.eps, impl=impl)
+            theta = layout.cast_roundtrip(theta)
+            new_state = CohortTrainState(
+                step=k + 1, params=layout.unpack(theta), h=h, vhat=vhat,
+                server=F.record_progress(out.server, dsq, k),
+                params_flat=theta)
+            metrics = {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                       **out.metrics}
+            return new_state, F.stack_fused_rows(out.rows, order,
+                                                 dtype), metrics
+
+        return step
+
+    def train_step(state: CohortTrainState, pool, batch, cohort):
+        cohort = np.sort(np.asarray(cohort).astype(np.int32))
+        fused = pool.gather_fused(cohort)
+        state, out, metrics = fused_step_for(pool)(
+            state, fused, batch,
+            torch.as_tensor(cohort, dtype=torch.long, device=pool.device))
+        del fused
+        pool.scatter_fused(cohort, out)
+        return state, metrics
+
+    train_step.fused_step_for = fused_step_for
+    return train_step
+
+
+def run_cohort_train(train_step, state: CohortTrainState, pool, batches,
+                     cohorts, *, pipeline: bool = True,
+                     metrics_every: int = 8, trace=None,
+                     metrics_out: list | None = None):
+    """Cohort rounds of the trainer over a (T, C) schedule, the federated
+    form of ``CADAEngine.run_cohort``. ``train_step`` comes from
+    :func:`make_cohort_train_step`; ``batches`` is a list or tuple of
+    per-round cohort batches or a callable ``batches(i, cohort)``.
+    ``pipeline=True`` overlaps the copies with the rounds, bit-exact to
+    the serial ``pipeline=False``; ``flat.run_cohort_rounds`` has the
+    contract. Returns (state, list of host metric dicts)."""
+    batch_fn = batches if callable(batches) else lambda i, _c: batches[i]
+    return F.run_cohort_rounds(
+        train_step.fused_step_for(pool), state, pool, batch_fn, cohorts,
+        pipeline=pipeline, metrics_every=metrics_every, trace=trace,
+        metrics_out=metrics_out)

@@ -766,3 +766,116 @@ def test_trainer_delta_step_launches_the_kernels_and_matches_plain(gen,
     for a, b in zip(_leaves(new.params), _leaves(plain.params)):
         assert a.is_cuda
         _within_scale(a, b, 1e-5)
+
+
+# ------------------------------------------------------ the cohort plane
+
+def _cohort_problem(gen, m, c, rounds):
+    """Logreg on random data at M workers: parameters, a (rounds, C)
+    schedule and each round's cohort batch, on the card."""
+    from repro_torch.core.engine import sample_cohorts
+    cohorts = sample_cohorts(m, c, rounds, seed=3)
+    batches = [(torch.randn((c, 8, 22), generator=gen, device="cuda"),
+                torch.randint(0, 2, (c, 8), generator=gen, device="cuda"))
+               for _ in range(rounds)]
+    params = {"w": torch.zeros(22, 2, device="cuda"),
+              "b": torch.zeros(2, device="cuda")}
+    return params, cohorts, batches
+
+
+def _cohort_runs(params, cohorts, batches, m, kind="laq", between=None):
+    """Serial and pipelined runs of ``kind`` over the same rounds:
+    {pipeline: (state, pool, metrics)}. ``between(i, cohort)`` runs before
+    each round's batch is handed over."""
+    out = {}
+    for pipeline in (False, True):
+        eng = CADAEngine(logreg_loss, FusedAMSGrad(lr=0.05),
+                         CommRule(kind=kind, c=5.0, d_max=4, max_delay=6),
+                         m)
+        st, pool = eng.init_cohort(params)
+
+        def batch_fn(i, cohort):
+            if between is not None:
+                between(i, cohort)
+            return batches[i]
+
+        st, mets = eng.run_cohort(st, pool, batch_fn, cohorts,
+                                  pipeline=pipeline, metrics_every=3)
+        torch.cuda.synchronize()
+        out[pipeline] = (st, pool, mets)
+    return out
+
+
+def _assert_runs_equal(runs):
+    (sa, pa, ma), (sb, pb, mb) = runs[True], runs[False]
+    for a, b in zip(_leaves(sa.params), _leaves(sb.params)):
+        assert torch.equal(a, b)
+    assert torch.equal(sa.params_flat, sb.params_flat)
+    assert torch.equal(sa.server.nabla, sb.server.nabla)
+    assert torch.equal(sa.server.staleness, sb.server.staleness)
+    for name in pa.plane_order:
+        assert torch.equal(pa.planes[name], pb.planes[name]), name
+    for x, y in zip(ma, mb):
+        for key in x:
+            assert np.array_equal(x[key], y[key]), key
+
+
+def test_cohort_pipeline_equals_serial_with_heavy_overlap(gen):
+    """C = M − 1: every round forwards all but one row from the previous
+    round's block, where a race between the copy streams, a pinned slot
+    refilled too early or a block reused before its copy ended would show
+    first. The pipelined run equals the serial one bit for bit."""
+    m, rounds = 16, 30
+    params, cohorts, batches = _cohort_problem(gen, m, m - 1, rounds)
+    assert (flat.cohort_overlap_schedule(cohorts)[1:] >= 0).sum(
+        axis=1).min() >= m - 2
+    _assert_runs_equal(_cohort_runs(params, cohorts, batches, m))
+
+
+def test_cohort_record_stream_holds_blocks_in_flight(gen):
+    """Between rounds the caching allocator is emptied and a few blocks of
+    a round's size are allocated and written: a block still read by a copy
+    stream that was not ``record_stream``-ed to it would be handed out and
+    overwritten, and the pool rows would differ from the serial run's."""
+    m, rounds = 16, 20
+    params, cohorts, batches = _cohort_problem(gen, m, 12, rounds)
+    junk = []
+
+    def churn(i, cohort):
+        junk.clear()
+        torch.cuda.empty_cache()
+        junk.extend(torch.full((2, 12, 48), float(i), device="cuda")
+                    for _ in range(4))
+
+    _assert_runs_equal(_cohort_runs(params, cohorts, batches, m,
+                                    between=churn))
+
+
+def test_bf16_pool_round_trip_through_pinned_slots(gen):
+    """A bf16 pool on the card: the two staging slots are pinned, a gather
+    lands on the card bit for bit, a scatter of new rows writes exactly
+    those rows (bf16 by its bits), the other rows untouched; alternating
+    slots with the copies in flight do the same."""
+    m, n_flat = 40, 1000
+    planes = {name: torch.randn(m, n_flat, generator=gen,
+                                device="cuda").to(torch.bfloat16).cpu()
+              for name in ("worker_grads", "residual")}
+    pool = flat.WorkerPool({k: v.clone() for k, v in planes.items()})
+    assert pool.device.type == "cuda" and pool.plane_dtype == torch.bfloat16
+    want = {k: v.clone() for k, v in planes.items()}
+    for i in range(6):
+        cohort = np.sort(np.random.default_rng(i).choice(m, 9,
+                                                         replace=False))
+        block = pool.gather_fused(cohort, slot=i)
+        assert block.is_cuda and block.dtype == torch.bfloat16
+        assert pool._stage.is_pinned()
+        for p, name in enumerate(pool.plane_order):
+            assert torch.equal(block[p].cpu(), want[name][cohort])
+        new = torch.randn(block.shape, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        pool.land(pool.fetch(cohort, new, slot=i))
+        for p, name in enumerate(pool.plane_order):
+            want[name][cohort] = new[p].cpu()
+    for name in pool.plane_order:
+        assert torch.equal(pool.planes[name].view(torch.int16),
+                           want[name].view(torch.int16))

@@ -115,6 +115,25 @@ def test_the_delta_rule_and_checkpoint_slice_is_covered():
             "repro_torch.data.partition"} <= set(_modules())
 
 
+def test_the_telemetry_and_cohort_slice_is_covered():
+    """... and so are the telemetry copy and the modules that carry the
+    cohort plane, its pipelined driver and their converters; the
+    telemetry imports neither torch nor numpy's neighbours beyond numpy."""
+    assert {"repro_torch.obs", "repro_torch.obs.trace",
+            "repro_torch.obs.metrics", "repro_torch.obs.export",
+            "repro_torch.core.flat", "repro_torch.core.engine",
+            "repro_torch.distributed.trainer",
+            "repro_torch.convert"} <= set(_modules())
+    for f in sorted((PORT / "obs").glob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        tops = {a.name.split(".")[0] for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names}
+        tops |= {node.module.split(".")[0] for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.level == 0}
+        assert tops <= {"__future__", "json", "time", "typing", "argparse",
+                        "sys", "numpy"}, (f.name, tops)
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no
