@@ -127,6 +127,35 @@ Phases, each of which raises on failure (the exit code is then not 0):
      e. 9b's pipelined trace exported and validated, and a pipelined run
         stopped at round 25 of 9a's schedule: ``metrics_out`` and the
         pool equal the serial oracle's through round 24.
+ 10. the sim runtime (``repro_torch.sim``), every simulated second computed
+     by its clock models, never measured:
+     a. every kind through ``simulate`` on the zero profile (paper MLP,
+        M = 10, 30 rounds, phase 4's skipping c; the delta rules at H = 2
+        on their own servers) against ``CADAEngine.run`` on the same
+        batches: every metric, mask, loss and parameter bit for bit,
+        exact launches in both;
+     b. always, cada2, laq (8-bit) and topk (sparse wire) at c = 1
+        priced on lan, wan and hetero, 100 rounds each: simulated time to
+        a common target loss, uploads, bytes, host ms per round; local
+        momentum with adaptive H (cap 16) on wan and zero: the realized
+        mean H;
+     c. cada1, cada2 and laq async on hetero (tau 20, 200 server
+        versions, each at the median LHS / RHS of its gates in a c = 1
+        run), on the device plane and with the host pool, bit-equal;
+        exactly one AMSGrad launch per server version, one one-row LHS
+        launch per gate, no eq. (3) launch; host ms per gate and a
+        profile of 50 gates (device-idle share);
+     d. ``simulate(cohort_size=64)`` at M = 10^4 on wan over 9b's problem
+        and schedule, 30 rounds, against ``run_cohort``: bit for bit; the
+        host pool's bytes against the worker rows on the card;
+     e. stablelm-1.6b at full width through ``python -m
+        repro_torch.launch.train --runtime sim`` in-process: M = 2, one
+        2048-token sequence a worker a round, remat off; cada2 barrier
+        for 4 rounds with 3 of 24 layers (4 do not fit: the engine
+        evaluates 2 points x 2 workers under one vmap) and async (tau 4)
+        for 8 server versions with the host pool and 4 layers: finite
+        losses, exactly one AMSGrad launch per round or server version;
+        ms per round or gate, peak memory.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -177,6 +206,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
 from repro_torch.distributed import trainer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
@@ -189,6 +219,9 @@ from repro_torch.models.small import (cnn_init, cnn_loss,  # noqa: E402
 from repro_torch.optim.adam import adam  # noqa: E402
 from repro_torch.optim.fused import FusedAMSGrad  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
+from repro_torch.sim import (SimConfig, SimRuntime,  # noqa: E402
+                             network_profile, simulate)
+from repro_torch.sim.report import final_loss, time_to_target  # noqa: E402
 
 M, BATCH, N_DATA = 10, 12, 4096
 DIMS = (784, 128, 10)
@@ -303,6 +336,29 @@ VS_M, VS_C, VS_ROUNDS = 64, 16, 20
 VS_RULES = ("cada2", "cada1", "laq", "local_momentum")
 LM_COHORT_M, LM_COHORT_C, LM_COHORT_ROUNDS = 8, 2, 4
 POOL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pool"
+# phase 10: the sim runtime. 10a degenerate parity (zero profile) for every
+# kind, the delta rules at H = 2 on their own servers; 10b priced runs on
+# lan, wan and hetero, and local momentum with adaptive H (cap 16) on wan
+# and zero; 10c async on hetero at tau 20, 200 server versions, device
+# plane and host pool, a profile of 50 gates; 10d the federated sim at
+# M = 10^4 (phase 9b's problem); 10e stablelm-1.6b through the launcher's
+# --runtime sim at phase 7's width, M = 2, one 2048-token sequence a worker
+# a round, remat off (torch.utils.checkpoint does not compose with the
+# engine's torch.func vmap)
+SIM_PARITY_ROUNDS, SIM_PRICED_ROUNDS = 30, 100
+SIM_PROFILES = ("lan", "wan", "hetero")
+SIM_PRICED = {"always": dict(kind="always"), "cada2": dict(kind="cada2"),
+              "laq-8bit": dict(kind="laq", quantize_bits=8),
+              "topk-sparse": dict(kind="topk", sparse_wire=True)}
+SIM_ADAPT_CAP, SIM_ADAPT_ROUNDS = 16, 20
+SIM_ASYNC_TAU, SIM_ASYNC_VERSIONS = 20, 200
+SIM_ASYNC_RULES = ("cada1", "cada2", "laq")
+SIM_PROFILE_GATES, SIM_PROFILE_SKIP = 50, 10
+SIM_LM_ROUNDS, SIM_LM_VERSIONS, SIM_LM_TAU = 4, 8, 4
+# the barrier run keeps 3 of phase 7's 4 layers: the engine evaluates 2
+# points x 2 workers of 2048 tokens under one vmap without remat, which at
+# 4 layers needs more than the card's 80 GB
+SIM_LM_LAYERS = {"barrier": 3, "async, host pool": TRAIN_LAYERS}
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -2885,6 +2941,472 @@ def phase_cohort(card: str, skipping_c: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------- the sim runtime
+
+def _sim_rule(kind: str, c: float, **kw) -> CommRule:
+    """Phase 4's rule at ``c``; the delta rules as 9a runs them (H = 2,
+    local lr 0.05, FedAdam's server lr 5e-4)."""
+    if kind in LOCAL_RULES:
+        return _cohort_rule(kind, c)
+    return CommRule(kind=kind, c=c, d_max=D_MAX, max_delay=MAX_DELAY, **kw)
+
+
+def _local_batches(batches, rounds: int, h: int):
+    """(rounds, H, M, b, ...) batches from phase 4's (R, M, b, ...) draws."""
+    return tuple(b[:rounds * h].reshape((rounds, h) + tuple(b.shape[1:]))
+                 for b in batches)
+
+
+def _sim_diffs(res, fst, mets) -> list[str]:
+    """What differs between a sim run and the engine's run: every metric
+    the engine returns, the sim's own mask/staleness/loss series and every
+    final parameter."""
+    bad = [k for k, v in mets.items()
+           if not np.array_equal(res.metrics[k], v.cpu().numpy())]
+    if not np.array_equal(res.upload_masks, mets["upload_mask"].cpu()
+                          .numpy()):
+        bad.append("upload_masks")
+    if not np.array_equal(res.staleness, mets["staleness"].cpu().numpy()):
+        bad.append("staleness")
+    if not np.array_equal(res.losses, mets["loss"].double().cpu().numpy()):
+        bad.append("losses")
+    bad += [f"param {k}" for k in fst.params
+            if not torch.equal(res.final_params[k], fst.params[k])]
+    return bad
+
+
+def phase_sim_parity(card: str, params, batches, skipping_c: dict,
+                     totals: dict) -> None:
+    """10a: every kind through ``simulate`` on the zero profile against
+    ``CADAEngine.run`` on the same batches: bit for bit (every metric,
+    the masks, staleness, losses and every parameter), exact launches in
+    both. Only the sim's launches enter the totals (the engine's run is
+    the oracle)."""
+    r = SIM_PARITY_ROUNDS
+    print(f"  10a degenerate parity, the zero profile: paper MLP, M = {M}, "
+          f"{r} rounds a kind (the delta rules at H = {COHORT_H}), each "
+          "gated rule at phase 4's skipping c")
+    # warm-up (the allocator's first blocks): not timed, not counted
+    simulate(mlp_loss, _sim_rule("always", 1.0), params,
+             tuple(x[:2] for x in batches), n_workers=M, network="zero",
+             optimizer=FusedAMSGrad(lr=5e-4))
+    for kind in KINDS:
+        c = skipping_c.get(kind, 1.0)
+        rule = _sim_rule(kind, c)
+        local = kind in LOCAL_RULES
+        opt = None if local else FusedAMSGrad(lr=5e-4)
+        b = (_local_batches(batches, r, COHORT_H) if local
+             else tuple(x[:r] for x in batches))
+        want = {**expected_launches(kind, r, "own" if local else "fused"),
+                **dict.fromkeys(LM_WRAPPERS, 0)}
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        res = simulate(mlp_loss, rule, params, b, n_workers=M,
+                       network="zero", optimizer=opt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _train_counts()
+        eng = CADAEngine(mlp_loss, opt, rule, M)
+        _reset_all_counts()
+        fst, mets = eng.run(eng.init(params), b)
+        torch.cuda.synchronize()
+        got_eng = _train_counts()
+        if got != want or got_eng != want:
+            raise RuntimeError(f"10a {kind}: launches sim {got}, engine "
+                               f"{got_eng}, expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        bad = _sim_diffs(res, fst, mets)
+        if bad:
+            raise RuntimeError(f"10a {kind}: the sim differs from the "
+                               f"engine in {bad}")
+        if not np.isfinite(res.losses).all():
+            raise RuntimeError(f"10a {kind}: a loss is not finite")
+        print(f"    {kind} (c={c:.6g}): sim = engine bit for bit; uploads "
+              f"{res.uploads} / {r * M}; {secs * 1e3 / r:.3f} host ms per "
+              "round; launches " + ", ".join(f"{k} {v}" for k, v in
+                                             got.items() if v)
+              + f" on {card}")
+
+
+def _mlp_draws(n: int, seed: int):
+    """``n`` draws of phase 4's sampler (mnist_like(4096), M = 10 equal
+    shards, batch 12), stacked: ((n, M, b, 784), (n, M, b))."""
+    ds = mnist_like(n=N_DATA)
+    x = ds.x.reshape(ds.n, -1)
+    mtx = pad_to_matrix(uniform_partition(ds.n, M, seed=0))
+    sample = make_sampler(x, ds.y, mtx, BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = [sample(gen) for _ in range(n)]
+    return tuple(torch.stack(t) for t in zip(*draws))
+
+
+def phase_sim_priced(card: str, params, batches, totals: dict) -> None:
+    """10b: always, cada2, laq (8-bit) and topk (sparse wire) priced on
+    lan, wan and hetero, 100 rounds each; local momentum with adaptive H
+    (cap 16) on wan and zero. Simulated seconds are the sim's clock
+    models' output, not measurements; host ms per round is measured
+    (host clock around a synchronised run)."""
+    r = SIM_PRICED_ROUNDS
+    b = tuple(x[:r] for x in batches)
+    print(f"  10b priced barrier runs: paper MLP, M = {M}, {r} rounds, "
+          "c = 1; SIMULATED seconds come from the clock models (computed, "
+          f"not measured); host ms per round measured on {card}")
+    target = None
+    for name, rkw in SIM_PRICED.items():
+        kind = rkw["kind"]
+        # one c for every rule, as phase 4's reference runs and the
+        # reference's network sweep take one
+        rule = _sim_rule(kind, 1.0,
+                         **{k: v for k, v in rkw.items() if k != "kind"})
+        for prof in SIM_PROFILES:
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            res = simulate(mlp_loss, rule, params, b, n_workers=M,
+                           network=prof, optimizer=FusedAMSGrad(lr=5e-4))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = _train_counts()
+            want = {**expected_launches(kind, r, "fused"),
+                    **dict.fromkeys(LM_WRAPPERS, 0)}
+            if got != want:
+                raise RuntimeError(f"10b {name}/{prof}: launches {got}, "
+                                   f"expected {want}")
+            for k, v in got.items():
+                totals[k] += v
+            if not np.isfinite(res.losses).all():
+                raise RuntimeError(f"10b {name}/{prof}: non-finite loss")
+            if target is None:
+                # the level always reaches over its last 20 rounds on lan,
+                # +5%: every run is priced to the same loss
+                target = 1.05 * final_loss(res)
+                print(f"    target loss {target:.5f} (always on lan, the "
+                      "mean of its last 20 rounds + 5%)")
+            ttt = time_to_target(res, target)
+            print(f"    {name}/{prof}: time to target "
+                  + ("not reached" if ttt is None
+                     else f"{ttt:.6f} simulated s")
+                  + f", {res.wall_s:.6f} simulated s for {r} rounds; "
+                  f"uploads {res.uploads} / {r * M}, {res.bytes_up:.0f} B "
+                  f"up, {res.bytes_down:.0f} B down; "
+                  f"{secs * 1e3 / r:.3f} host ms per round")
+    ra, cap = SIM_ADAPT_ROUNDS, SIM_ADAPT_CAP
+    ab = _local_batches(_mlp_draws(ra * cap, seed=7), ra, cap)
+    rule = CommRule(kind="local_momentum", c=1.0, d_max=D_MAX,
+                    max_delay=MAX_DELAY, adapt_local_steps=True,
+                    local_steps_max=cap, local_lr=COHORT_LOCAL_LR)
+    hs = {}
+    for prof in ("wan", "zero"):
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        res = simulate(mlp_loss, rule, params, ab, n_workers=M,
+                       network=prof)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _train_counts()
+        want = {**expected_launches("local_momentum", ra, "own"),
+                **dict.fromkeys(LM_WRAPPERS, 0)}
+        if got != want:
+            raise RuntimeError(f"10b adaptive H/{prof}: launches {got}, "
+                               f"expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        h = res.metrics["local_steps"]
+        hs[prof] = h
+        if not np.isfinite(res.losses).all():
+            raise RuntimeError(f"10b adaptive H/{prof}: non-finite loss")
+        print(f"    local_momentum, adaptive H (cap {cap}) on {prof}: "
+              f"realized mean H {h.mean():.3f} (last round "
+              f"{h[-1].mean():.2f}), grad evals {res.grad_evals}, "
+              f"{res.wall_s:.6f} simulated s for {ra} rounds, "
+              f"{secs * 1e3 / ra:.3f} host ms per round")
+    if not (hs["wan"][-1] > hs["wan"][0]).all() or (hs["zero"][1:] != 1).any():
+        raise RuntimeError("10b: H did not grow on wan and collapse to 1 "
+                           "on zero")
+
+
+class _GateHooks(SimRuntime):
+    """The async sim with its gates observed: with ``record`` each gate's
+    LHS / RHS lands in ``ratios``; with ``window`` = (first, end) a
+    profiler runs over those gates (counted as they are called)."""
+
+    def __init__(self, *a, record: bool = False, window=None, **kw):
+        super().__init__(*a, **kw)
+        self.record, self.window = record, window
+        self.ratios: list[float] = []
+        self.prof = self.wall = None
+        self.done = False
+
+    def _build_gate(self, tau):
+        from torch.profiler import ProfilerActivity, profile
+        gate = super()._build_gate(tau)
+        count = [0]
+
+        def observed(*args):
+            if self.window and count[0] == self.window[0]:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+                self.wall = time.perf_counter()
+            if self.window and count[0] == self.window[1]:
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - self.wall
+                self.prof.stop()
+                self.done = True
+            count[0] += 1
+            out = gate(*args)
+            if self.record:
+                lhs, rhs = float(out[5]), float(out[6])
+                # an empty RHS ring (the first gates) has no ratio
+                self.ratios.append(lhs / rhs if rhs > 0 else math.inf)
+            return out
+
+        return observed
+
+
+def phase_sim_async(card: str, params, batches, skipping_c: dict,
+                    totals: dict) -> None:
+    """10c: cada1, cada2 and laq async on hetero (tau 20, 200 server
+    versions), on the device plane and with the host pool, bit-equal;
+    exactly one AMSGrad launch per server version, one one-row LHS launch
+    per gate and no eq. (3) launch; host ms per gate; a profile of 50
+    gates (device-idle share). Each rule runs at the median LHS / RHS of
+    its gates in a c = 1 run (phase 4's skip_c in async form: an
+    arrival's step is lr / M, so the RHS is far below a synchronous
+    round's and phase 4's c uploads at every gate)."""
+    v = SIM_ASYNC_VERSIONS
+    b = tuple(x[:v] for x in batches)
+    cfg = SimConfig(network=network_profile("hetero", M), mode="async",
+                    async_tau=SIM_ASYNC_TAU)
+    print(f"  10c async on hetero: paper MLP, M = {M}, tau "
+          f"{SIM_ASYNC_TAU}, {v} server versions, FusedAMSGrad(5e-4) at "
+          "lr / M per arrival; each rule at the median LHS / RHS of its "
+          "gates in a c = 1 run")
+    async_c = {}
+    for kind in SIM_ASYNC_RULES:
+        cal = _GateHooks(mlp_loss, _sim_rule(kind, 1.0), M, cfg,
+                         record=True, optimizer=FusedAMSGrad(lr=5e-4))
+        cal.run(params, b)
+        r = np.asarray(cal.ratios)
+        c = async_c[kind] = float(np.median(r[np.isfinite(r)]))
+        rule = _sim_rule(kind, c)
+        runs = {}
+        for host_pool in (False, True):
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            res = simulate(mlp_loss, rule, params, b, n_workers=M,
+                           network="hetero", mode="async",
+                           async_tau=SIM_ASYNC_TAU, host_pool=host_pool,
+                           optimizer=FusedAMSGrad(lr=5e-4))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            gates = len(res.losses)
+            got = _train_counts()
+            want = {**dict.fromkeys(got, 0), "amsgrad": res.steps,
+                    ("batched_diff_sq" if kind in DIFF_RULES
+                     else "batched_sq"): gates}
+            if got != want or res.steps != v:
+                raise RuntimeError(f"10c {kind} host_pool={host_pool}: "
+                                   f"{res.steps} versions, launches {got}, "
+                                   f"expected {want}")
+            for k, n in got.items():
+                totals[k] += n
+            if not np.isfinite(res.losses).all():
+                raise RuntimeError(f"10c {kind}: non-finite loss")
+            runs[host_pool] = res
+            print(f"    {kind} (c={c:.6g}) "
+                  f"{'host pool' if host_pool else 'device plane'}: "
+                  f"{gates} gates, {res.uploads} uploads, max staleness "
+                  f"{res.max_staleness}, {res.wall_s:.6f} simulated s; "
+                  f"{secs * 1e3 / gates:.3f} host ms per gate"
+                  + (f"; pool {res.ledger['pool_nbytes']:,} B, parked rows "
+                     f"at most {res.ledger['async_pending_max']}"
+                     if host_pool else "") + f" on {card}")
+        a, p = runs[False], runs[True]
+        same = (np.array_equal(a.losses, p.losses)
+                and np.array_equal(a.loss_times, p.loss_times)
+                and a.uploads == p.uploads and a.wall_s == p.wall_s
+                and all(torch.equal(a.final_params[k], p.final_params[k])
+                        for k in a.final_params))
+        if not same:
+            raise RuntimeError(f"10c {kind}: the host pool differs from "
+                               "the device plane")
+        print("      host pool = device plane bit for bit")
+    rt = _GateHooks(mlp_loss, _sim_rule("cada2", async_c["cada2"]), M, cfg,
+                    window=(SIM_PROFILE_SKIP,
+                            SIM_PROFILE_SKIP + SIM_PROFILE_GATES),
+                    optimizer=FusedAMSGrad(lr=5e-4))
+    rt.run(params, b)
+    if not rt.done:
+        raise RuntimeError("10c: the profiled run had too few gates")
+    evs = [e for e in rt.prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e - s for s, e in _merge(_intervals(evs, lambda n: True)))
+    print(f"    profile of {SIM_PROFILE_GATES} cada2 gates (device plane, "
+          f"after {SIM_PROFILE_SKIP}): {rt.wall * 1e3 / SIM_PROFILE_GATES:.3f}"
+          f" host ms per gate, device busy {busy / 1e3 / SIM_PROFILE_GATES:.4f}"
+          f" ms per gate ({100 * busy / 1e6 / rt.wall:.1f}%, idle "
+          f"{100 - 100 * busy / 1e6 / rt.wall:.1f}%), "
+          f"{len(evs) / SIM_PROFILE_GATES:.0f} device events per gate")
+
+
+def phase_sim_federated(card: str, c_cada2: float, totals: dict) -> None:
+    """10d: ``simulate(cohort_size=64)`` at M = 10⁴ on wan over phase 9b's
+    problem (its cohort schedule, seed 21), 30 rounds, against
+    ``CADAEngine.run_cohort`` over the same schedule and batches: bit for
+    bit."""
+    p = setup_cohort(FED_M, FED_C, FED_ROUNDS, FED_DATA, seed=21)
+    rule = _sim_rule("cada2", c_cada2)
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    res = simulate(mlp_loss, rule, p["params"],
+                   lambda k, _cohort: p["batches"][k], n_workers=FED_M,
+                   network="wan", cohort_size=FED_C, rounds=FED_ROUNDS,
+                   seed=21, optimizer=FusedAMSGrad(lr=5e-4))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _train_counts()
+    want = {**expected_launches("cada2", FED_ROUNDS, "fused"),
+            **dict.fromkeys(LM_WRAPPERS, 0)}
+    if got != want:
+        raise RuntimeError(f"10d: launches {got}, expected {want}")
+    for k, v in got.items():
+        totals[k] += v
+    if not np.array_equal(res.metrics["cohorts"], p["cohorts"]):
+        raise RuntimeError("10d: the sim sampled other cohorts")
+    eng = _cohort_engine("cada2", FED_M, c_cada2)
+    state, pool = eng.init_cohort(p["params"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, mets = eng.run_cohort(state, pool, p["batches"], p["cohorts"])
+    torch.cuda.synchronize()
+    eng_secs = time.perf_counter() - t0
+    bad = [k for k in state.params
+           if not torch.equal(res.final_params[k], state.params[k])]
+    for i, m in enumerate(mets):
+        if not (np.array_equal(res.upload_masks[i], m["upload_mask"])
+                and np.array_equal(res.staleness[i], m["staleness"])
+                and res.losses[i] == float(m["loss"])):
+            bad.append(f"round {i}")
+    if bad:
+        raise RuntimeError(f"10d: the federated sim differs from "
+                           f"run_cohort in {bad}")
+    met = res.metrics
+    print(f"  10d federated sim: M = {FED_M:,}, C = {FED_C}, wan, "
+          f"{FED_ROUNDS} rounds = run_cohort bit for bit; host pool "
+          f"{met['host_pool_bytes']:,} B against "
+          f"{met['device_worker_plane_bytes']:,} B of worker rows on the "
+          f"card a round; uploads {res.uploads}, {res.wall_s:.6f} "
+          f"simulated s; {secs * 1e3 / FED_ROUNDS:.3f} host ms per round "
+          f"with the pool's set-up, run_cohort alone "
+          f"{eng_secs * 1e3 / FED_ROUNDS:.3f}, on {card}")
+    del p, pool, state
+    gc.collect()
+
+
+class _Timed:
+    """Times each ``SimRuntime.run`` (host clock, synchronised) while
+    active."""
+
+    def __enter__(self):
+        self.secs, orig = [], SimRuntime.run
+        self._orig = orig
+
+        def run(rt, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(rt, *a, **kw)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+
+        SimRuntime.run = run
+        return self
+
+    def __exit__(self, *exc):
+        SimRuntime.run = self._orig
+
+
+def phase_sim_lm(card: str, totals: dict, layers: dict | None = None,
+                 runs=("barrier", "async, host pool")) -> None:
+    """10e: stablelm-1.6b at its published width with 4 of 24 layers
+    (phase 7's cut) through ``python -m repro_torch.launch.train --runtime
+    sim`` in-process: M = 2, one 2048-token sequence a worker a round,
+    cada2 barrier for 4 rounds, then async (tau 4) for 8 server versions
+    with the host pool. Finite losses; exactly one AMSGrad launch per
+    round or server version (and the rule's norm per round or gate, eq.
+    (3) once a barrier round, never async); ms per round or gate and peak
+    memory."""
+    layers = layers or SIM_LM_LAYERS
+    base = ["--arch", TRAIN_ARCH, "--runtime", "sim", "--network", "wan",
+            "--workers", str(TRAIN_M), "--global-batch", str(TRAIN_M),
+            "--seq", str(TRAIN_SEQ), "--rule", "cada2", "--lr",
+            str(TRAIN_LR)]
+    print(f"  10e {TRAIN_ARCH} at full width through the launcher's "
+          f"--runtime sim: M = {TRAIN_M}, one {TRAIN_SEQ}-token sequence a "
+          "worker a round, remat off")
+    for label, extra, n in (
+            ("barrier", ["--steps", str(SIM_LM_ROUNDS)], SIM_LM_ROUNDS),
+            ("async, host pool", ["--steps", str(SIM_LM_VERSIONS),
+                                  "--async-tau", str(SIM_LM_TAU),
+                                  "--host-pool"], SIM_LM_VERSIONS)):
+        if label not in runs:
+            continue
+        extra = extra + ["--layers", str(layers[label])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        with _Timed() as timed:
+            (row,) = train_cli.main(base + extra)
+        got = _train_counts()
+        gates = row["grad_evals"] // 2 if label != "barrier" else n
+        want = {**dict.fromkeys(got, 0), "amsgrad": n,
+                "batched_diff_sq": gates,
+                "eq3_row_mean": n if label == "barrier" else 0}
+        if got != want or row["steps"] != n:
+            raise RuntimeError(f"10e {label}: {row['steps']} steps, "
+                               f"launches {got}, expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        if row["final_loss"] is None or not math.isfinite(row["final_loss"]):
+            raise RuntimeError(f"10e {label}: loss {row['final_loss']}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per = "round" if label == "barrier" else "gate"
+        print(f"    {label}, {layers[label]} of 24 layers: {n} server "
+              f"steps, {gates} gates, uploads "
+              f"{row['uploads']}, final loss {row['final_loss']:.4f}; "
+              f"{timed.secs[0] * 1e3 / gates:.1f} ms per {per} (the sim's "
+              f"run, host clock); peak device memory {peak:.3f} GiB on "
+              f"{card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sim(card: str, params, batches, skipping_c: dict) -> dict:
+    """Phase 10: the sim runtime on the card (10a–10e). Returns the
+    launches of its sim runs."""
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    for label, fn in (("10a", lambda: phase_sim_parity(
+                          card, params, batches, skipping_c, totals)),
+                      ("10b", lambda: phase_sim_priced(
+                          card, params, batches, totals)),
+                      ("10c", lambda: phase_sim_async(
+                          card, params, batches, skipping_c, totals)),
+                      ("10d", lambda: phase_sim_federated(
+                          card, skipping_c.get("cada2", 1.0), totals)),
+                      ("10e", lambda: phase_sim_lm(card, totals))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"    {label} took {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -2941,6 +3463,13 @@ def main() -> None:
     for name, v in phase_cohort(card, skipping_c).items():
         launches[name] += v
     print(f"    phase 9 took {time.perf_counter() - t9:.1f} s")
+    print("[10] the sim runtime")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    for name, v in phase_sim(card, params, batches, skipping_c).items():
+        launches[name] += v
+    print(f"    phase 10 took {time.perf_counter() - t10:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

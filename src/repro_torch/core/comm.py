@@ -41,7 +41,7 @@ from repro_torch.core.flat import (per_worker_quantize_dequantize_flat,
 from repro_torch.core.quantize import ef_correct, ef_residual, topk_count
 from repro_torch.core.rules import CommRule
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 def adapt_period(period, grow, p_min, p_max):
@@ -67,6 +67,15 @@ class CommStrategy:
     #: True ⇒ the payload is the model delta of local optimizer steps, not
     #: a fresh gradient (core/local_update.py)
     delta_payload: bool = False
+    #: extras keys SHARED by every worker (not (M,)-leading), which the
+    #: async sim (``repro_torch.sim``) passes whole to a one-worker gate
+    #: while it slices every other entry to the worker's row (CADA1's θ̃)
+    async_shared_extras: tuple = ()
+    #: extras keys of the stale-iterate RING family: the async sim skips
+    #: them on slice and merge and gives each gate a one-row ring built by
+    #: :meth:`async_indexed_row` from the worker's own stale iterate (the
+    #: bounded ring assumes the synchronous staleness cap)
+    async_indexed_extras: tuple = ()
 
     def __init__(self, rule: CommRule):
         self.rule = rule
@@ -127,6 +136,12 @@ class CommStrategy:
         if shared is None:
             return None
         return tree_map(lambda x: x[None], shared), None
+
+    def async_indexed_row(self, stale_params) -> dict:
+        """The one-row ``async_indexed_extras`` entries of one async gate,
+        built from the worker's own stale iterate ``stale_params``."""
+        del stale_params
+        return {}
 
     def flat_lhs(self, ctx, extras: dict):
         """Rule LHS on the flat plane: ((M,) lhs, cache for post-upload)."""
@@ -229,6 +244,7 @@ class CADA1Strategy(CommStrategy):
     (it feeds the gradient evaluation); δ̃ is an (M, n_flat) plane."""
     kind = "cada1"
     grad_evals_per_iter = 2
+    async_shared_extras = ("snapshot",)
 
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         return {"snapshot": params,
@@ -278,6 +294,10 @@ class CADA2Strategy(CommStrategy):
     """
     kind = "cada2"
     grad_evals_per_iter = 2
+    # the async sim tracks each worker's exact stale iterate on the host
+    # (free-running workers break the ring's occupancy bound), and a gate
+    # sees a one-row ring of it
+    async_indexed_extras = ("ring", "slot", "ring_version")
 
     def ring_rows(self, m: int) -> int:
         """R = min(M, max_delay) + 1 — the occupancy bound above."""
@@ -297,6 +317,13 @@ class CADA2Strategy(CommStrategy):
 
     def second_eval_indexed(self, extras):
         return extras["ring"], extras["slot"]
+
+    def async_indexed_row(self, stale_params):
+        dev = tree_leaves(stale_params)[0].device
+        return {"ring": tree_map(lambda x: x[None], stale_params),
+                "slot": torch.zeros((1,), dtype=torch.int32, device=dev),
+                "ring_version": torch.zeros((1,), dtype=torch.int32,
+                                            device=dev)}
 
     def flat_lhs(self, ctx, extras):
         return kops.batched_diff_sq_norm(ctx.fresh, ctx.second,

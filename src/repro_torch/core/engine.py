@@ -71,6 +71,11 @@ class CADAEngine:
       fuse_evals: stack the rule's per-worker second gradient evaluation
         onto the fresh one in one vmapped call (default on, as in the
         reference).
+      group_evals: evaluate cada2's second gradient once per occupied
+        stale-iterate ring row instead of gathering M per-worker points
+        (``flat.grouped_second_plane``; dense plane only, as in the
+        reference). Opt-in: the broadcast-point evaluation may differ from
+        the per-row one in the last bits.
       impl: dispatch override of kernels/ops.py (None on the main path).
       device: where the state lives; None means ``cuda``.
       resum_every: the cohort plane's drift guard: every K cohort rounds,
@@ -79,26 +84,30 @@ class CADAEngine:
         incremental form is exact in real arithmetic and bit-pinned to
         the dense plane.
 
-    A rule with ``adapt_local_steps`` is refused: the bare engine has no
-    clock to adapt H against (the reference's message names its sim
-    runtime, which the port does not have yet).
+      allow_adaptive_local_steps: accept a rule with
+        ``adapt_local_steps``. The bare engine refuses one, as it has no
+        clock to adapt H against; the sim runtime (``repro_torch.sim``),
+        which prices every round and passes the adapted (steps, M)
+        schedule to :meth:`run`, sets it.
     """
 
     def __init__(self, loss_fn: Callable,
                  optimizer: FusedAMSGrad | Optimizer | None = None,
                  rule: CommRule | None = None, n_workers: int = 1, *,
-                 fuse_evals: bool | None = None, impl=None, device=None,
-                 resum_every: int = 0):
+                 fuse_evals: bool | None = None, group_evals: bool = False,
+                 impl=None, device=None, resum_every: int = 0,
+                 allow_adaptive_local_steps: bool = False):
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.rule = CommRule() if rule is None else rule
         self.strategy = strategy_for(self.rule)
-        if self.rule.adapt_local_steps:
+        if self.rule.adapt_local_steps and not allow_adaptive_local_steps:
             raise ValueError(
                 "adapt_local_steps adapts H against MEASURED communication "
                 "time — the bare engine has no clock. Run it through the "
-                "sim runtime (repro.sim, --runtime sim), which prices every "
-                "round and passes the adapted schedule back in.")
+                "sim runtime (repro_torch.sim, python -m "
+                "repro_torch.launch.train --runtime sim), which prices "
+                "every round and passes the adapted schedule back in.")
         if optimizer is None:
             optimizer = (self.strategy.server_optimizer()
                          or FusedAMSGrad(lr=1e-3))
@@ -111,6 +120,7 @@ class CADAEngine:
         self.optimizer = optimizer
         self.m = n_workers
         self._fuse_evals = True if fuse_evals is None else fuse_evals
+        self._group_evals = group_evals
         self._impl = impl
         self.resum_every = resum_every
         self._layout: F.FlatLayout | None = None
@@ -167,7 +177,8 @@ class CADAEngine:
             self.strategy, layout, state.comm, state.params,
             state.params_flat, batch, k, vgrad=self._vgrad,
             vgrad_per=self._vgrad_per, fuse_evals=self._fuse_evals,
-            impl=self._impl, participation=participation,
+            group_evals=self._group_evals, impl=self._impl,
+            participation=participation,
             local_steps=local_steps)
 
         params, theta, opt_state, dsq = self._server_step(

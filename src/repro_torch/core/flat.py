@@ -335,10 +335,37 @@ def stacked_two_point_eval(layout: FlatLayout, params, pts, batch, m: int,
     return losses2[0], fresh, second
 
 
+def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
+                         vgrad) -> torch.Tensor:
+    """The grouped second evaluation: one broadcast-point ``vgrad`` per
+    OCCUPIED ring row, placed into the (M, n_flat) fp32 second plane by
+    each worker's slot. Every worker still evaluates its own sample; only
+    the evaluation point is shared, so the weight traffic drops M× → R×
+    while the arithmetic grows to occupancy × M row evaluations (a win
+    only where the evaluation is bound by weight bytes and R ≪ M).
+
+    The reference's fixed-R masked scan is a loop over the rows here, and
+    its per-row skip of an empty row is one occupancy count a call, read
+    to the host once."""
+    rr = tree_leaves(ring)[0].shape[0]
+    occupied = torch.bincount(slot.long(), minlength=rr).tolist()
+    plane = torch.zeros((m, layout.n_flat), dtype=torch.float32,
+                        device=slot.device)
+    for r in range(rr):
+        if occupied[r]:
+            _, g = vgrad(tree_map(lambda x: x[r], ring), batch)
+            plane = torch.where((slot == r)[:, None], layout.pack_worker(g),
+                                plane)
+    return plane
+
+
 def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
                    batch, m: int, *, vgrad, vgrad_per=None,
-                   fuse_evals: bool = False, cohort=None):
-    """The two-point eval dispatch. Returns ``(losses, fresh, second)``
+                   fuse_evals: bool = False, group_evals: bool = False,
+                   cohort=None):
+    """The two-point eval dispatch, shared by :func:`flat_comm_round`,
+    :func:`flat_cohort_round` and the async sim's gate
+    (``repro_torch.sim.runtime``). Returns ``(losses, fresh, second)``
     packed planes (``second`` is None for single-eval rules).
 
     ``cohort`` ((C,) int64 global worker ids, or None): a cohort round.
@@ -352,7 +379,10 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     every worker (CADA1's snapshot), evaluated in the broadcast form; a real
     slot vector gathers ``ring[slot]`` (R → M rows) and evaluates either
     per worker (``vgrad_per``) or, with ``fuse_evals``, stacked onto the
-    fresh evaluation in one call (:func:`stacked_two_point_eval`).
+    fresh evaluation in one call (:func:`stacked_two_point_eval`); with
+    ``group_evals`` it gathers nothing and evaluates once per occupied
+    ring row (:func:`grouped_second_plane`; opt-in, as the broadcast-point
+    evaluation may differ from the per-row one in the last bits).
     """
     indexed = strategy.second_eval_indexed(extras)
     if indexed is None:
@@ -367,6 +397,10 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
         _, second_tree = vgrad(shared_pt, batch)
         return (losses, layout.pack_worker(fresh_tree),
                 layout.pack_worker(second_tree))
+    if group_evals:
+        losses, fresh_tree = vgrad(params, batch)
+        return (losses, layout.pack_worker(fresh_tree),
+                grouped_second_plane(layout, ring, slot, batch, m, vgrad))
     idx = slot.long()
     pts = tree_map(lambda x: x.index_select(0, idx), ring)
     if fuse_evals:
@@ -383,10 +417,13 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
 def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                     params, params_flat, batch, k: int, *, vgrad,
                     vgrad_per: Callable | None = None,
-                    fuse_evals: bool = True, impl=None,
-                    participation=None,
+                    fuse_evals: bool = True, group_evals: bool = False,
+                    impl=None, participation=None,
                     local_steps=None) -> FlatCommRoundResult:
     """One communication round of Algorithm 1 (lines 4-15) on flat buffers.
+
+    ``fuse_evals`` and ``group_evals`` pick the form of the rule's second
+    evaluation (:func:`eval_two_point`).
 
     ``participation`` ((M,) bool or None) models partial participation: a
     non-participating worker never uploads this round, not even when its
@@ -429,7 +466,8 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         # evaluation.
         losses, fresh, second = eval_two_point(
             strategy, layout, extras, params, batch, m, vgrad=vgrad,
-            vgrad_per=vgrad_per, fuse_evals=fuse_evals)
+            vgrad_per=vgrad_per, fuse_evals=fuse_evals,
+            group_evals=group_evals)
     ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
                           second=second, comm=comm._replace(extras=extras),
                           step=k, m=m, impl=impl,

@@ -40,8 +40,10 @@ same AMSGrad kernel.
 
 Not here, and refused by name where a field asks for them: the mesh, FSDP
 and ZeRO-sharded state (``fsdp``, ``fsdp_axes``, ``state_fsdp_axes``,
-``shard_cada_state``), the grouped second evaluation (``group_evals``),
-the per-leaf debug plane (``fused=False``) and the pod shard_map.
+``shard_cada_state``), the per-leaf debug plane (``fused=False``) and the
+pod shard_map. ``group_evals`` (cada2's second evaluation once per
+occupied ring row, ``flat.grouped_second_plane``) reaches the dense flat
+step, as in the reference; the cohort step gathers.
 """
 from __future__ import annotations
 
@@ -68,8 +70,7 @@ _REFUSED = {"fsdp": (None, "the mesh runtime"),
             "fsdp_axes": (("data",), "the mesh runtime"),
             "state_fsdp_axes": ((), "the mesh runtime (ZeRO-sharded state)"),
             "shard_cada_state": (False,
-                                 "the mesh runtime (ZeRO-sharded state)"),
-            "group_evals": (False, "the grouped second evaluation")}
+                                 "the mesh runtime (ZeRO-sharded state)")}
 
 
 @dataclass(frozen=True)
@@ -87,7 +88,8 @@ class TrainHParams:
     fsdp_axes: tuple = ("data",)
     state_fsdp_axes: tuple = ()
     shard_cada_state: bool = False
-    group_evals: bool = False
+    group_evals: bool = False       # cada2's second evaluation once per
+    #                                 occupied ring row (flat step only)
 
     def __post_init__(self):
         for name, (default, what) in _REFUSED.items():
@@ -292,7 +294,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
         pflat = layout.pack(state.params)
         out = F.flat_comm_round(
             strategy, layout, state.comm, state.params, pflat, batch, k,
-            vgrad=vgrad, vgrad_per=vgrad_per, fuse_evals=False, impl=impl)
+            vgrad=vgrad, vgrad_per=vgrad_per, fuse_evals=False,
+            group_evals=hp.group_evals, impl=impl)
         params, h, vhat, dsq = fused_update(layout, pflat, state.h,
                                             state.vhat, F.nabla_f32(out.comm))
         comm = F.record_progress(out.comm, dsq, k)

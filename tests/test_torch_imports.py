@@ -134,6 +134,25 @@ def test_the_telemetry_and_cohort_slice_is_covered():
                         "sys", "numpy"}, (f.name, tops)
 
 
+def test_the_sim_slice_is_covered():
+    """... and so are the sim runtime's modules; its clock and events are
+    numpy-only copies, and its report imports numpy and the runtime's
+    result type only."""
+    assert {"repro_torch.sim", "repro_torch.sim.clock",
+            "repro_torch.sim.events", "repro_torch.sim.report",
+            "repro_torch.sim.runtime"} <= set(_modules())
+    for name in ("clock.py", "events.py", "report.py"):
+        f = PORT / "sim" / name
+        tree = ast.parse(f.read_text(), filename=str(f))
+        tops = {a.name.split(".")[0] for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for a in node.names}
+        tops |= {node.module for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.level == 0}
+        assert tops <= {"__future__", "heapq", "itertools", "math",
+                        "dataclasses", "numpy",
+                        "repro_torch.sim.runtime"}, (name, tops)
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no

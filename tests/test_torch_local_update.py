@@ -40,6 +40,9 @@ from repro.core.local_update import LocalUpdateEngine as JaxLocalEngine
 from repro.core.rules import CommRule as JaxRule
 from repro.models.small import logreg_loss as jax_logreg_loss
 from repro.models.small import mlp_loss as jax_mlp_loss
+from repro.sim import SimConfig as JaxSimConfig
+from repro.sim import SimRuntime as JaxSimRuntime
+from repro.sim import network_profile as jax_network_profile
 from repro_torch import convert
 from repro_torch.core.engine import CADAEngine
 from repro_torch.core.local_update import LocalUpdateEngine
@@ -47,6 +50,7 @@ from repro_torch.core.rules import LOCAL_RULES, CommRule
 from repro_torch.data import (ijcnn1_like, mnist_like, pad_to_matrix,
                               uniform_partition)
 from repro_torch.models.small import logreg_loss, mlp_loss
+from repro_torch.sim import SimConfig, SimRuntime, network_profile
 
 from lockstep_wire import wire_differences
 
@@ -294,12 +298,35 @@ def test_local_steps_on_a_gradient_rule_is_refused_as_in_the_reference():
 
 
 def test_adaptive_local_steps_on_a_bare_engine_is_refused_as_in_the_reference():
+    """The reference's ``test_bare_engine_rejects_adaptive_h`` and
+    ``test_sim_rejects_delta_async_and_adaptive_cohort``: the bare engine
+    refuses adaptive H (it has no clock) and names the port's sim; the sim
+    opts in; the sim refuses a delta rule in async mode and adaptive H on
+    the cohort plane with the reference's messages."""
     rule_kw = dict(kind="local_momentum", adapt_local_steps=True)
-    with pytest.raises(ValueError) as ref:
+    with pytest.raises(ValueError, match="clock") as ref:
         JaxEngine(jax_logreg_loss, None, JaxRule(**rule_kw), M)
-    with pytest.raises(ValueError) as ours:
+    with pytest.raises(ValueError, match="clock") as ours:
         CADAEngine(logreg_loss, None, CommRule(**rule_kw), M, device="cpu")
-    assert str(ours.value) == str(ref.value)
+    assert "repro_torch.sim" in str(ours.value)
+    assert "--runtime sim" in str(ref.value) and "--runtime sim" in str(
+        ours.value)
+    CADAEngine(logreg_loss, None, CommRule(**rule_kw), M, device="cpu",
+               allow_adaptive_local_steps=True)
+
+    cases = ((dict(kind="fedadam", c=0.6, d_max=4, max_delay=10,
+                   local_steps=4, local_lr=0.05), dict(mode="async"),
+              "barrier-only"),
+             (dict(kind="fedadam", adapt_local_steps=True, local_lr=0.05),
+              dict(cohort_size=2), "cohort"))
+    for rule, cfg, what in cases:
+        with pytest.raises(ValueError, match=what) as ref:
+            JaxSimRuntime(jax_logreg_loss, JaxRule(**rule), M, JaxSimConfig(
+                network=jax_network_profile("wan", M), **cfg))
+        with pytest.raises(ValueError, match=what) as ours:
+            SimRuntime(logreg_loss, CommRule(**rule), M, SimConfig(
+                network=network_profile("wan", M), **cfg), device="cpu")
+        assert str(ours.value) == str(ref.value)
 
 
 def test_prescribed_server_optimizers():

@@ -4,8 +4,9 @@ stablelm-1.6b's smoke config (fp32), M = 2 workers, 8 steps of a (4, 33)
 token batch, the reference parity test's rule settings (c = 20,
 d_max = 4, max_delay = 10, lr = 1e-3; ``tests/test_parity_engine_trainer.py``),
 for every kind in ``RULES``, and cada2 twice more: with bf16 moments and
-bf16 CADA state (``moments_dtype``, ``cada_dtype``), and with two
-microbatches per worker; and the delta-payload rules ``local_momentum`` and
+bf16 CADA state (``moments_dtype``, ``cada_dtype``), with two
+microbatches per worker, and with the grouped second evaluation
+(``group_evals``: one evaluation per occupied ring row); and the delta-payload rules ``local_momentum`` and
 ``fedadam`` at H = 2 local steps (the batch split (H, M, 1, 33); the mean
 delta feeds the trainer's AMSGrad server step on both sides). Each step, the reference's step-k state is loaded
 into the port (``convert.train_state_from_numpy``), both trainers take the
@@ -79,6 +80,7 @@ CASES = {**{kind: (dict(kind=kind), {}) for kind in RULES},
                               dict(moments_dtype="bfloat16",
                                    cada_dtype="bfloat16")),
          "cada2-microbatches2": (dict(kind="cada2"), dict(microbatches=2)),
+         "cada2-group-evals": (dict(kind="cada2"), dict(group_evals=True)),
          **{f"{kind}-h2": (dict(kind=kind, local_steps=2), {})
             for kind in LOCAL_RULES}}
 
