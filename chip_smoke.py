@@ -112,12 +112,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
         rounds (device-busy share, the block copies' time against their
         bytes over those rates, their overlap with kernels);
      c. cada2, cada1, laq and local_momentum at M = 64, C = 16, 20
-        rounds: the cohort plane against the dense plane with the cohort
-        as its participation mask, masks and staleness exact, whether the
-        float state is bit-equal printed; where it is not, the gradient
-        rows of both evaluation forms at C·b against M·b rows, and one
-        round from the same state with the same gradient rows fed to both
-        planes, which must be bit-equal;
+        rounds, and cada2 again with both engines at fuse_evals=False:
+        the cohort plane against the dense plane with the cohort as its
+        participation mask, masks and staleness exact, whether the float
+        state is bit-equal printed (with each gap's share of its array's
+        scale); where it is not, the gradient rows of both evaluation
+        forms at C·b against M·b rows, the op of the vmapped evaluation
+        that differs (the forward product and the per-worker weight
+        gradient at both row counts, with the kernels each launches), and
+        one round from the same state with the same gradient rows fed to
+        both planes, which must be bit-equal;
      d. phase 7's model and cut through the trainer's cohort step: cada2
         with bf16 CADA state, M = 8 (4 if the host is short, said so),
         C = 2, 4 rounds of 2 × 2048 tokens a cohort member, serial and
@@ -156,6 +160,33 @@ Phases, each of which raises on failure (the exit code is then not 0):
         for 8 server versions with the host pool and 4 layers: finite
         losses, exactly one AMSGrad launch per round or server version;
         ms per round or gate, peak memory.
+ 11. the MoE, M-RoPE and embedding-input models, at full width through
+     ``repro_torch.launch.serve.generate`` (counts set to 0 just before
+     and read just after: exactly one flash launch per layer, all in the
+     prefill, nothing else), each with its warm prefill by CUDA events and
+     under the profiler (device-busy share, top kernels), decode tokens/s
+     and peak memory:
+     a. granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base),
+        all 24 layers, 2 prompts of 2048 tokens, 32 greedy steps, 24 flash
+        launches; a second prefill bit-equal to the first (logits and K/V
+        cache); a profile of 4 decode steps;
+     b. qwen2-vl-2b (arXiv:2409.12191), all 28 layers, the stub vision
+        embeddings and the M-RoPE positions of a text prefix and a 16 x 16
+        image, 28 flash launches at hd 128 and GQA 12/2; then the flash
+        kernel alone at (2, 2048, 12, 2, 128) bf16 against its plain
+        version, scaled_dot_product_attention(enable_gqa=True) and its
+        bound;
+     c. musicgen-medium (arXiv:2306.05284), all 48 layers, the stub audio
+        embeddings, 48 flash launches;
+     d. grok-1-314b (hf:xai-org/grok-1) at full width with 2 of 64 layers
+        (the whole model does not fit one card), 1 prompt of 2048 tokens,
+        4 decode steps, 2 flash launches, two prefills bit-equal;
+     e. granite-moe-1b-a400m through ``make_train_step`` at full width with
+        8 of 24 layers: cada2 (c = 1), M = 2, 4 steps of 2 x 2048 tokens a
+        worker, exactly one AMSGrad, one two-operand norm and one eq. (3)
+        launch a step, finite losses, the routers' aux loss > 0, step ms
+        and peak memory; then one qwen2-vl-2b step at 2 of 28 layers on
+        {"embeds", "labels", "positions"} batches, launches exact.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -164,7 +195,8 @@ stride-0 view on N: one decay per channel; h_final bit-equal to the same
 call with A materialised) and untimed with a general A, also at
 falcon-mamba-7b's widths (device time printed); flash in bf16 on the
 tensor cores, at a GQA shape and with a window, and in fp32 and bf16 at hd
-16 and 64 and zero-padded at hd 48 and 96. Then it prints one JSON line
+16 and 64 and zero-padded at hd 48 and 96 (and, in phase 11b, timed at
+qwen2-vl's hd 128 with GQA 12/2). Then it prints one JSON line
 with every kernel, and last the line
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside the
 checkout, it exits non-zero and prints no result.
@@ -208,6 +240,7 @@ from repro_torch.distributed import trainer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
+from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
 from repro_torch.obs import (CommLedger, Tracer,  # noqa: E402
@@ -261,7 +294,8 @@ LIBRARY_NOTE = {
                       "and cumsum/cumprod forms materialise the (G, S, D, "
                       "N) trajectory the kernel exists to avoid",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True) on (B, H, S, hd), timed here",
+                       "is_causal=True, enable_gqa=Hq != Hkv) on "
+                       "(B, H, S, hd), timed here",
     "eq3_row_mean": "plane.float().sum(0) * rcp (torch.sum over the rows), "
                     "timed here; not bit-equal to the kernel: torch.sum "
                     "adds the rows in an order of its own, and the fixed "
@@ -333,6 +367,15 @@ COHORT_H, COHORT_LOCAL_LR, COHORT_SERVER_LR = 2, 0.05, 5e-4
 FED_M, FED_C, FED_ROUNDS, FED_DATA = 10_000, 64, 30, 20_000
 FED_PROFILE_ROUNDS = 10
 VS_M, VS_C, VS_ROUNDS = 64, 16, 20
+# 9c's accepted band: the stacked evaluation (the engine's default) runs
+# the MLP's forward x·W1 as one batched GEMM over 2·C or 2·M per-worker
+# points, and cuBLAS takes another kernel for each count (gemmSN_NN at 32
+# points, an sm80 xmma ffma GEMM at 128), which sums the 784 products in
+# another order; so the float state after VS_ROUNDS rounds may differ by
+# this share of each array's scale (measured: 6.6e-7, PERF.md). With
+# fuse_evals=False (one GEMM over the stacked rows, shared weights) it
+# must be bit-equal
+COHORT_DENSE_BAND = 1e-5
 VS_RULES = ("cada2", "cada1", "laq", "local_momentum")
 LM_COHORT_M, LM_COHORT_C, LM_COHORT_ROUNDS = 8, 2, 4
 POOL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pool"
@@ -359,6 +402,24 @@ SIM_LM_ROUNDS, SIM_LM_VERSIONS, SIM_LM_TAU = 4, 8, 4
 # points x 2 workers of 2048 tokens under one vmap without remat, which at
 # 4 layers needs more than the card's 80 GB
 SIM_LM_LAYERS = {"barrier": 3, "async, host pool": TRAIN_LAYERS}
+# phase 11: the MoE, M-RoPE and embedding-input models. Serving at full
+# width: arch -> (layers kept, 0 = all; prompts; prompt length; greedy
+# decode steps); grok-1-314b keeps 2 of its 64 layers (the whole model is
+# 628 GB in bf16, the card holds 80). qwen2-vl's prompts take the M-RoPE
+# positions of a text prefix and a 16 x 16 image.
+MOE_SERVE = {"11a": ("granite-moe-1b-a400m", 0, 2, 2048, 32),
+             "11b": ("qwen2-vl-2b", 0, 2, 2048, 32),
+             "11c": ("musicgen-medium", 0, 2, 2048, 32),
+             "11d": ("grok-1-314b", 2, 1, 2048, 4)}
+MROPE_GRID = (16, 16)
+# 11e: granite-moe through the trainer at full width with 8 of 24 layers
+# (phase 7's 616.6M parameters took 47.6 GiB; 8 layers are 478M), cada2,
+# M = 2, 4 steps of 2 x 2048 tokens a worker; then one qwen2-vl-2b step at
+# 2 of 28 layers on {"embeds", "labels", "positions"} batches
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = (
+    "granite-moe-1b-a400m", 8, 4)
+MOE_TRAIN_BATCH = 2 * TRAIN_M
+VLM_TRAIN_LAYERS = 2
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -1137,7 +1198,7 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
 
     lib_err = _rel_err(library().transpose(1, 2), want)
     ms = time_ms(kernel, calls=10, repeats=3)
@@ -2296,12 +2357,14 @@ def _cohort_rule(kind: str, c: float) -> CommRule:
     return CommRule(kind=kind, c=c, d_max=D_MAX, max_delay=MAX_DELAY, **kw)
 
 
-def _cohort_engine(kind: str, m: int, c: float) -> CADAEngine:
+def _cohort_engine(kind: str, m: int, c: float,
+                   fuse_evals: bool | None = None) -> CADAEngine:
     """The paper MLP's engine at M = ``m``: FusedAMSGrad(5e-4) for the
-    gradient rules, their own servers for the delta rules."""
+    gradient rules, their own servers for the delta rules; ``fuse_evals``
+    as ``CADAEngine`` takes it (None: the engine's default, stacked)."""
     return CADAEngine(mlp_loss, (None if kind in LOCAL_RULES
                                  else FusedAMSGrad(lr=5e-4)),
-                      _cohort_rule(kind, c), m)
+                      _cohort_rule(kind, c), m, fuse_evals=fuse_evals)
 
 
 def setup_cohort(m: int, c: int, rounds: int, n_data: int, seed: int,
@@ -2612,27 +2675,106 @@ def _replaying(log, idx):
     return f
 
 
+def _gap_share(a, b) -> float:
+    """max |a − b| as a share of max |b|."""
+    d = float((a.double() - b.double()).abs().max())
+    return d / max(float(b.double().abs().max()), 1e-30)
+
+
 def _diff_report(pairs) -> list[str]:
-    """'name max|Δ|' of the pairs that are not bit-equal."""
-    out = []
-    for name, a, b in pairs:
-        if not torch.equal(a, b):
-            out.append(f"{name} {float((a.double() - b.double()).abs().max()):.3g}")
-    return out
+    """'name max|Δ| (share of max|b|)' of the pairs that are not
+    bit-equal."""
+    return [f"{name} {float((a.double() - b.double()).abs().max()):.3g} "
+            f"({_gap_share(a, b):.3g} of scale)"
+            for name, a, b in pairs if not torch.equal(a, b)]
+
+
+def _kernel_names(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name (the call
+    once before, so that no first-call set-up is counted; a window that
+    recorded no kernel is profiled once more)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return sorted(set(names))
+
+
+def _row_count_probe(eng, params, x, y, co, idx) -> None:
+    """Which op of the stacked evaluation gives other bits for the
+    cohort's workers at C·b rows than at M·b rows. The stacked evaluation
+    runs ``vgrad_per`` over 2·M (or 2·C) per-worker points, so each of
+    the MLP's products is a batched GEMM over the points: the evaluation
+    at θ for every point leaf by leaf, then its products on the same rows
+    (the forward x·W1 and h·W2, and the weight gradient xᵀ·δ), each with
+    the device kernels it launches at both point counts."""
+    m, c = x.shape[0], len(co)
+    x2, y2 = torch.cat([x, x]), torch.cat([y, y])
+    xc2, yc2 = torch.cat([x[co], x[co]]), torch.cat([y[co], y[co]])
+    rows = torch.cat([idx, idx + m])
+
+    def per(n):
+        return {k: v.expand((n,) + v.shape).contiguous()
+                for k, v in params.items()}
+
+    losses_m, g_m = eng._vgrad_per(per(2 * m), (x2, y2))
+    losses_c, g_c = eng._vgrad_per(per(2 * c), (xc2, yc2))
+    leaves = (["losses"] if not torch.equal(losses_m[rows], losses_c)
+              else [])
+    leaves += [k for k in g_m if not torch.equal(g_m[k][rows], g_c[k])]
+    print(f"    vgrad_per at 2·{c} points of {x.shape[1]} rows against "
+          f"2·{m}: " + (f"{', '.join(leaves)} differ" if leaves
+                        else "bit-equal"))
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    w1, w2 = params["w1"], params["w2"]
+    delta = torch.randn(x2.shape[:2] + (w1.shape[1],), generator=gen,
+                        device="cuda")
+    hid = torch.randn(x2.shape[:2] + (w1.shape[1],), generator=gen,
+                      device="cuda")
+    ops_ = {
+        "forward x·W1 per point (b x 784 @ 784 x 128)":
+            lambda pick: torch.bmm(pick(x2), per(len(pick(x2)))["w1"]),
+        "forward h·W2 per point (b x 128 @ 128 x 10)":
+            lambda pick: torch.bmm(pick(hid), w2.expand(
+                (len(pick(hid)),) + w2.shape).contiguous()),
+        "weight gradient xᵀ·δ per point (784 x b @ b x 128)":
+            lambda pick: torch.bmm(pick(x2).transpose(1, 2), pick(delta))}
+    del w1
+    for name, op in ops_.items():
+        full = op(lambda t: t)
+        part = op(lambda t: t[rows])
+        same = torch.equal(full[rows], part)
+        gap = float((full[rows] - part).abs().max())
+        k_m = _kernel_names(lambda: op(lambda t: t))
+        k_c = _kernel_names(lambda: op(lambda t: t[rows]))
+        print(f"    {name}: " + ("bit-equal" if same else
+                                 f"differs, max |Δ| {gap:.3g}")
+              + f"; kernels at {2 * m} points {k_m}"
+              + (" (the same)" if k_m == k_c else
+                 f", at {2 * c} {k_c}"))
 
 
 def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
     """9c: cada2, cada1, laq and local_momentum at M = 64, C = 16, 20
-    rounds: the cohort plane against the dense plane with the cohort as
-    its participation mask. Masks and staleness must match (a flip only
+    rounds, and cada2 with both engines at fuse_evals=False: the cohort
+    plane against the dense plane with the cohort as its participation
+    mask. Masks and staleness must match (a flip only
     within MARGIN_BAND of the gate, after which the runs differ); whether
     the float state is bit-equal is reported. Where it is not: the
     gradient rows of the C·b-row call against the same workers' rows of
     the M·b-row call, and one round from the same state with the SAME
     gradient rows fed to both planes, which must be bit-equal."""
     found = {}
-    for kind in VS_RULES:
+    for kind, evals in [(k, None) for k in VS_RULES] + [("cada2", False)]:
         c = skipping_c.get(kind, 1.0)
+        tag = kind if evals is None else f"{kind}, fuse_evals=False"
         h = COHORT_H if kind in LOCAL_RULES else 1
         p = setup_cohort(VS_M, VS_C, VS_ROUNDS, N_DATA, seed=31, h=h)
         # the dense plane's batches: the cohort's rows in place, the other
@@ -2651,10 +2793,10 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
                                                         y_all[:, 0]))
         part = torch.as_tensor(cohorts_to_participation(p["cohorts"], VS_M),
                                device="cuda")
-        eng_d = _cohort_engine(kind, VS_M, c)
+        eng_d = _cohort_engine(kind, VS_M, c, evals)
         st_d, m_d = eng_d.run(eng_d.init(p["params"]), dense_batches,
                               participation=part)
-        eng_c = _cohort_engine(kind, VS_M, c)
+        eng_c = _cohort_engine(kind, VS_M, c, evals)
         (st_c, pool, m_c), _, _ = drive_cohort(eng_c, p, pipeline=True)
         rounds_equal = VS_ROUNDS
         for i, mm in enumerate(m_c):
@@ -2663,7 +2805,7 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
             off = np.ones(VS_M, bool)
             off[co] = False
             if dm[off].any():
-                raise RuntimeError(f"9c {kind}: the dense plane uploaded "
+                raise RuntimeError(f"9c {tag}: the dense plane uploaded "
                                    f"outside the cohort in round {i}")
             stale_ok = np.array_equal(mm["staleness"],
                                       m_d["staleness"][i].cpu().numpy()[co])
@@ -2674,7 +2816,7 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
                             - float(m_d["rhs"][i]))
             if not stale_ok or (margin[flipped]
                                 > MARGIN_BAND * float(m_d["rhs"][i])).any():
-                raise RuntimeError(f"9c {kind}: round {i} masks or "
+                raise RuntimeError(f"9c {tag}: round {i} masks or "
                                    "staleness differ outside the margin "
                                    "band")
             rounds_equal = i
@@ -2689,16 +2831,24 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
         diffs = _diff_report(pairs) if rounds_equal == VS_ROUNDS else []
         verdict = ("bit-equal" if rounds_equal == VS_ROUNDS and not diffs
                    else "NOT bit-equal")
-        print(f"  9c {kind} (c={c:.6g}), M = {VS_M}, C = {VS_C}, "
+        print(f"  9c {tag} (c={c:.6g}), M = {VS_M}, C = {VS_C}, "
               f"{VS_ROUNDS} rounds: masks and staleness "
               + ("exact" if rounds_equal == VS_ROUNDS
                  else f"exact through round {rounds_equal - 1}, then an "
                       "in-band gate flip")
               + f"; float state {verdict}"
               + (f" ({', '.join(diffs)})" if diffs else ""))
-        found[kind] = verdict
+        found[tag] = verdict
         if verdict == "bit-equal":
             continue
+        if evals is False:
+            raise RuntimeError(f"9c {tag}: the gathered evaluation must "
+                               "keep the cohort plane bit-equal to the "
+                               "dense plane")
+        worst = max(_gap_share(a, b) for _, a, b in pairs)
+        if rounds_equal == VS_ROUNDS and worst > COHORT_DENSE_BAND:
+            raise RuntimeError(f"9c {tag}: float state {worst:.3g} of "
+                               f"scale apart, above {COHORT_DENSE_BAND}")
         # the first op that differs: the gradient rows of the round's
         # evaluation at C·b rows against the same workers' rows at M·b,
         # in the form the engine runs and in the other
@@ -2727,6 +2877,8 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
                                  f"differs (max |Δ| "
                                  f"{float((a - b).abs().max()):.3g})")
                       for n, a, b in rows))
+        if evals is None:
+            _row_count_probe(eng_d, st_d.params, xb, yb, co, idx)
         # the round's own part, on the same gradient rows
         eng_d2 = _cohort_engine(kind, VS_M, c)
         eng_d2._fuse_evals = False
@@ -2757,7 +2909,7 @@ def phase_cohort_vs_dense(card: str, skipping_c: dict) -> dict:
                   for n in eng_c2.strategy.pooled_extras()]
         bad = _diff_report(pairs)
         if bad:
-            raise RuntimeError(f"9c {kind}: on the same gradient rows the "
+            raise RuntimeError(f"9c {tag}: on the same gradient rows the "
                                f"cohort round differs from the dense one: "
                                f"{bad}")
         print(f"    round {r} from the same state with the same gradient "
@@ -3407,6 +3559,238 @@ def phase_sim(card: str, params, batches, skipping_c: dict) -> dict:
     return totals
 
 
+# ------------------------------------- MoE, M-RoPE and embedding inputs
+
+def phase_moe_serve(card: str, label: str, rates) -> dict:
+    """One of 11a–11d: the config at full width (the depth cut of
+    MOE_SERVE where it has one) through ``serve.generate``: random prompts
+    (token ids, or the stub frontends' embeddings), qwen2-vl's M-RoPE
+    positions of an image plan, greedy decode steps. The counts set to 0
+    just before and read just after: exactly one flash launch per layer
+    (the prefill's), nothing else. Then a warm prefill by CUDA events and
+    under the profiler; a MoE model's prefill twice, its logits and cache
+    bit-equal; the flash kernel at the prefill's shape against its plain
+    version. Returns the flash launches and the qwen2-vl shape's flash
+    check."""
+    arch, layers, b, s, steps = MOE_SERVE[label]
+    cfg = lm_configs.get_config(arch)
+    full_layers = cfg.n_layers
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"{label}: {n_params} parameters, not "
+                           f"{param_count(cfg)}")
+    cut = (f"{cfg.n_layers} of {full_layers} layers" if layers
+           else f"all {full_layers} layers")
+    print(f"  {label} {cfg.name} ({cfg.source}) at full width, {cut}: "
+          f"{n_params:,} parameters in {cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+          + (f"{cfg.n_experts} experts top-{cfg.top_k} ({cfg.mlp_act}, "
+             f"d_ff {cfg.d_ff})" if cfg.block == "moe"
+             else f"dense {cfg.mlp_act} d_ff {cfg.d_ff}")
+          + ("" if cfg.embed_input else ", embedding input")
+          + (f", M-RoPE {cfg.mrope_sections_}" if cfg.mrope else ""))
+    prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
+    positions = (frontends.mrope_positions(b, s, MROPE_GRID) if cfg.mrope
+                 else None)
+    want = {"flash_attention": cfg.n_layers, "selective_scan": 0}
+
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    out = serve.generate(cfg, params, prompts, steps, positions=positions)
+    torch.cuda.synchronize()
+    got = {**_counts(), **_lm_counts()}
+    expect = {**dict.fromkeys(WRAPPERS, 0), **want}
+    if got != expect:
+        raise RuntimeError(f"{label}: launches {got}, expected {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    logits, toks = out["prefill_logits"], out["tokens"]
+    if logits.shape != (b, cfg.vocab) or toks.shape != (b, steps):
+        raise RuntimeError(f"{label}: shapes {tuple(logits.shape)}, "
+                           f"{tuple(toks.shape)}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(
+            torch.isfinite(out["logits"].float()).all())):
+        raise RuntimeError(f"{label}: non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise RuntimeError(f"{label}: decoded token ids out of range")
+    print(f"    prefill {b}x{s} (first call) {out['prefill_s'] * 1e3:.2f} "
+          f"ms; {steps} greedy decode steps in "
+          f"{out['decode_s'] * 1e3:.2f} ms ({steps * b / out['decode_s']:.2f}"
+          f" tokens/s); peak memory {peak / 2**30:.3f} GiB; launches flash "
+          f"{got['flash_attention']} in the prefill, 0 in decode, others 0 "
+          f"on {card}")
+    print(f"    logits finite, |max| {float(logits.float().abs().max()):.4f};"
+          f" tokens[0][:8] {toks[0][:8].tolist()}")
+    del out
+
+    inputs, step_input = serve.serving_inputs(cfg, prompts, positions)
+    max_seq = s + steps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    first, cache = lm.prefill(cfg, params, max_seq=max_seq, **inputs)
+    end.record()
+    end.synchronize()
+    warm = start.elapsed_time(end)
+    if cfg.block == "moe":
+        again, cache2 = lm.prefill(cfg, params, max_seq=max_seq, **inputs)
+        torch.cuda.synchronize()
+        if not (torch.equal(first, again) and torch.equal(cache.k, cache2.k)
+                and torch.equal(cache.v, cache2.v)):
+            raise RuntimeError(f"{label}: two prefills of the same prompts "
+                               "differ")
+        del cache2, again
+    busy, _ = _profile(lambda: lm.prefill(cfg, params, max_seq=max_seq,
+                                          **inputs),
+                       f"{label} warm prefill {b}x{s}: {warm:.2f} ms by CUDA "
+                       "events; profile", top=6)
+    if cfg.block == "moe":
+        print("    a second prefill of the same prompts: logits and K/V "
+              "cache bit-equal")
+
+    def decode4():
+        c = cache
+        tok = torch.argmax(first, dim=-1)
+        for _ in range(min(4, steps)):
+            lg, c = lm.decode_step(cfg, params, c, **step_input(tok))
+            tok = torch.argmax(lg, dim=-1)
+
+    if label == "11a":
+        _profile(decode4, f"{label} decode step profile (4 steps, per step)",
+                 per=4, top=4)
+    result = {"flash_attention": got["flash_attention"]}
+    del params, cache, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the flash kernel alone at this config's prefill shape, against its
+    # plain version; timed at qwen2-vl's (hd 128, GQA 12/2)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flash = check_flash(b, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.sliding_window, rates, gen,
+                        timed=label == "11b")
+    if label == "11b":
+        result["qwen2_vl_shape"] = flash
+    return result
+
+
+def _moe_train_batch(cfg, i: int, gen) -> dict:
+    """The trainer's global batch of step ``i``: the reference's token
+    stream, or for an embedding-input model the stub frontend's
+    embeddings, random labels and (M-RoPE) the image plan's positions."""
+    if cfg.embed_input:
+        toks = make_token_batches(cfg, global_batch=MOE_TRAIN_BATCH,
+                                  seq=TRAIN_SEQ, steps=i + 1)[i]
+        return {"tokens": torch.from_numpy(toks).to(device="cuda",
+                                                    dtype=torch.long)}
+    b, s = MOE_TRAIN_BATCH, TRAIN_SEQ
+    batch = {"embeds": frontends.vision_embeds(cfg, gen, b, s),
+             "labels": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device="cuda")}
+    if cfg.mrope:
+        batch["positions"] = frontends.mrope_positions(b, s, MROPE_GRID)
+    return batch
+
+
+def phase_moe_train(card: str) -> dict:
+    """11e: granite-moe-1b-a400m at full width with 8 of 24 layers through
+    ``make_train_step``: cada2 (c = 1), M = 2, 4 steps of 2 x 2048 tokens a
+    worker; the counts set to 0 just before and read just after: exactly
+    one AMSGrad, one two-operand norm and one eq. (3) launch a step, no
+    serving kernel. Losses finite, the routers' aux loss > 0; step ms and
+    peak memory. Then one step of qwen2-vl-2b at 2 of 28 layers on
+    {"embeds", "labels", "positions"} batches, launches exact. Returns the
+    launches."""
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    hp = trainer.TrainHParams(rule=CommRule(kind="cada2", **TRAIN_RULE),
+                              lr=TRAIN_LR)
+    for arch, layers, steps in ((MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
+                                 MOE_TRAIN_STEPS),
+                                ("qwen2-vl-2b", VLM_TRAIN_LAYERS, 1)):
+        base = lm_configs.get_config(arch)
+        cfg = base.with_(n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_train_state(cfg, hp, TRAIN_M, 0)
+        n_params = sum(t.numel() for t in _tensors(state.params))
+        if n_params != param_count(cfg):
+            raise RuntimeError(f"11e {arch}: {n_params} parameters")
+        step = trainer.make_train_step(cfg, hp, TRAIN_M)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        batches = [trainer.worker_split(_moe_train_batch(cfg, i, gen),
+                                        TRAIN_M) for i in range(steps)]
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        step_ms, losses = [], []
+        for i in range(steps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, mets = step(state, batches[i])
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(mets["loss"]))
+        got, want = _train_counts(), _train_launches("cada2", steps)
+        if got != want:
+            raise RuntimeError(f"11e {arch}: launches {got}, expected "
+                               f"{want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(v) for v in losses) or not _all_cuda(state):
+            raise RuntimeError(f"11e {arch}: losses {losses} or the state "
+                               "left the card")
+        with torch.no_grad():
+            wb = {k: v[0] for k, v in batches[0].items()}
+            _, m0 = lm.lm_loss(cfg, state.params, wb, train=True)
+        aux = float(m0["aux"])
+        if cfg.block == "moe" and not (math.isfinite(aux) and aux > 0):
+            raise RuntimeError(f"11e {arch}: aux loss {aux}")
+        for k, v in got.items():
+            totals[k] += v
+        steady = statistics.median(step_ms[1:] or step_ms)
+        print(f"  11e {cfg.name} at full width, {layers} of {base.n_layers} "
+              f"layers: {n_params:,} parameters, cada2 {TRAIN_RULE}, M = "
+              f"{TRAIN_M}, {steps} step(s) of {MOE_TRAIN_BATCH // TRAIN_M} x "
+              f"{TRAIN_SEQ} tokens a worker"
+              + ("" if cfg.embed_input else
+                 " ({embeds, labels, positions} batches)")
+              + f": losses {[round(v, 4) for v in losses]}, aux "
+              f"{aux:.6f}; step {steady:.2f} ms (first {step_ms[0]:.2f}); "
+              f"peak memory {peak:.3f} GiB; launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items())
+              + f" on {card}")
+        del state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_moe(card: str, rates) -> tuple[dict, dict]:
+    """Phase 11 (11a–11e). Returns the launches of its driven runs and the
+    flash kernel's check at qwen2-vl's shape."""
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    shape = {}
+    for label in MOE_SERVE:
+        t0 = time.perf_counter()
+        res = phase_moe_serve(card, label, rates)
+        totals["flash_attention"] += res["flash_attention"]
+        if "qwen2_vl_shape" in res:
+            shape = res["qwen2_vl_shape"]
+        print(f"    {label} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in phase_moe_train(card).items():
+        totals[k] += v
+    print(f"    11e took {time.perf_counter() - t0:.1f} s")
+    return totals, shape
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -3470,6 +3854,15 @@ def main() -> None:
     for name, v in phase_sim(card, params, batches, skipping_c).items():
         launches[name] += v
     print(f"    phase 10 took {time.perf_counter() - t10:.1f} s")
+    print("[11] MoE, M-RoPE and embedding-input models")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    moe_launches, qwen_flash = phase_moe(card, rates)
+    for name, v in moe_launches.items():
+        launches[name] += v
+    main_shape["flash_attention"]["qwen2_vl_shape"] = qwen_flash
+    print(f"    phase 11 took {time.perf_counter() - t11:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

@@ -27,8 +27,12 @@ loop over the workers, one worker's activations live at a time.
 
 The forward takes the model's training route (``lm_loss(train=True)``):
 the reference's jnp attention and chunked scan, here in PyTorch under
-autograd. The kernels on the step's path are the server step and the rule
-LHS norms (``kernels/ops.py``): on a CUDA tensor they launch or raise.
+autograd. Every model of the registry trains: a MoE model's loss carries
+its routers' auxiliary loss, and an embedding-input model takes
+{"embeds", "labels"} batches, with optional M-RoPE "positions" (3, B, S),
+which :func:`worker_split` cuts to (M, 3, b_m, S). The kernels on the
+step's path are the server step and the rule LHS norms
+(``kernels/ops.py``): on a CUDA tensor they launch or raise.
 
 The federated form (:func:`init_cohort_train_state`,
 :func:`make_cohort_train_step`, :func:`run_cohort_train`) keeps the M
@@ -189,7 +193,7 @@ def make_worker_grad(cfg: ModelConfig, hp: TrainHParams):
         return lm_loss(cfg, params, wbatch, train=True)[0]
 
     def worker_grad(params, wbatch):
-        bm = wbatch["tokens"].shape[0]
+        bm = wbatch["tokens" if "tokens" in wbatch else "labels"].shape[0]
         nm = min(hp.microbatches, bm)
         while bm % nm:
             nm -= 1

@@ -1,8 +1,10 @@
 """Wrappers of the CUDA kernels in ``csrc/cada_update.cu``.
 
-Each wrapper checks its operands (device, dtype, shape, contiguity),
-allocates its outputs with ``torch.empty``, launches one kernel on PyTorch's
-current stream and raises if the launch failed. The kernels' partial sums
+Each wrapper checks its operands (device, dtype, shape, contiguity; every
+operand on one card, else it raises by name), allocates its outputs with
+``torch.empty``, launches one kernel on PyTorch's current stream of the
+operands' card, with that card current, and raises if the launch
+failed. The kernels' partial sums
 and ticket counters live in a workspace that is allocated and zeroed once
 per (device, stream) and reused (:func:`workspace`); eq. (3)'s row mean
 needs none. Each wrapper keeps a plain integer count of its launches
@@ -75,14 +77,17 @@ def _check(lib, err: int, what: str) -> None:
 
 
 def _need_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raises unless every tensor is a contiguous CUDA tensor."""
+    """Raises unless every tensor is a contiguous CUDA tensor, all on the
+    first one's device."""
     for t in tensors:
-        if t.is_cuda and t.is_contiguous():
-            continue
         if t.device.type != "cuda":
             raise RuntimeError(f"{name}: the CUDA kernel needs a CUDA "
                                f"tensor, got one on {t.device}")
-        raise ValueError(f"{name}: operand must be contiguous")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: operands on {tensors[0].device} and "
+                             f"{t.device}; they must share one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand must be contiguous")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -192,9 +197,10 @@ def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
              | (_GRAD_BF16 if grad.dtype == bf16 else 0)
              | (_MOMENTS_BF16 if h.dtype == bf16 else 0)
              | (_VEC if _aligned(ptrs) else 0))
-    err = lib.cada_amsgrad(*ptrs, counter, partials, sq.data_ptr(), n,
-                           blocks, float(lr), b1, 1.0 - b1, b2, 1.0 - b2,
-                           eps, flags, stream)
+    with torch.cuda.device(dev):
+        err = lib.cada_amsgrad(*ptrs, counter, partials, sq.data_ptr(), n,
+                               blocks, float(lr), b1, 1.0 - b1, b2,
+                               1.0 - b2, eps, flags, stream)
     _check(lib, err, name)
     fused_amsgrad_flat.launches += 1
     return theta_out, h_out, vhat_out, sq
@@ -203,17 +209,17 @@ def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
 fused_amsgrad_flat.launches = 0
 
 
-def _need_plane(name: str, t: torch.Tensor) -> None:
-    _need_cuda(name, t)
-    if t.dtype not in FLOATS:
-        raise ValueError(f"{name}: planes must be fp32 or bf16, got "
-                         f"{t.dtype}")
+def _need_plane(name: str, *planes: torch.Tensor) -> None:
+    _need_cuda(name, *planes)
+    for t in planes:
+        if t.dtype not in FLOATS:
+            raise ValueError(f"{name}: planes must be fp32 or bf16, got "
+                             f"{t.dtype}")
 
 
 def _launch_diff_sq(name: str, a, b):
     """(R,) fp32 per-row Σ_j (a_rj − b_rj)² of two (R, n) planes."""
-    for t in (a, b):
-        _need_plane(name, t)
+    _need_plane(name, a, b)
     if a.dim() != 2 or a.shape != b.shape or a.numel() == 0:
         raise ValueError(f"{name}: need two equal non-empty (R, n) planes, "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -222,10 +228,11 @@ def _launch_diff_sq(name: str, a, b):
     chunks = row_chunks(n)
     counters, partials = workspace(a.device, stream, rows, rows * chunks)
     out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    err = lib.cada_batched_diff_sq(
-        a.data_ptr(), b.data_ptr(), counters, partials, out.data_ptr(), rows,
-        n, chunks, a.dtype == torch.bfloat16, b.dtype == torch.bfloat16,
-        rows_vector_ok(a, b), stream)
+    with torch.cuda.device(a.device):
+        err = lib.cada_batched_diff_sq(
+            a.data_ptr(), b.data_ptr(), counters, partials, out.data_ptr(),
+            rows, n, chunks, a.dtype == torch.bfloat16,
+            b.dtype == torch.bfloat16, rows_vector_ok(a, b), stream)
     _check(lib, err, name)
     return out
 
@@ -270,10 +277,11 @@ def batched_sq_norm_flat(a):
     chunks = row_chunks(n)
     counters, partials = workspace(a.device, stream, rows, rows * chunks)
     out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    err = lib.cada_batched_sq(a.data_ptr(), counters, partials,
-                              out.data_ptr(), rows, n, chunks,
-                              a.dtype == torch.bfloat16,
-                              rows_vector_ok(a), stream)
+    with torch.cuda.device(a.device):
+        err = lib.cada_batched_sq(a.data_ptr(), counters, partials,
+                                  out.data_ptr(), rows, n, chunks,
+                                  a.dtype == torch.bfloat16,
+                                  rows_vector_ok(a), stream)
     _check(lib, err, name)
     batched_sq_norm_flat.launches += 1
     return out
@@ -307,9 +315,12 @@ def eq3_row_mean_flat(plane, m_total: int):
     rcp = float(np.float32(1.0) / np.float32(m_total))
     lib, stream = _lib(), _stream(plane.device.index)
     out = torch.empty(n, dtype=torch.float32, device=plane.device)
-    err = lib.cada_row_mean(plane.data_ptr(), out.data_ptr(), rows, n, rcp,
-                            mean_blocks(n), plane.dtype == torch.bfloat16,
-                            rows_vector_ok(plane) and vector_ok(out), stream)
+    with torch.cuda.device(plane.device):
+        err = lib.cada_row_mean(plane.data_ptr(), out.data_ptr(), rows, n,
+                                rcp, mean_blocks(n),
+                                plane.dtype == torch.bfloat16,
+                                rows_vector_ok(plane) and vector_ok(out),
+                                stream)
     _check(lib, err, name)
     eq3_row_mean_flat.launches += 1
     return out

@@ -15,7 +15,12 @@ card unless ``--device cpu``: the mesh-free flags of the JAX package's
 ``launch/train.py`` and its ``loss= uploads= skip=`` lines. A delta-payload
 rule runs ``--local-steps`` H local steps per round, each on its own
 B / (H · M) slice of the global batch, and the AMSGrad server step at
-``--lr`` consumes the mean delta.
+``--lr`` consumes the mean delta. ``--ckpt-dir`` saves ``state.params``
+every ``--ckpt-every`` steps and at the end (``repro_torch.checkpoint``,
+the reference's format) with the logged rows as ``history.json``;
+``--trace`` records a ``train_step`` span per step on the wall clock, and
+``--metrics-out``/``--metrics-prom`` write the run's row with the
+``CommLedger`` totals, fed every ``--metrics-every`` steps.
 
 ``--runtime sim`` trains under the discrete-event runtime
 (``repro_torch.sim``): simulated wall-clock under ``--network``, the
@@ -29,21 +34,23 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs as C
-from repro_torch.core.comm import STRATEGIES, strategy_kinds
+from repro_torch.checkpoint import io as ckpt
+from repro_torch.core.comm import STRATEGIES, strategy_for, strategy_kinds
 from repro_torch.core.rules import CommRule
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.device import resolve_device
 from repro_torch.distributed.trainer import (TrainHParams, init_train_state,
                                              make_train_step, worker_split)
 from repro_torch.models.model import init_params, lm_loss
-from repro_torch.obs import (MetricsRegistry, Tracer, write_chrome_trace,
-                             write_jsonl)
+from repro_torch.obs import (CommLedger, MetricsRegistry, Tracer, as_tracer,
+                             write_chrome_trace, write_jsonl)
 from repro_torch.sim import simulate, summarize
 
 
@@ -194,8 +201,9 @@ def main(argv=None) -> list[dict]:
                    help="cohort rounds: the serial loop instead of the "
                         "pipelined one (the parity oracle)")
     p.add_argument("--metrics-every", type=int, default=8,
-                   help="cohort rounds: fetch the device's metrics every "
-                        "K rounds instead of per round")
+                   help="cohort rounds and the mesh runtime's ledger: "
+                        "fetch the device's metrics every K rounds or "
+                        "steps instead of each one")
     p.add_argument("--host-pool", action="store_true",
                    help="sim async mode: stream per-worker rows through "
                         "the host WorkerPool instead of holding the "
@@ -224,6 +232,10 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--no-error-feedback", action="store_true",
                    help="laq/topk: drop the compression error instead of "
                         "carrying the per-worker residual e_m")
+    p.add_argument("--period-min", type=int, default=1,
+                   help="avp rule: per-worker upload-period lower bound")
+    p.add_argument("--period-max", type=int, default=0,
+                   help="avp rule: upper bound (0 = max-delay)")
     p.add_argument("--avp-compose", action="store_true",
                    help="avp rule: upload only when due AND the "
                         "innovation energy clears the CADA RHS")
@@ -252,16 +264,24 @@ def main(argv=None) -> list[dict]:
                    help="M, simulated on the one device; 0 = 1 on the "
                         "mesh runtime (the reference's one-device mesh), "
                         "4 on the sim")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="mesh runtime: save state.params under "
+                        "DIR/step_<k> and the logged rows as "
+                        "DIR/history.json")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="mesh runtime: also save every K steps (0 = at "
+                        "the end only)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--trace", default="",
-                   help="sim runtime: write every simulated compute/"
-                        "transfer/gate event as a Chrome-trace/Perfetto "
-                        "JSON timeline on the simulated clock here")
+                   help="write a Chrome-trace/Perfetto JSON timeline here: "
+                        "sim runtime = every simulated compute/transfer/"
+                        "gate event on the simulated clock; mesh runtime "
+                        "= per-step train spans on the wall clock")
     p.add_argument("--metrics-out", default="",
-                   help="sim runtime: append the run's summary row (with "
-                        "the comm ledger) as one JSONL row to this path")
+                   help="append the run's summary row with the comm "
+                        "ledger as one JSONL row to this path")
     p.add_argument("--metrics-prom", default="",
-                   help="sim runtime: also write the row as a Prometheus "
+                   help="also write the row as a Prometheus "
                         "textfile-collector snapshot to this path")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
@@ -272,19 +292,21 @@ def main(argv=None) -> list[dict]:
            else C.get_config(args.arch))
     if args.layers:
         cfg = cfg.with_(n_layers=args.layers)
+    if not cfg.embed_input:
+        raise SystemExit(f"{args.arch} consumes modality embeddings; serve "
+                         "it with python -m repro_torch.launch.serve, or "
+                         "train it through repro_torch.distributed.trainer "
+                         "with {'embeds', 'labels', 'positions'} batches")
     if args.adapt_local_steps and args.runtime != "sim":
         raise SystemExit(
             "--adapt-local-steps needs --runtime sim: the adaptation "
             "signal is comm vs compute time from the sim's link model — "
             "the mesh runtime has no clock to adapt from")
-    if args.runtime != "sim" and (args.trace or args.metrics_out
-                                  or args.metrics_prom):
-        raise SystemExit("--trace, --metrics-out and --metrics-prom are "
-                         "written by --runtime sim")
     rule = CommRule(kind=args.rule, c=args.c, d_max=10, max_delay=50,
                     quantize_bits=args.quantize_bits,
                     error_feedback=not args.no_error_feedback,
                     topk_frac=args.topk_frac, sparse_wire=args.sparse_wire,
+                    period_min=args.period_min, period_max=args.period_max,
                     avp_compose=args.avp_compose,
                     local_steps=args.local_steps,
                     adapt_local_steps=args.adapt_local_steps,
@@ -305,13 +327,34 @@ def main(argv=None) -> list[dict]:
     batches = make_token_batches(cfg, global_batch=args.global_batch,
                                  seq=args.seq, steps=args.steps)
 
+    # telemetry: a train_step span per step on the wall clock, and a comm
+    # ledger fed from the steps' metrics, fetched every --metrics-every
+    # steps
+    obs_on = bool(args.trace or args.metrics_out or args.metrics_prom)
+    tracer = Tracer() if args.trace else None
+    ledger = (CommLedger.for_strategy(strategy_for(rule)) if obs_on
+              else None)
+    tr = as_tracer(tracer)
+    obs_buf: list = []
+
+    def drain_obs():
+        for met in obs_buf:
+            ledger.observe_round({k: v.cpu().numpy()
+                                  for k, v in met.items()})
+        obs_buf.clear()
+
     t0 = time.time()
     history = []
     for i in range(args.steps):
         tokens = torch.from_numpy(batches[i]).to(device=device,
                                                   dtype=torch.long)
-        state, mets = step(state, worker_split({"tokens": tokens}, m,
-                                               local_steps=h))
+        batch = worker_split({"tokens": tokens}, m, local_steps=h)
+        with tr.span("train_step", track="train", args={"step": i}):
+            state, mets = step(state, batch)
+        if obs_on:
+            obs_buf.append(mets)
+            if len(obs_buf) >= max(1, args.metrics_every):
+                drain_obs()
         if i % args.log_every == 0 or i == args.steps - 1:
             row = {k: float(v) for k, v in mets.items() if v.ndim == 0}
             row["step"] = i
@@ -321,8 +364,23 @@ def main(argv=None) -> list[dict]:
                   f"uploads={int(row['uploads'])}/{m} "
                   f"skip={row['skip_rate']:.2f} "
                   f"({row['wall_s']}s)", flush=True)
+        if args.ckpt_every and args.ckpt_dir and i and \
+                i % args.ckpt_every == 0:
+            ckpt.save(os.path.join(args.ckpt_dir, f"step_{i}"),
+                      state.params, step=i)
+    if args.ckpt_dir:
+        ckpt.save(os.path.join(args.ckpt_dir, f"step_{args.steps}"),
+                  state.params, step=args.steps)
+        with open(os.path.join(args.ckpt_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=1)
     final = np.mean([h["loss"] for h in history[-3:]])
     print(f"done: final loss {final:.4f} on {device}")
+    if obs_on:
+        drain_obs()
+        _write_obs(args, tracer, {
+            "runtime": "mesh", "arch": args.arch, "rule": args.rule,
+            "steps": args.steps, "final_loss": float(final),
+            **ledger.summary()})
     return history
 
 

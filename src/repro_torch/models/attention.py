@@ -1,4 +1,5 @@
-"""Attention: GQA with RoPE / partial RoPE, the causal prefill path, and
+"""Attention: GQA with RoPE / partial RoPE / M-RoPE, the causal prefill
+path, and
 the one-token decode path over a (possibly ring-buffered) KV cache. The
 port of the JAX package's ``models/attention.py``: logits and softmax in
 fp32, values in the model dtype, GQA grouped without repeating K/V in the
@@ -13,7 +14,11 @@ model code.
     ``ops.flash_attention``: the CUDA kernel on the card, its plain version
     on the CPU. Both compute the same causal softmax; they differ from the
     reference's routes only in rounding (the kernel scales q before the
-    product, the reference's routes after it).
+    product, the reference's routes after it). Explicit positions, or
+    Sq != Sk, take :func:`naive_attention` on every device, the
+    reference's own route for them. The models never pass positions to
+    attention (M-RoPE positions only shape the rotary tables), so their
+    prefill always runs the kernel.
   * Training (``train=True``) makes the reference's choice, in PyTorch
     under autograd on every device: :func:`blockwise_attention` for a long
     self-attention, :func:`naive_attention` otherwise. The kernel has no
@@ -41,6 +46,25 @@ def rope_angles(positions, dim: int, theta: float):
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=positions.device) / half))
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions, dim: int, theta: float, sections):
+    """M-RoPE (Qwen2-VL): positions (3, B, S) for the (t, h, w) axes; the
+    head dim's halves are split into per-axis sections. -> cos/sin
+    (B, S, dim/2)."""
+    half = dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not add up "
+                         f"to dim/2 = {half}")
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang_per_axis = positions.float()[..., None] * freqs      # (3,B,S,half)
+    chunks, start = [], 0
+    for axis, sec in enumerate(sections):
+        chunks.append(ang_per_axis[axis, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(chunks, dim=-1)                          # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -99,8 +123,9 @@ def _grouped_values(probs, v):
 
 def naive_attention(q, k, v, positions_q=None, positions_k=None,
                     window: int = 0, dtype=torch.bfloat16):
-    """O(S²)-memory attention with explicit positions (tests, and the
-    CPU route of non-standard positions)."""
+    """O(S²)-memory attention with explicit positions: the route of
+    non-standard positions on every device, and of short training
+    sequences."""
     sq, sk = q.shape[1], k.shape[1]
     if positions_q is None:
         positions_q = torch.arange(sq, device=q.device)
@@ -179,9 +204,8 @@ def causal_attention(q, k, v, positions_q=None, positions_k=None,
     (see the module docstring for the two routes).
 
     Serving: self-attention with standard positions goes through
-    ``ops.flash_attention`` at every length. Explicit positions (M-RoPE)
-    have no kernel yet: on the CPU they take :func:`naive_attention`, on
-    the card they raise.
+    ``ops.flash_attention`` at every length; explicit positions or
+    Sq != Sk take :func:`naive_attention`, as in the reference.
 
     Training: :func:`blockwise_attention` where Sq = Sk ≥ 2048, both
     divisible by the chunk, with standard positions; else
@@ -198,10 +222,6 @@ def causal_attention(q, k, v, positions_q=None, positions_k=None,
     if standard and q.shape[1] == k.shape[1]:
         return ops.flash_attention(q, k, v, window=window,
                                    impl=impl).to(dtype)
-    if q.device.type == "cuda":
-        raise NotImplementedError(
-            "causal_attention with explicit positions (M-RoPE) or Sq != Sk "
-            "on the card: no kernel is ported for it (MoE/VLM slice)")
     return naive_attention(q, k, v, positions_q, positions_k, window, dtype)
 
 

@@ -91,6 +91,17 @@ class ModelConfig:
         return _TORCH_DTYPES[self.dtype]
 
     @property
+    def mrope_sections_(self) -> tuple:
+        """M-RoPE t/h/w sections, scaled to this head_dim if the configured
+        ones (Qwen2-VL's 16/24/24 for hd=128) don't fit."""
+        half = self.hd // 2
+        if sum(self.mrope_sections) == half:
+            return self.mrope_sections
+        t = max(1, half // 4)
+        h = (half - t) // 2
+        return (t, h, half - t - h)
+
+    @property
     def has_attention(self) -> bool:
         return self.block in ("dense", "moe") or self.attn_every > 0
 

@@ -1,5 +1,6 @@
-"""Shared layer primitives: RMSNorm, the dense FFN, and the causal
-depthwise conv of the Mamba blocks (full sequence and one decode step).
+"""Shared layer primitives: RMSNorm, the FFNs (dense and expert-stacked),
+and the causal depthwise conv of the Mamba blocks (full sequence and one
+decode step).
 Each keeps the JAX package's dtype discipline (``models/layers.py``)."""
 from __future__ import annotations
 
@@ -34,6 +35,18 @@ def ffn(params, cfg: ModelConfig, x):
     else:
         h = _gelu(x @ params["w_up"])
     return h @ params["w_down"]
+
+
+def ffn_stacked(params, cfg: ModelConfig, x):
+    """Expert-stacked FFN: x (E, C, d) with weights (E, d, ff)/(E, ff, d),
+    one batched product per projection."""
+    act = _GATE_ACT.get(cfg.mlp_act)
+    up = torch.bmm(x, params["w_up"])
+    if act is not None:
+        h = act(torch.bmm(x, params["w_gate"])) * up
+    else:
+        h = _gelu(up)
+    return torch.bmm(h, params["w_down"])
 
 
 def causal_conv1d(x, w, b):

@@ -25,10 +25,14 @@ Decode caches
   states into the cache's tensors in place (the reference returns new
   arrays), so a decode step moves no more than its own entries.
 
-Dense, pure-SSM (mamba1, mamba2) and hybrid (mamba2 + one shared attention
-block) models are ported. ``block="moe"``, ``mrope`` and
-``embed_input=False`` raise NotImplementedError: they come with the MoE/VLM
-slice.
+Every block of the reference is ported: dense, MoE (``models/moe.py``;
+the Switch auxiliary loss of each layer is summed into the aux term),
+pure-SSM (mamba1, mamba2) and hybrid (mamba2 + one shared attention
+block). Each entry takes token ids or, for the embedding-input models
+(``embed_input=False``: qwen2-vl, musicgen; ``models/frontends.py`` draws
+their stub inputs), ``embeds`` (B, S, d); explicit ``positions`` ((B, S),
+or (3, B, S) for M-RoPE) shape only the rotary tables, as in the
+reference, so serving attention stays on the flash kernel.
 """
 from __future__ import annotations
 
@@ -42,21 +46,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv1d, ffn, rmsnorm
+from repro_torch.models.moe import moe_ffn
 
 INIT_STD = 0.02
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError, by name, on the parts of a config that
-    the port does not run yet."""
-    missing = [what for what, on in (("block='moe'", cfg.block == "moe"),
-                                     ("mrope", cfg.mrope),
-                                     ("embed_input=False",
-                                      not cfg.embed_input)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (they come "
-            "with the MoE/VLM slice)")
 
 
 # ================================================================== init
@@ -91,11 +83,16 @@ def _block_params(cfg: ModelConfig, gen, dtype):
     """Every block's tensors, stacked over the n_layers axis."""
     L, d, dev = cfg.n_layers, cfg.d_model, gen.device
     f32 = torch.float32
-    if cfg.block == "dense":
-        return {"ln1": _full((L, d), 1.0, dtype, dev),
-                "ln2": _full((L, d), 1.0, dtype, dev),
-                "attn": _attn_params(cfg, gen, dtype, (L,)),
-                "mlp": _ffn_params(cfg, gen, dtype, (L,))}
+    if cfg.block in ("dense", "moe"):
+        p = {"ln1": _full((L, d), 1.0, dtype, dev),
+             "ln2": _full((L, d), 1.0, dtype, dev),
+             "attn": _attn_params(cfg, gen, dtype, (L,))}
+        if cfg.block == "moe":   # experts stacked (L, E, ...), fp32 router
+            p["mlp"] = _ffn_params(cfg, gen, dtype, (L, cfg.n_experts))
+            p["mlp"]["router"] = _dense(gen, (L, d, cfg.n_experts), f32)
+        else:
+            p["mlp"] = _ffn_params(cfg, gen, dtype, (L,))
+        return p
     if cfg.block == "mamba1":
         di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
         a_log = torch.log(torch.arange(1, n + 1, dtype=f32, device=dev))
@@ -141,7 +138,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     not the reference's ``jax.random`` bits; tests convert the reference's
     own parameters with ``repro_torch.convert.lm_params_from_numpy``."""
     cfg.validate()
-    check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = cfg.torch_dtype
@@ -168,10 +164,19 @@ def layer(blocks: dict, i: int) -> dict:
 
 # ================================================================ forward
 
+def _mlp(lp, cfg: ModelConfig, h):
+    """The block's MLP: (y, aux), the MoE FFN with its auxiliary loss in a
+    MoE block, else the dense FFN and a zero aux."""
+    if cfg.block == "moe" and "router" in lp["mlp"]:
+        return moe_ffn(lp["mlp"], cfg, h)
+    return ffn(lp["mlp"], cfg, h), torch.zeros((), dtype=torch.float32,
+                                               device=h.device)
+
+
 def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
                     train=False):
     """Pre-norm attention + MLP over the full sequence; also returns the
-    roped K and V (the decode cache's entries)."""
+    roped K and V (the decode cache's entries) and the MLP's aux loss."""
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv(params["attn"], cfg, h)
     q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
@@ -179,16 +184,34 @@ def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
     a = attn.causal_attention(q, k, v, window=cfg.sliding_window,
                               dtype=x.dtype, impl=impl, train=train)
     x = x + attn.out_proj(params["attn"], a)
-    h2 = rmsnorm(x, params["ln2"], cfg.norm_eps)
-    return x + ffn(params["mlp"], cfg, h2), k, v
+    y, aux = _mlp(params, cfg, rmsnorm(x, params["ln2"], cfg.norm_eps))
+    return x + y, k, v, aux
 
 
-def _rope_tables(cfg: ModelConfig, seq: int, device):
+def _rope_tables(cfg: ModelConfig, positions, batch: int, seq: int, device):
+    """cos/sin of the rotary embedding: M-RoPE from (3, B, S) positions
+    (by default t = h = w = 0..S-1), else RoPE from (B, S) positions (by
+    default 0..S-1, broadcast over the batch)."""
     if not cfg.has_attention:
         return None, None
-    positions = torch.arange(seq, device=device)[None]         # (1,S) bcast
+    if cfg.mrope:
+        if positions is None:
+            base = torch.arange(seq, device=device)[None].expand(batch, seq)
+            positions = torch.stack([base] * 3)                 # (3,B,S)
+        return attn.mrope_angles(positions, cfg.hd, cfg.rope_theta,
+                                 cfg.mrope_sections_)
+    if positions is None:
+        positions = torch.arange(seq, device=device)[None]      # (1,S) bcast
     return attn.rope_angles(positions, int(cfg.hd * cfg.rotary_pct),
                             cfg.rope_theta)
+
+
+def _embed(cfg: ModelConfig, params, tokens, embeds):
+    """The input stream: token embeddings, or ``embeds`` in the model
+    dtype."""
+    if embeds is None:
+        return params["embed"][tokens]
+    return embeds.to(cfg.torch_dtype)
 
 
 def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None):
@@ -211,21 +234,26 @@ def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None):
     return x + out, xi[:, -(cfg.ssm_conv - 1):, :], h_final
 
 
-def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True):
+def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
+                positions=None):
     """Every layer over the full sequence, in the reference's order (a
     hybrid's shared block after each stage of ``attn_every`` SSM layers).
-    Returns x and the per-layer cache entries: lists of (K, V) for the
+    Returns x, the per-layer cache entries: lists of (K, V) for the
     attention layers and, where ``cached`` (prefill), of (conv tail, SSM
-    state) for the SSM layers; the forward pass runs the plain
-    ``mamba*_block`` instead, as the reference's does."""
-    cos, sin = _rope_tables(cfg, x.shape[1], x.device)
+    state) for the SSM layers (the forward pass runs the plain
+    ``mamba*_block`` instead, as the reference's does), and the aux loss
+    summed over the layers."""
+    cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
+                            x.device)
     kv, states = [], []
-    if cfg.block == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block in ("dense", "moe"):
         for i in range(cfg.n_layers):
-            x, k, v = _attn_mlp_block(layer(params["blocks"], i), cfg, x,
-                                      cos, sin, impl)
+            x, k, v, a = _attn_mlp_block(layer(params["blocks"], i), cfg, x,
+                                         cos, sin, impl)
             kv.append((k, v))
-        return x, kv, states
+            aux = aux + a
+        return x, kv, states, aux
     ssm_block = (ssm.mamba2_block if cfg.block == "mamba2"
                  else ssm.mamba1_block)
     for i in range(cfg.n_layers):
@@ -236,10 +264,11 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True):
         else:
             x = ssm_block(lp, cfg, x, impl)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
-            x, k, v = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
-                                      impl)
+            x, k, v, a = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
+                                         impl)
             kv.append((k, v))
-    return x, kv, states
+            aux = aux + a
+    return x, kv, states, aux
 
 
 def _remat(cfg: ModelConfig, fn):
@@ -250,19 +279,26 @@ def _remat(cfg: ModelConfig, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _train_layers(cfg: ModelConfig, params, x):
+def _train_layers(cfg: ModelConfig, params, x, positions=None):
     """Every layer on the training route, in the reference's order, with
     ``cfg.remat`` wrapping what the reference wraps in ``jax.checkpoint``:
-    each dense block, each pure-SSM layer, and each SSM layer inside a
-    hybrid stage (not the shared attention block)."""
-    cos, sin = _rope_tables(cfg, x.shape[1], x.device)
+    each dense or MoE block, each pure-SSM layer, and each SSM layer inside
+    a hybrid stage (not the shared attention block). Returns x and the aux
+    loss summed over the layers."""
+    cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
+                            x.device)
     blocks = params["blocks"]
-    if cfg.block == "dense":
-        body = _remat(cfg, lambda h, i: _attn_mlp_block(
-            layer(blocks, i), cfg, h, cos, sin, train=True)[0])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block in ("dense", "moe"):
+        def block(h, i):
+            h, _, _, a = _attn_mlp_block(layer(blocks, i), cfg, h, cos, sin,
+                                         train=True)
+            return h, a
+        body = _remat(cfg, block)
         for i in range(cfg.n_layers):
-            x = body(x, i)
-        return x
+            x, a = body(x, i)
+            aux = aux + a
+        return x, aux
     ssm_block = (ssm.mamba2_block if cfg.block == "mamba2"
                  else ssm.mamba1_block)
     body = _remat(cfg, lambda h, i: ssm_block(layer(blocks, i), cfg, h,
@@ -270,22 +306,24 @@ def _train_layers(cfg: ModelConfig, params, x):
     for i in range(cfg.n_layers):
         x = body(x, i)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
-            x = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
-                                train=True)[0]
-    return x
+            x, _, _, a = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
+                                         train=True)
+            aux = aux + a
+    return x, aux
 
 
-def hidden_states(cfg: ModelConfig, params, tokens, impl=None, train=False):
-    """tokens (B, S) -> final hidden states (B, S, d) and the aux loss (0:
-    no MoE router is ported). ``train`` takes the training route (module
-    docstring); ``impl`` applies to the serving route's kernels."""
-    check_ported(cfg)
-    x = params["embed"][tokens]
+def hidden_states(cfg: ModelConfig, params, tokens=None, impl=None,
+                  train=False, *, embeds=None, positions=None):
+    """tokens (B, S) or ``embeds`` (B, S, d) -> final hidden states
+    (B, S, d) and the aux loss (the MoE layers' summed). ``train`` takes
+    the training route (module docstring); ``impl`` applies to the serving
+    route's kernels; ``positions`` shape the rotary tables."""
+    x = _embed(cfg, params, tokens, embeds)
     if train:
-        x = _train_layers(cfg, params, x)
+        x, aux = _train_layers(cfg, params, x, positions)
     else:
-        x, _, _ = _run_layers(cfg, params, x, impl, cached=False)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, _, aux = _run_layers(cfg, params, x, impl, cached=False,
+                                   positions=positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -295,18 +333,28 @@ def logits_fn(cfg: ModelConfig, params, hidden):
     return hidden @ head
 
 
-def forward(cfg: ModelConfig, params, tokens, impl=None, train=False):
-    hidden, aux = hidden_states(cfg, params, tokens, impl, train)
+def forward(cfg: ModelConfig, params, tokens=None, impl=None, train=False,
+            *, embeds=None, positions=None):
+    hidden, aux = hidden_states(cfg, params, tokens, impl, train,
+                                embeds=embeds, positions=positions)
     return logits_fn(cfg, params, hidden), aux
 
 
 def lm_loss(cfg: ModelConfig, params, batch, impl=None, train=False):
-    """batch {"tokens": (B, S+1)} -> (scalar loss, metrics): the mean
-    next-token NLL in fp32. With ``train`` the forward takes the training
-    route, whose every op has a gradient under autograd (the serving
-    route's kernels have none)."""
-    inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    logits, aux = forward(cfg, params, inputs, impl, train)
+    """batch {"tokens": (B, S+1)} or {"embeds": (B, S, d), "labels":
+    (B, S)}, each with optional "positions" -> (scalar loss, metrics): the
+    mean next-token NLL in fp32 plus the aux loss. With ``train`` the
+    forward takes the training route, whose every op has a gradient under
+    autograd (the serving route's kernels have none)."""
+    positions = batch.get("positions")
+    if "tokens" in batch:
+        inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        logits, aux = forward(cfg, params, inputs, impl, train,
+                              positions=positions)
+    else:
+        logits, aux = forward(cfg, params, None, impl, train,
+                              embeds=batch["embeds"], positions=positions)
+        labels = batch["labels"]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss = torch.mean(nll)
@@ -343,7 +391,6 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                device=None) -> DecodeCache:
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     w = cache_width(cfg, max_seq)
@@ -381,27 +428,32 @@ def _attn_decode_layer(lp, cfg: ModelConfig, x, k_c, v_c, slot, slot_pos,
     valid = (slot_pos >= 0)[None]                              # (1, W)
     a = attn.decode_attention(q, k_c, v_c, valid, dtype=x.dtype)
     x = x + attn.out_proj(lp["attn"], a)
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn(lp["mlp"], cfg, h2)
+    y, _ = _mlp(lp, cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return x + y
 
 
-def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens):
-    """One decode step for the whole batch. tokens (B,). Returns
-    (logits (B, V), the cache at index + 1). The cache's tensors are
-    updated in place (see the module docstring)."""
-    check_ported(cfg)
-    x = params["embed"][tokens][:, None, :]                   # (B,1,d)
+def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
+                *, embeds=None):
+    """One decode step for the whole batch. tokens (B,) or ``embeds``
+    (B, 1, d). Returns (logits (B, V), the cache at index + 1). The cache's
+    tensors are updated in place (see the module docstring). Every axis of
+    an M-RoPE position is the step's index, as in the reference."""
+    x = _embed(cfg, params, None if tokens is None else tokens[:, None],
+               embeds)                                      # (B,1,d)
     idx = cache.index
     w = cache.slot_pos.shape[0]
     slot = idx % w
     cos = sin = None
-    if cfg.has_attention:
-        cos, sin = attn.rope_angles(
-            torch.full((1, 1), idx, dtype=torch.int32, device=x.device),
-            int(cfg.hd * cfg.rotary_pct), cfg.rope_theta)
+    pos = torch.full((1, 1), idx, dtype=torch.int32, device=x.device)
+    if cfg.mrope:
+        cos, sin = attn.mrope_angles(pos[None].expand(3, 1, 1), cfg.hd,
+                                     cfg.rope_theta, cfg.mrope_sections_)
+    elif cfg.has_attention:
+        cos, sin = attn.rope_angles(pos, int(cfg.hd * cfg.rotary_pct),
+                                    cfg.rope_theta)
     cache.slot_pos[slot] = idx     # as the reference, a pure SSM's 1 slot too
 
-    if cfg.block == "dense":
+    if cfg.block in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x = _attn_decode_layer(layer(params["blocks"], i), cfg, x,
                                    cache.k[i], cache.v[i], slot,
@@ -428,16 +480,20 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens):
 
 # ================================================================ prefill
 
-def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None,
-            impl=None):
-    """Full-sequence forward that also builds the decode cache.
+def prefill(cfg: ModelConfig, params, tokens=None,
+            max_seq: int | None = None, impl=None, *, embeds=None,
+            positions=None):
+    """Full-sequence forward that also builds the decode cache, from
+    tokens (B, S) or ``embeds`` (B, S, d); ``positions`` shape the rotary
+    tables.
 
     Returns (last-token logits (B, V), DecodeCache primed at index = S).
     """
-    check_ported(cfg)
-    b, s = tokens.shape
+    x = _embed(cfg, params, tokens, embeds)
+    b, s = x.shape[:2]
+    device = x.device
     max_seq = max_seq or s
-    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    cache = init_cache(cfg, b, max_seq, device=device)
     w = cache.slot_pos.shape[0]
 
     def to_ring(t):  # (B, S, Hkv, hd) -> the last W entries in ring order
@@ -446,17 +502,17 @@ def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None,
             return torch.roll(tail, s % w, dims=1)
         return torch.nn.functional.pad(tail, (0, 0, 0, 0, 0, w - s))
 
-    x, kv, states = _run_layers(cfg, params, params["embed"][tokens], impl)
+    x, kv, states, _ = _run_layers(cfg, params, x, impl,
+                                   positions=positions)
     for j, (k, v) in enumerate(kv):
         cache.k[j] = to_ring(k)
         cache.v[j] = to_ring(v)
     for i, (conv_tail, h_final) in enumerate(states):
         cache.conv[i] = conv_tail
         cache.ssm[i] = h_final
-    positions = torch.arange(max(s - w, 0), s, device=tokens.device)
-    slots = positions % w if s >= w else torch.arange(
-        min(s, w), device=tokens.device)
-    cache.slot_pos[slots] = positions.to(torch.int32)
+    filled = torch.arange(max(s - w, 0), s, device=device)
+    slots = filled % w if s >= w else torch.arange(min(s, w), device=device)
+    cache.slot_pos[slots] = filled.to(torch.int32)
 
     hidden = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = logits_fn(cfg, params, hidden)[:, 0]

@@ -42,7 +42,9 @@ from repro_torch.distributed.trainer import (TrainHParams, init_train_state,
 from repro_torch.kernels import cada_update, ops, ref, ssm_scan
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import attention as tattn
+from repro_torch.models import frontends as tfront
 from repro_torch.models import model as TM
+from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.models.small import logreg_init, logreg_loss
 from repro_torch.optim.fused import FusedAMSGrad
@@ -371,6 +373,77 @@ def test_wire_compressors_same_bits_on_card_and_cpu(gen, bits):
     assert torch.equal(back.view(torch.int32), sp.view(torch.int32))
 
 
+def _cada_calls(x, y):
+    """Each CADA wrapper on (n,) operands x and y (and their (1, n)
+    planes)."""
+    return {
+        "fused_amsgrad_flat": lambda: cada_update.fused_amsgrad_flat(
+            x, x, x.abs(), y, 0.1),
+        "batched_diff_sq_norm_flat":
+            lambda: cada_update.batched_diff_sq_norm_flat(x[None], y[None]),
+        "diff_sq_norm_flat": lambda: cada_update.diff_sq_norm_flat(x, y),
+        "batched_sq_norm_flat":
+            lambda: cada_update.batched_sq_norm_flat(torch.stack([x, y])),
+        "eq3_row_mean_flat":
+            lambda: cada_update.eq3_row_mean_flat(torch.stack([x, y]), 2)}
+
+
+def test_cada_wrappers_refuse_a_host_operand_by_name(gen):
+    x = torch.randn(64, generator=gen, device="cuda")
+    for name, call in _cada_calls(x, x.cpu()).items():
+        if name in ("batched_sq_norm_flat", "eq3_row_mean_flat"):
+            continue   # their one plane is stacked on one device
+        with pytest.raises(RuntimeError, match=name):
+            call()
+
+
+def test_cada_wrappers_keep_to_their_operands_card(gen):
+    """On a machine with two cards: operands on two cards raise by name,
+    and operands on card 1 launch there while card 0 is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x0 = torch.randn(4096, generator=gen, device="cuda:0")
+    x1 = x0.to("cuda:1")
+    for name, call in _cada_calls(x0, x1).items():
+        if name in ("batched_sq_norm_flat", "eq3_row_mean_flat"):
+            continue
+        with pytest.raises(ValueError, match=f"{name}.*one device"):
+            call()
+    with torch.cuda.device(0):
+        for name, call in _cada_calls(x1, x1 * 0.5).items():
+            on1 = call()
+            outs = on1 if isinstance(on1, tuple) else (on1,)
+            assert all(t.device == x1.device for t in outs), name
+            with torch.cuda.device(1):
+                again = call()
+            again = again if isinstance(again, tuple) else (again,)
+            assert all(torch.equal(a, b) for a, b in zip(outs, again)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_runs_the_same_bits_on_the_card(gen, dtype):
+    """granite-moe's routing (32 experts, top 8) over 4096 tokens, forward
+    and backward twice: the same bits (the expert gather and scatter go
+    one expert at a time, so no index repeats inside an index_add)."""
+    cfg = TC.get_config("granite-moe-1b-a400m").with_(
+        n_layers=1, d_model=256, d_ff=128, dtype=str(dtype).split(".")[1])
+    lp = TM.layer(TM.init_params(cfg, 0)["blocks"], 0)["mlp"]
+    x = torch.randn(2, 2048, cfg.d_model, generator=gen,
+                    device="cuda").to(dtype)
+    runs = []
+    for _ in range(2):
+        leaves = {n: v.clone().requires_grad_() for n, v in lp.items()}
+        xi = x.clone().requires_grad_()
+        y, aux = tmoe.moe_ffn(leaves, cfg, xi)
+        grads = torch.autograd.grad((y.float() ** 2).sum() + aux,
+                                    [xi, *leaves.values()])
+        runs.append((y, aux, grads))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+    assert float(runs[0][1]) > 0.0
+
+
 def test_wrappers_count_launches_and_check_operands(gen):
     x = torch.randn(64, generator=gen, device="cuda")
     before = cada_update.fused_amsgrad_flat.launches
@@ -613,6 +686,23 @@ def test_flash_kernel_matches_plain(gen, hd, hq, hkv, window, dtype):
         _within(out, want, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_qwen2_vl_heads_matches_plain(gen, dtype):
+    """hd 128 with 6-way GQA (12 query heads over 2 KV heads), qwen2-vl's
+    attention, at a 2048-token prompt."""
+    q = torch.randn(1, 2048, 12, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(1, 2048, 2, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 2048, 2, 128, generator=gen, device="cuda").to(dtype)
+    before = tfa.flash_attention.launches
+    out = ops.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before + 1
+    assert torch.equal(out, ops.flash_attention(q, k, v))
+    if dtype == torch.bfloat16:
+        _within_bf16_flash(out, q, k, v, 0)
+    else:
+        _within(out, ops.flash_attention(q, k, v, impl="plain"), 1e-5)
+
+
 def test_lm_kernels_refuse_what_they_do_not_take(gen):
     q = torch.randn(1, 64, 4, 80, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="dtype"):
@@ -659,28 +749,41 @@ def test_lm_kernels_refuse_what_they_do_not_take(gen):
         ssm_scan.selective_scan(dt, x.cpu(), a, b, c)
     with pytest.raises(NotImplementedError, match="h0"):
         tssm._scan(dt, x, a[0], b, c, torch.zeros(2, 64, 16, device="cuda"))
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        pos = torch.arange(64, device="cuda")
-        tattn.causal_attention(q, q, q, positions_q=pos, positions_k=pos)
+    # explicit positions take the reference's naive route, no kernel
+    pos = torch.arange(64, device="cuda")
+    before = tfa.flash_attention.launches
+    out = tattn.causal_attention(q, q, q, positions_q=pos, positions_k=pos,
+                                 dtype=torch.float32)
+    assert tfa.flash_attention.launches == before
+    _within(out, tattn.naive_attention(q, q, q, dtype=torch.float32), 1e-6)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "falcon-mamba-7b",
-                                  "internlm2-1.8b"])
+                                  "internlm2-1.8b", "granite-moe-1b-a400m",
+                                  "grok-1-314b", "qwen2-vl-2b",
+                                  "musicgen-medium"])
 def test_prefill_launches_the_kernels_and_decode_none(gen, arch):
     """A prefill on the card runs every SSM layer through the scan kernel
-    and every attention through the flash kernel; a decode step launches
-    neither. Its logits and cache agree with ``impl="plain"``."""
+    and every attention through the flash kernel (an M-RoPE prefill with
+    the positions of an image plan too); a decode step launches neither.
+    Its logits and cache agree with ``impl="plain"``."""
     cfg = TC.get_smoke_config(arch)
     params = TM.init_params(cfg, 0)
-    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
-                         device="cuda")
-    n_ssm = cfg.n_layers if cfg.block != "dense" else 0
+    if cfg.embed_input:
+        toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                             device="cuda")
+    else:
+        toks = torch.randn(2, 40, cfg.d_model, generator=gen, device="cuda")
+    kw = {"tokens" if cfg.embed_input else "embeds": toks}
+    if cfg.mrope:
+        kw["positions"] = tfront.mrope_positions(2, 40, (4, 4))
+    n_ssm = cfg.n_layers if cfg.block in ("mamba1", "mamba2") else 0
     n_attn = TM._n_attn_layers(cfg)
     before = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
-    logits, cache = TM.prefill(cfg, params, toks, max_seq=48)
+    logits, cache = TM.prefill(cfg, params, max_seq=48, **kw)
     assert (ssm_scan.selective_scan.launches - before[0],
             tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
-    plain, pcache = TM.prefill(cfg, params, toks, max_seq=48, impl="plain")
+    plain, pcache = TM.prefill(cfg, params, max_seq=48, impl="plain", **kw)
     assert (ssm_scan.selective_scan.launches - before[0],
             tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
     _within(logits, plain, 1e-4)
@@ -688,7 +791,12 @@ def test_prefill_launches_the_kernels_and_decode_none(gen, arch):
         if getattr(cache, f) is not None:
             _within(getattr(cache, f), getattr(pcache, f), 1e-4)
     mid = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
-    out, _ = TM.decode_step(cfg, params, cache, torch.argmax(logits, -1))
+    if cfg.embed_input:
+        out, _ = TM.decode_step(cfg, params, cache, torch.argmax(logits, -1))
+    else:
+        out, _ = TM.decode_step(cfg, params, cache,
+                                embeds=torch.zeros(2, 1, cfg.d_model,
+                                                   device="cuda"))
     assert (ssm_scan.selective_scan.launches,
             tfa.flash_attention.launches) == mid
     assert bool(torch.isfinite(out).all())

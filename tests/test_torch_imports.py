@@ -153,6 +153,23 @@ def test_the_sim_slice_is_covered():
                         "repro_torch.sim.runtime"}, (name, tops)
 
 
+def test_the_moe_and_multimodal_slice_is_covered():
+    """... and so are the MoE layer, the stub frontends and the four
+    configs they carry; ``check_ported`` is gone, and every config of the
+    JAX package's registry has its file in the port."""
+    assert {"repro_torch.models.moe", "repro_torch.models.frontends",
+            "repro_torch.configs.granite_moe_1b",
+            "repro_torch.configs.grok_1_314b",
+            "repro_torch.configs.qwen2_vl_2b",
+            "repro_torch.configs.musicgen_medium"} <= set(_modules())
+    model = (PORT / "models" / "model.py").read_text()
+    assert "check_ported" not in model
+    ref = sorted(f.name for f in (ROOT / "src" / "repro" / "configs")
+                 .glob("*.py") if f.name != "__init__.py")
+    assert sorted(f.name for f in (PORT / "configs").glob("*.py")
+                  if f.name != "__init__.py") == ref
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no

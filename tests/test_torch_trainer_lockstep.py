@@ -8,7 +8,10 @@ bf16 CADA state (``moments_dtype``, ``cada_dtype``), with two
 microbatches per worker, and with the grouped second evaluation
 (``group_evals``: one evaluation per occupied ring row); and the delta-payload rules ``local_momentum`` and
 ``fedadam`` at H = 2 local steps (the batch split (H, M, 1, 33); the mean
-delta feeds the trainer's AMSGrad server step on both sides). Each step, the reference's step-k state is loaded
+delta feeds the trainer's AMSGrad server step on both sides); and cada2
+on granite-moe-1b-a400m's smoke config (the loss carries the routers' aux
+loss) and on qwen2-vl-2b's, whose batches are {"embeds", "labels",
+"positions"} (M-RoPE positions of a text prefix and a 4 x 4 image). Each step, the reference's step-k state is loaded
 into the port (``convert.train_state_from_numpy``), both trainers take the
 same numpy batch, each takes one step, and the results are compared.
 Reloading every step keeps a near-threshold gate flip from snowballing.
@@ -56,6 +59,7 @@ import torch
 import repro.configs as JC
 from repro.core.rules import CommRule as JaxRule
 from repro.distributed import trainer as JT
+from repro.models import frontends as jfront
 import repro_torch.configs as TC
 from repro_torch import convert
 from repro_torch.core import flat as F
@@ -82,7 +86,9 @@ CASES = {**{kind: (dict(kind=kind), {}) for kind in RULES},
          "cada2-microbatches2": (dict(kind="cada2"), dict(microbatches=2)),
          "cada2-group-evals": (dict(kind="cada2"), dict(group_evals=True)),
          **{f"{kind}-h2": (dict(kind=kind, local_steps=2), {})
-            for kind in LOCAL_RULES}}
+            for kind in LOCAL_RULES},
+         **{f"cada2-{arch}": (dict(kind="cada2"), {}, arch)
+            for arch in ("granite-moe-1b-a400m", "qwen2-vl-2b")}}
 
 
 def _np(x):
@@ -121,9 +127,32 @@ def _float_pairs(j, t):
     return pairs
 
 
+def _model_batch(jcfg, rng):
+    """One global numpy batch of the model's kind: tokens (BATCH, SEQ1),
+    or for an embedding-input model {"embeds", "labels"} of SEQ1 - 1
+    positions, with the M-RoPE positions of a text prefix and a 4 x 4
+    image."""
+    if jcfg.embed_input:
+        return {"tokens": rng.integers(0, jcfg.vocab, (BATCH, SEQ1)).astype(
+            np.int32)}
+    s = SEQ1 - 1
+    out = {"embeds": rng.normal(size=(BATCH, s, jcfg.d_model)).astype(
+               np.float32),
+           "labels": rng.integers(0, jcfg.vocab, (BATCH, s)).astype(
+               np.int32)}
+    if jcfg.mrope:
+        out["positions"] = np.array(jfront.mrope_positions(BATCH, s, (4, 4)))
+    return out
+
+
+def _torch_batch(batch):
+    return {n: (torch.from_numpy(v).long() if v.dtype == np.int32
+                else torch.from_numpy(v)) for n, v in batch.items()}
+
+
 def _run(case):
-    rule_kw, hp_kw = CASES[case]
-    jcfg, tcfg = JC.get_smoke_config(ARCH), TC.get_smoke_config(ARCH)
+    rule_kw, hp_kw, arch = (*CASES[case], ARCH)[:3]
+    jcfg, tcfg = JC.get_smoke_config(arch), TC.get_smoke_config(arch)
     jhp = JT.TrainHParams(rule=JaxRule(**rule_kw, **RULE), lr=LR, **hp_kw)
     thp = TT.TrainHParams(rule=CommRule(**rule_kw, **RULE), lr=LR, **hp_kw)
     j_step = jax.jit(JT.make_train_step(jcfg, jhp, M))
@@ -136,14 +165,15 @@ def _run(case):
     flips = uploads = skips = wire_diffs = uploaded_entries = 0
     worst = (0.0, "")
     for k in range(STEPS):
-        toks = rng.integers(0, jcfg.vocab, (BATCH, SEQ1)).astype(np.int32)
+        batch = _model_batch(jcfg, rng)
         j_prev = jax.tree.map(np.asarray, j_state)
         t_state = convert.train_state_from_numpy(j_prev, "cpu")
         assert t_state.step == k
         j_state, jm = j_step(j_state, JT.worker_split(
-            {"tokens": jnp.asarray(toks)}, M, local_steps=h))
+            {n: jnp.asarray(v) for n, v in batch.items()}, M,
+            local_steps=h))
         t_next, tm = t_step(t_state, TT.worker_split(
-            {"tokens": torch.from_numpy(toks).long()}, M, local_steps=h))
+            _torch_batch(batch), M, local_steps=h))
         layout = F.layout_of(t_state.params)
         j = jax.tree.map(np.asarray, j_state)
         jm = jax.tree.map(np.asarray, jm)
@@ -248,3 +278,4 @@ def test_trainer_lockstep_step(case):
     assert wire_diffs <= MAX_WIRE_DIFF_SHARE * entries
     if CASES[case][0]["kind"] not in ("always", "topk", *LOCAL_RULES):
         assert skips > 0, "the gate never skipped: the test is vacuous"
+
