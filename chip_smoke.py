@@ -187,6 +187,30 @@ Phases, each of which raises on failure (the exit code is then not 0):
         launch a step, finite losses, the routers' aux loss > 0, step ms
         and peak memory; then one qwen2-vl-2b step at 2 of 28 layers on
         {"embeds", "labels", "positions"} batches, launches exact.
+ 12. the scheduler, sliding-window decode and the pytree plane (counts
+     set to 0 just before and read just after each driven run):
+     a. zamba2-2.7b at full width and depth through
+        ``repro_torch.distributed.scheduler.DecodeScheduler``: 4 slots at
+        max_seq 2048 + 32, 10 requests (prompt lengths 256–2048, max_new
+        8–32, from a numpy seed), one stopped by an eos_id: every
+        request's tokens equal a direct prefill + greedy decode_step loop
+        over its round's padded batch; 54 scan and 9 flash launches per
+        round's prefill, none in decode; tokens/s, slot utilization, peak
+        memory;
+     b. internlm2-1.8b at full width and depth through
+        ``adapt_for_shape(cfg, SHAPES["long_500k"])`` (window 8192):
+        prefill 1 x 12,288 and 32 greedy steps on the ring cache, one
+        windowed flash launch per layer; the windowed kernel at that
+        prefill's shape against its plain version, and the fp32 prefill's
+        last logits with the kernels against ``impl="plain"``;
+     c. every kind on the paper MLP (M = 10, 20 rounds) with
+        ``CADAEngine(fused=False)`` in lockstep with ``fused=True``: masks
+        and staleness exact, parameters within rtol 1e-4 and atol 1e-6,
+        the AMSGrad kernel once a round through ``ops.fused_cada_update``;
+     d. phase 7's model and cut through ``make_train_step`` with
+        ``TrainHParams(fused=False)`` and ``fused=True``, cada2, 4 steps:
+        masks equal, losses within 1e-2 of each other, both step times
+        and peak memories.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -221,12 +245,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.core import flat  # noqa: E402
-from repro_torch.core.comm import strategy_for  # noqa: E402
+from repro_torch.core.comm import CommState, strategy_for  # noqa: E402
 from repro_torch.core.engine import (CADAEngine,  # noqa: E402
                                      CohortEngineState,
                                      cohorts_to_participation,
                                      make_cohort_sampler, make_sampler,
                                      sample_cohorts)
+from repro_torch.configs.base import (SHAPES,  # noqa: E402
+                                      LONG_CONTEXT_WINDOW, adapt_for_shape)
 from repro_torch.core.rules import (KINDS, LOCAL_RULES, RULES,  # noqa: E402
                                     CommRule)
 from repro_torch.data import (covtype_like, mnist_like,  # noqa: E402
@@ -237,6 +263,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
 from repro_torch.distributed import trainer  # noqa: E402
+from repro_torch.distributed.scheduler import (DecodeScheduler,  # noqa: E402
+                                               Request)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
@@ -250,11 +278,13 @@ from repro_torch.models.small import (cnn_init, cnn_loss,  # noqa: E402
                                       logreg_init, logreg_loss, mlp_init,
                                       mlp_loss)
 from repro_torch.optim.adam import adam  # noqa: E402
-from repro_torch.optim.fused import FusedAMSGrad  # noqa: E402
+from repro_torch.optim.fused import FusedAMSGrad, FusedState  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
 from repro_torch.sim import (SimConfig, SimRuntime,  # noqa: E402
                              network_profile, simulate)
 from repro_torch.sim.report import final_loss, time_to_target  # noqa: E402
+from repro_torch.utils.trees import (tree_leaves, tree_map,  # noqa: E402
+                                     tree_paths)
 
 M, BATCH, N_DATA = 10, 12, 4096
 DIMS = (784, 128, 10)
@@ -420,6 +450,39 @@ MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = (
     "granite-moe-1b-a400m", 8, 4)
 MOE_TRAIN_BATCH = 2 * TRAIN_M
 VLM_TRAIN_LAYERS = 2
+# phase 12: the scheduler, the input shapes and the pytree plane. 12a the
+# continuous-batching scheduler over zamba2-2.7b at full width and depth:
+# 4 slots at max_seq 2048 + 32, 10 requests, prompt lengths and max_new
+# drawn from a numpy seed, request SCHED_EOS_UID stopped by an eos_id taken
+# from its own greedy output (the direct loop's third token)
+SCHED_SLOTS, SCHED_REQUESTS, SCHED_MAX_SEQ = 4, 10, 2048 + 32
+SCHED_PROMPT, SCHED_NEW, SCHED_EOS_UID = (256, 2048), (8, 32), 1
+# 12b internlm2-1.8b at full width and depth through
+# adapt_for_shape(long_500k) (window 8192): prefill 1 x 12,288, 32 greedy
+# steps on the 8192-slot ring; the prefill's last logits with the kernels
+# against impl="plain" in fp32 (the bf16 weights upcast): each layer's
+# attention sums 8192 keys in another order, through 24 layers of fp32
+# GEMMs; a tenth of phase 6's STAGE_RTOL_F32 per layer
+LONG_ARCH, LONG_PROMPT, LONG_STEPS = "internlm2-1.8b", 12_288, 32
+LONG_LOGITS_BAND = 1e-3
+# 12c the pytree engine (fused=False) against the flat plane in lockstep:
+# the paper MLP at M = 10, every kind for 20 rounds at phase 4's skipping
+# c (the delta rules as 10a runs them); parameters within the reference's
+# contract for this pair (tests/test_flat_plane.py:218-221)
+PYTREE_ROUNDS, PYTREE_RTOL, PYTREE_ATOL = 20, 1e-4, 1e-6
+# 12d the trainer's pytree plane against its flat plane: phase 7's model
+# and cut, cada2, M = 2, 4 steps of 4 x 2048 tokens from one seed, at a c
+# that skips: on the H100 both workers upload at steps 0 and 1 (LHS/RHS
+# 2.81 and 2.86 at step 1) and skip at 2 and 3 (0.709 and 0.704, then
+# 0.307 and 0.302). The planes differ in eq. (3)'s order (a per-leaf mean
+# against the order-fixed row mean) and the server step's form, so θ' may
+# differ by an fp32 ULP before its bf16 rounding, and a bf16 weight by a
+# bf16 step. Bands about ten times the largest gaps read there (PERF.md,
+# phase 12d): losses 7.77e-6, ||Δθ||² 4.29e-6, the gate terms 5.77e-6, 97
+# weights differing by at most 2 bf16 ULP
+PYTREE_TRAIN_STEPS, PYTREE_TRAIN_C = 4, 1000.0
+PYTREE_LOSS_BAND, PYTREE_DTHETA_BAND, PYTREE_LHS_BAND = 1e-4, 5e-5, 6e-5
+PYTREE_PARAM_ULPS, PYTREE_PARAM_DIFFS = 4.0, 1000
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -3791,6 +3854,515 @@ def phase_moe(card: str, rates) -> tuple[dict, dict]:
     return totals, shape
 
 
+# ----------------------------------------------------------------- phase 12
+
+def phase_scheduler(card: str, rates) -> dict:
+    """12a: zamba2-2.7b at full width and depth through ``DecodeScheduler``
+    (SCHED_SLOTS slots, max_seq SCHED_MAX_SEQ), SCHED_REQUESTS requests in
+    rounds of SCHED_SLOTS. First, outside the counted run, each round's
+    padded batch through a direct ``prefill`` + greedy ``decode_step``
+    loop at the same max_seq; request SCHED_EOS_UID's third token is its
+    eos_id. Then the counts set to 0 just before and read just after the
+    scheduler's run: one prefill a round, 54 scans and 9 flash launches
+    each, nothing in decode. Every request's tokens equal the direct
+    loop's, cut at its max_new or its eos. The direct loop runs the same
+    kernels, so last the scan and flash kernels are held against their
+    plain versions at each round's padded prefill shape. Returns the
+    launches."""
+    cfg = lm_configs.get_config(SERVE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"12a: {n_params} parameters")
+    rng = np.random.default_rng(12)
+    lens = rng.integers(SCHED_PROMPT[0], SCHED_PROMPT[1] + 1, SCHED_REQUESTS)
+    news = rng.integers(SCHED_NEW[0], SCHED_NEW[1] + 1, SCHED_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+               for n in lens]
+
+    def requests(eos=None):
+        return [Request(uid=i, prompt=prompts[i], max_new=int(news[i]),
+                        eos_id=eos if i == SCHED_EOS_UID else None)
+                for i in range(SCHED_REQUESTS)]
+
+    sched = DecodeScheduler(cfg, params, n_slots=SCHED_SLOTS,
+                            max_seq=SCHED_MAX_SEQ)
+    reqs = requests()
+    rounds = [reqs[i:i + SCHED_SLOTS]
+              for i in range(0, SCHED_REQUESTS, SCHED_SLOTS)]
+    direct = {}
+    t0 = time.perf_counter()
+    for batch in rounds:
+        toks = torch.as_tensor(sched.padded_tokens(batch), dtype=torch.long,
+                               device="cuda")
+        logits, cache = lm.prefill(cfg, params, tokens=toks,
+                                   max_seq=SCHED_MAX_SEQ)
+        nxt = torch.argmax(logits, dim=-1)
+        seq = [nxt]
+        for _ in range(max(r.max_new for r in batch) - 1):
+            logits, cache = lm.decode_step(cfg, params, cache, tokens=nxt)
+            nxt = torch.argmax(logits, dim=-1)
+            seq.append(nxt)
+        out = torch.stack(seq, dim=1).cpu()
+        for i, r in enumerate(batch):
+            direct[r.uid] = out[i].tolist()
+        del cache
+    direct_s = time.perf_counter() - t0
+    eos = direct[SCHED_EOS_UID][2]
+
+    def expected(uid: int) -> list:
+        seq = direct[uid][:int(news[uid])]
+        if uid == SCHED_EOS_UID:
+            seq = seq[:seq.index(eos) + 1]
+        return seq
+
+    for r in requests(eos):
+        sched.submit(r)
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            "selective_scan": cfg.n_layers * len(rounds),
+            "flash_attention": cfg.n_layers // cfg.attn_every * len(rounds)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {**_counts(), **_lm_counts()}
+    if got != want:
+        raise RuntimeError(f"12a: launches {got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    if [r.uid for r in done] != list(range(SCHED_REQUESTS)):
+        raise RuntimeError(f"12a: served {[r.uid for r in done]}")
+    bad = [r.uid for r in done if not r.done or r.out != expected(r.uid)]
+    if bad:
+        raise RuntimeError(f"12a: requests {bad} differ from the direct "
+                           "loop over their padded batch")
+    stopped = done[SCHED_EOS_UID]
+    if len(stopped.out) >= int(news[SCHED_EOS_UID]):
+        raise RuntimeError("12a: the eos_id did not stop its request early")
+    tokens = sum(len(r.out) for r in done)
+    print(f"  12a {cfg.name} at full width and depth ({n_params:,} "
+          f"parameters, {cfg.dtype}) through DecodeScheduler: "
+          f"{SCHED_REQUESTS} requests, prompts {lens.tolist()}, max_new "
+          f"{news.tolist()}, {SCHED_SLOTS} slots, max_seq {SCHED_MAX_SEQ}, "
+          f"{len(rounds)} rounds; request {SCHED_EOS_UID} stopped by eos_id "
+          f"{eos} after {len(stopped.out)} of {int(news[SCHED_EOS_UID])}")
+    print(f"    every request's tokens = the direct prefill + greedy "
+          f"decode_step loop over its round's padded batch (run first, "
+          f"{direct_s:.2f} s); {tokens} tokens in {secs:.2f} s "
+          f"({tokens / secs:.2f} tokens/s), slot utilization "
+          f"{sched.utilization():.4f}; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches scan {got['selective_scan']}, flash "
+          f"{got['flash_attention']} ({cfg.n_layers} and "
+          f"{cfg.n_layers // cfg.attn_every} a round's prefill, none in "
+          f"decode), others 0 on {card}")
+    del params, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for shape in sorted({(SCHED_SLOTS, max(len(r.prompt) for r in batch))
+                         for batch in rounds}):
+        check_scan(*shape, cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim,
+                   rates, gen, timed=False, per_channel=True)
+        check_flash(*shape, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0, rates,
+                    gen, timed=False)
+    return {"selective_scan": got["selective_scan"],
+            "flash_attention": got["flash_attention"]}
+
+
+def phase_long_window(card: str, rates) -> dict:
+    """12b: internlm2-1.8b at full width and depth, sliding-window decode
+    through ``adapt_for_shape(cfg, SHAPES["long_500k"])``: prefill 1 x
+    LONG_PROMPT through ``serve.generate`` and LONG_STEPS greedy steps on
+    the window's ring cache, counts set to 0 just before and read just
+    after (one windowed flash launch per layer, in the prefill). Then the
+    windowed flash kernel at the prefill's shape against its plain
+    version, and the prefill's last logits in fp32 with the kernels
+    against ``impl="plain"``. Returns the launches."""
+    base = lm_configs.get_config(LONG_ARCH)
+    cfg = adapt_for_shape(base, SHAPES["long_500k"])
+    w = cfg.sliding_window
+    if w != LONG_CONTEXT_WINDOW or base.sliding_window:
+        raise RuntimeError(f"12b: adapt_for_shape gave window {w}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0)
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"12b: {n_params} parameters")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen,
+                         device="cuda")
+    max_seq = LONG_PROMPT + LONG_STEPS
+    want = {**dict.fromkeys(WRAPPERS, 0), "selective_scan": 0,
+            "flash_attention": cfg.n_layers}
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    out = serve.generate(cfg, params, toks, LONG_STEPS)
+    torch.cuda.synchronize()
+    got = {**_counts(), **_lm_counts()}
+    if got != want:
+        raise RuntimeError(f"12b: launches {got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    cache = out["cache"]
+    pos = cache.slot_pos
+    if not (pos.shape[0] == w and int(pos.min()) == max_seq - w
+            and int(pos.max()) == max_seq - 1 and cache.index == max_seq):
+        raise RuntimeError(f"12b: ring {pos.shape[0]} slots, positions "
+                           f"{int(pos.min())}..{int(pos.max())}")
+    logits = out["prefill_logits"]
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(
+            torch.isfinite(out["logits"].float()).all())):
+        raise RuntimeError("12b: non-finite logits")
+    print(f"  12b {cfg.name} ({cfg.source}) at full width and depth "
+          f"({n_params:,} parameters, {cfg.dtype}) through adapt_for_shape"
+          f"(long_500k): sliding_window {w}; prefill 1x{LONG_PROMPT} "
+          f"{out['prefill_s'] * 1e3:.2f} ms (first call), {LONG_STEPS} greedy"
+          f" steps in {out['decode_s'] * 1e3:.2f} ms "
+          f"({LONG_STEPS / out['decode_s']:.2f} tokens/s) on the {w}-slot "
+          f"ring (positions {int(pos.min())}..{int(pos.max())} after); "
+          f"peak memory {peak / 2**30:.3f} GiB; launches flash "
+          f"{got['flash_attention']} (the prefill's, windowed), others 0 on "
+          f"{card}")
+    del out, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = check_flash(1, LONG_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        w, rates, gen, timed=False)
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = _upcast(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_logits, _ = lm.prefill(cfg32, params32, toks, max_seq=max_seq)
+    p_logits, _ = lm.prefill(cfg32, params32, toks, max_seq=max_seq,
+                             impl="plain")
+    torch.cuda.synchronize()
+    share = _band(k_logits, p_logits, LONG_LOGITS_BAND,
+                  "12b fp32 prefill logits, kernels vs plain")
+    print(f"    fp32 prefill's last logits, kernels vs impl=\"plain\": "
+          f"max |diff| {share:.3g} of the plain run's scale (band "
+          f"{LONG_LOGITS_BAND}); argmax equal: "
+          f"{bool(torch.equal(k_logits.argmax(-1), p_logits.argmax(-1)))}")
+    del params32, k_logits, p_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": got["flash_attention"],
+            "window_shape": flash}
+
+
+def _pytree_state(layout, st):
+    """The pytree engine's state holding a flat-plane ``EngineState``'s
+    values: ∇, the worker copies and the per-worker planes unpacked leaf
+    by leaf, cada2's ring gathered to the dense stale iterates
+    ``ring[slot]`` (the pytree plane's form), AMSGrad's moments unpacked
+    in fp32; a protocol optimizer's state is per leaf on both planes."""
+    comm = st.comm
+    extras = {}
+    for k, v in comm.extras.items():
+        if k == "ring":
+            slot = comm.extras["slot"].long()
+            extras["worker_params"] = {n: x.index_select(0, slot)
+                                       for n, x in v.items()}
+        elif k in ("worker_delta", "residual", "momenta"):
+            extras[k] = layout.unpack_worker(v)
+        elif k not in ("slot", "ring_version"):
+            extras[k] = v
+    opt = st.opt_state
+    if isinstance(opt, FusedState):
+        f32 = (torch.float32,) * len(layout.dtypes)
+        opt = FusedState(count=opt.count, h=layout.unpack(opt.h, f32),
+                         vhat=layout.unpack(opt.vhat, f32))
+    return st._replace(
+        opt_state=opt, params_flat=None,
+        comm=CommState(nabla=layout.unpack(comm.nabla),
+                       worker_grads=layout.unpack_worker(comm.worker_grads),
+                       staleness=comm.staleness, diff_hist=comm.diff_hist,
+                       extras=extras))
+
+
+def check_fused_cada_update(params, gen, lr: float = 5e-4) -> None:
+    """``ops.fused_cada_update``, the pytree plane's entry into the AMSGrad
+    kernel, on the paper MLP's tree against ``impl="plain"``: the leaves
+    packed into one fp32 buffer padded to a multiple of 1024, one launch
+    over it, θ', h', v̂' bit for bit in every leaf, Σupd² within
+    SUM_RTOL. Outside the counted runs."""
+    def draw(scale, nonneg=False):
+        def leaf(p):
+            x = scale * torch.randn(p.shape, generator=gen, device="cuda")
+            return x.abs() if nonneg else x
+        return tree_map(leaf, params)
+    h, vhat, grads = draw(0.1), draw(0.01, nonneg=True), draw(1.0)
+    before = cada_update.fused_amsgrad_flat.launches
+    k_out = kops.fused_cada_update(params, h, vhat, grads, lr)
+    torch.cuda.synchronize()
+    if cada_update.fused_amsgrad_flat.launches != before + 1:
+        raise RuntimeError("fused_cada_update: not one kernel launch")
+    p_out = kops.fused_cada_update(params, h, vhat, grads, lr, impl="plain")
+    n_flat = sum(x.numel() for x in tree_leaves(params))
+    n_pad = -(-n_flat // 1024) * 1024
+    label = (f"  fused_cada_update on the MLP tree ({len(params)} leaves, "
+             f"{n_flat} elements padded to {n_pad})")
+    for what, kk, pp in zip(("theta", "h", "vhat"), k_out, p_out):
+        for key in kk:
+            if kk[key].dtype != pp[key].dtype or not torch.equal(kk[key],
+                                                                 pp[key]):
+                raise RuntimeError(f"{label}: {what}'[{key}] is not "
+                                   "bit-equal to the plain version's")
+    rel = abs(float(k_out[3]) - float(p_out[3])) / float(p_out[3])
+    if rel > SUM_RTOL:
+        raise RuntimeError(f"{label}: sum upd^2 {float(k_out[3])} vs plain "
+                           f"{float(p_out[3])}")
+    print(f"{label}: one launch; theta', h', vhat' bit-equal to "
+          f"impl=\"plain\" in every leaf, sum upd^2 rel {rel:.3g} (band "
+          f"{SUM_RTOL})")
+
+
+def phase_pytree_engine(card: str, params, batches, skipping_c: dict
+                        ) -> dict:
+    """12c: every kind on the paper MLP (M = 10, PYTREE_ROUNDS rounds, the
+    gated rules at phase 4's skipping c, the delta rules as 10a runs them)
+    through ``CADAEngine(fused=True)`` and ``CADAEngine(fused=False)`` in
+    lockstep: each round the pytree engine starts from the flat engine's
+    state (``_pytree_state``) and both step on the same batch, the counts
+    set to 0 just before and read just after each step. The flat plane's
+    launches as phase 4's; the pytree plane's one AMSGrad launch a round
+    through ``ops.fused_cada_update`` where FusedAMSGrad serves, and
+    nothing else (its LHS and eq. (3) are per-leaf PyTorch, as in the
+    reference). Each round's masks and staleness equal, its parameters
+    within PYTREE_RTOL / PYTREE_ATOL. (Free-running, a b-bit wire parts
+    the planes: eq. (3)'s two orders give θ an ULP apart, and where
+    x/scale·L lies that close to a .5 the quantizers round to neighbouring
+    levels.) Returns the launches."""
+    r = PYTREE_ROUNDS
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    check_fused_cada_update(params,
+                            torch.Generator(device="cuda").manual_seed(14))
+    print(f"  12c the pytree engine (fused=False) against the flat plane in "
+          f"lockstep: paper MLP, M = {M}, {r} rounds a kind")
+    for kind in KINDS:
+        c = skipping_c.get(kind, 1.0)
+        rule = _sim_rule(kind, c)
+        local = kind in LOCAL_RULES
+        opt = None if local else FusedAMSGrad(lr=5e-4)
+        b = (_local_batches(batches, r, COHORT_H) if local
+             else tuple(x[:r] for x in batches))
+        eng_f = CADAEngine(mlp_loss, opt, rule, M)
+        eng_p = CADAEngine(mlp_loss, opt, rule, M, fused=False)
+        st = eng_f.init(params)
+        layout = eng_f._layout
+        got = {True: dict.fromkeys(totals, 0), False: dict.fromkeys(totals, 0)}
+        secs = {True: [], False: []}
+        uploads, gap = 0, 0.0
+        for i in range(r):
+            batch = tuple(x[i] for x in b)
+            out = {}
+            for fused, eng, start in ((False, eng_p, _pytree_state(layout, st)),
+                                      (True, eng_f, st)):
+                torch.cuda.synchronize()
+                _reset_all_counts()
+                t0 = time.perf_counter()
+                out[fused] = eng.step(start, batch)
+                torch.cuda.synchronize()
+                secs[fused].append(time.perf_counter() - t0)
+                for k, v in _train_counts().items():
+                    got[fused][k] += v
+            (s_f, m_f), (s_p, m_p) = out[True], out[False]
+            for key in ("upload_mask", "staleness"):
+                if not torch.equal(m_f[key], m_p[key]):
+                    raise RuntimeError(f"12c {kind} round {i}: {key} flat "
+                                       f"{m_f[key].tolist()}, pytree "
+                                       f"{m_p[key].tolist()}")
+            for key in s_f.params:
+                a, p = s_f.params[key], s_p.params[key]
+                if not torch.allclose(p, a, rtol=PYTREE_RTOL,
+                                      atol=PYTREE_ATOL):
+                    raise RuntimeError(
+                        f"12c {kind} round {i}: params[{key}] outside rtol "
+                        f"{PYTREE_RTOL}, atol {PYTREE_ATOL}")
+                gap = max(gap, float((p - a).abs().max()))
+            if not (_all_cuda(s_f) and _all_cuda(s_p)):
+                raise RuntimeError(f"12c {kind}: state left the card")
+            uploads += int(m_f["uploads"])
+            st = s_f
+        want = {True: {**expected_launches(kind, r, "own" if local
+                                           else "fused"),
+                       **dict.fromkeys(LM_WRAPPERS, 0)},
+                False: {**dict.fromkeys(totals, 0),
+                        "amsgrad": 0 if local else r}}
+        if got != want:
+            raise RuntimeError(f"12c {kind}: launches {got}, expected {want}")
+        for plane in got.values():
+            for k, v in plane.items():
+                totals[k] += v
+        print(f"    {kind} (c={c:.6g}): every round's masks and staleness "
+              f"equal, params max |diff| {gap:.3g}; uploads {uploads} / "
+              f"{r * M}; host ms per round (median) flat "
+              f"{statistics.median(secs[True]) * 1e3:.3f}, pytree "
+              f"{statistics.median(secs[False]) * 1e3:.3f} (first "
+              f"{secs[False][0] * 1e3:.1f}); pytree launches amsgrad "
+              f"{got[False]['amsgrad']} (fused_cada_update), others 0")
+    return totals
+
+
+def phase_pytree_trainer(card: str) -> dict:
+    """12d: phase 7's model and cut through ``make_train_step`` with
+    ``fused=True`` and ``fused=False``, cada2 at c = PYTREE_TRAIN_C, M = 2,
+    PYTREE_TRAIN_STEPS steps of 4 x 2048 tokens, the same seed and
+    batches; counts set to 0 just before and read just after each run (the
+    flat step's kernels as phase 7's, none on the pytree step: its server
+    step is eager per-leaf PyTorch, as the reference's). Masks equal, with
+    at least one skipped upload; each step's loss and ||Δθ||² within
+    PYTREE_LOSS_BAND / PYTREE_DTHETA_BAND of the flat run's, each
+    worker's gate terms (LHS, RHS) within PYTREE_LHS_BAND; after the run
+    at most PYTREE_PARAM_DIFFS bf16 weights differ, each by at most
+    PYTREE_PARAM_ULPS bf16 ULP (of the weight's magnitude, or of the step
+    size TRAIN_LR where that is larger). Returns the launches."""
+    cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=TRAIN_LAYERS)
+    tokens = make_token_batches(cfg, global_batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, steps=PYTREE_TRAIN_STEPS)
+    rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": PYTREE_TRAIN_C})
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    runs, final = {}, {}
+    for fused in (True, False):
+        hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR, fused=fused)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_train_state(cfg, hp, TRAIN_M, 0)
+        step = trainer.make_train_step(cfg, hp, TRAIN_M)
+        want = (_train_launches("cada2", PYTREE_TRAIN_STEPS) if fused
+                else dict.fromkeys(totals, 0))
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        step_ms, losses, dsq, masks, gate, ratios = [], [], [], [], [], []
+        for i in range(PYTREE_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, mets = step(state, _batch_on_card(tokens[i]))
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(mets["loss"]))
+            dsq.append(float(mets["dtheta_sq"]))
+            masks.append(mets["upload_mask"].tolist())
+            gate += mets["lhs"].reshape(-1).tolist()
+            gate += mets["rhs"].reshape(-1).tolist()
+            ratios.append([round(x, 4) for x in (mets["lhs"]
+                                                 / mets["rhs"]).tolist()])
+        got = _train_counts()
+        if got != want:
+            raise RuntimeError(f"12d fused={fused}: launches {got}, "
+                               f"expected {want}")
+        if not all(math.isfinite(v) for v in losses + dsq) or not _all_cuda(
+                state):
+            raise RuntimeError(f"12d fused={fused}: losses {losses}, "
+                               f"||dtheta||^2 {dsq} or the state left the "
+                               "card")
+        for k, v in got.items():
+            totals[k] += v
+        runs[fused] = (losses, dsq, masks, gate, ratios,
+                       statistics.median(step_ms[1:]), step_ms[0],
+                       torch.cuda.max_memory_allocated())
+        final[fused] = state.params
+        del state, step
+    (l_f, d_f, k_f, g_f, ratios, ms_f, first_f, peak_f), (
+        l_p, d_p, k_p, g_p, _, ms_p, first_p, peak_p) = (runs[True],
+                                                          runs[False])
+    loss_gap = max(abs(a - b) / abs(a) for a, b in zip(l_f, l_p))
+    dsq_gap = max(abs(a - b) / a for a, b in zip(d_f, d_p))
+    gate_gap = max(abs(a - b) / abs(a) if a else abs(b)
+                   for a, b in zip(g_f, g_p))
+    ulps, n_diff = 0.0, 0
+    for key in tree_paths(final[True]):
+        a, p = (_leaf(final[x], key) for x in (True, False))
+        ulps = max(ulps, _bf16_ulps_apart(a, p, TRAIN_LR))
+        n_diff += int((a != p).sum())
+    n = sum(x.numel() for x in tree_leaves(final[True]))
+    skips = sum(not u for row in k_f for u in row)
+    print(f"  12d {cfg.name} at full width, {TRAIN_LAYERS} of 24 layers, "
+          f"cada2 {dict(TRAIN_RULE, c=PYTREE_TRAIN_C)}, M = {TRAIN_M}, "
+          f"{PYTREE_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens: masks flat {k_f}, pytree {k_p} ({skips} skipped "
+          f"uploads); flat lhs/rhs by step {ratios}; lhs and rhs of the "
+          f"two planes at most {gate_gap:.3g} apart (band "
+          f"{PYTREE_LHS_BAND})")
+    print(f"    losses flat {l_f}, pytree {l_p} (largest gap {loss_gap:.3g} "
+          f"of the flat loss, band {PYTREE_LOSS_BAND}); ||dtheta||^2 flat "
+          f"{d_f}, pytree {d_p} (largest gap {dsq_gap:.3g}, band "
+          f"{PYTREE_DTHETA_BAND}); bf16 parameters after the run: {n_diff} "
+          f"of {n} differ, by at most {ulps:.3g} bf16 ULP of max(|weight|, "
+          f"lr) (bands {PYTREE_PARAM_DIFFS} weights, {PYTREE_PARAM_ULPS} "
+          "ULP)")
+    print(f"    step median after the first: flat {ms_f:.2f} ms (first "
+          f"{first_f:.2f}), pytree {ms_p:.2f} ms (first {first_p:.2f}); peak"
+          f" memory flat {peak_f / 2**30:.3f} GiB, pytree "
+          f"{peak_p / 2**30:.3f} GiB; launches of the flat step amsgrad, "
+          f"batched_diff_sq and eq3_row_mean {PYTREE_TRAIN_STEPS} each, of "
+          f"the pytree step none, on {card}")
+    if k_f != k_p or not skips:
+        raise RuntimeError(f"12d: masks flat {k_f}, pytree {k_p}: not "
+                           "equal, or no upload skipped")
+    if (loss_gap > PYTREE_LOSS_BAND or dsq_gap > PYTREE_DTHETA_BAND
+            or gate_gap > PYTREE_LHS_BAND):
+        raise RuntimeError(f"12d: losses {loss_gap:.3g}, ||dtheta||^2 "
+                           f"{dsq_gap:.3g} or the gate terms {gate_gap:.3g} "
+                           "apart, above their bands")
+    if ulps > PYTREE_PARAM_ULPS or n_diff > PYTREE_PARAM_DIFFS:
+        raise RuntimeError(f"12d: {n_diff} weights differ, by at most "
+                           f"{ulps} bf16 ULP, above the bands")
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _bf16_ulps_apart(a, b, floor: float) -> float:
+    """max |a − b| in bf16 ULPs of the larger magnitude, elementwise, that
+    magnitude taken at least ``floor`` (a weight that a step moved through
+    zero is as exact as the step, not as its own size)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(floor))
+    gap = (a - b).abs()
+    return float(torch.where(gap == 0, 0.0, gap / torch.ldexp(
+        torch.ones_like(gap), e - 8)).max())
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def phase_slice11(card: str, rates, params, batches, skipping_c: dict
+                  ) -> tuple[dict, dict]:
+    """Phase 12 (12a–12d). Returns the launches of its driven runs and the
+    windowed flash kernel's check at 12b's prefill shape."""
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    t0 = time.perf_counter()
+    for k, v in phase_scheduler(card, rates).items():
+        totals[k] += v
+    print(f"    12a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long = phase_long_window(card, rates)
+    totals["flash_attention"] += long["flash_attention"]
+    print(f"    12b took {time.perf_counter() - t0:.1f} s")
+    for label, fn in (("12c", lambda: phase_pytree_engine(
+            card, params, batches, skipping_c)),
+                      ("12d", lambda: phase_pytree_trainer(card))):
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            totals[k] += v
+        print(f"    {label} took {time.perf_counter() - t0:.1f} s")
+    return totals, long["window_shape"]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -3863,6 +4435,16 @@ def main() -> None:
         launches[name] += v
     main_shape["flash_attention"]["qwen2_vl_shape"] = qwen_flash
     print(f"    phase 11 took {time.perf_counter() - t11:.1f} s")
+    print("[12] the scheduler, sliding-window decode, the pytree plane")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    slice_launches, window_flash = phase_slice11(card, rates, params,
+                                                 batches, skipping_c)
+    for name, v in slice_launches.items():
+        launches[name] += v
+    main_shape["flash_attention"]["window_8192_shape"] = window_flash
+    print(f"    phase 12 took {time.perf_counter() - t12:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

@@ -1,6 +1,7 @@
 """Carry weights, engine and trainer state across from numpy.
 
-The JAX package's parameters, ``EngineState``, trainer ``DistTrainState``,
+The JAX package's parameters, ``EngineState`` and trainer
+``DistTrainState`` (on the flat plane or the per-leaf pytree plane),
 cohort-plane states (``CohortEngineState``, ``CohortTrainState``) and LM
 ``DecodeCache`` convert to numpy with ``jax.tree.map(np.asarray, ...)``;
 these functions turn that numpy form into the port's tensors on
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.comm import CommState
 from repro_torch.core.engine import CohortEngineState, EngineState
 from repro_torch.core.flat import CohortServerState, FlatCommState, WorkerPool
 from repro_torch.device import resolve_device
@@ -59,44 +61,50 @@ def opt_state_from_numpy(opt, device=None):
     return kind(count=int(opt.count), **params_from_numpy(tree, device))
 
 
-def comm_state_from_numpy(comm, device=None) -> FlatCommState:
-    """The JAX package's flat ``FlatCommState`` (numpy leaves) as the
-    port's, with every rule's extras (CADA1's snapshot and δ̃ plane,
-    CADA2's ring, slots and versions, laq/topk's residual, avp's
-    periods, local momentum's momenta plane)."""
+def comm_state_from_numpy(comm, device=None):
+    """The JAX package's communication state (numpy leaves) as the port's,
+    with every rule's extras: a flat ``FlatCommState`` (CADA1's snapshot
+    and δ̃ plane, CADA2's ring, slots and versions, laq/topk's residual,
+    avp's periods, local momentum's momenta plane) or, where ∇ is a dict,
+    the pytree plane's ``CommState`` (the same extras as dicts of
+    (M,)-leading leaves; CADA2's dense stale iterates)."""
     device = resolve_device(device)
-    return FlatCommState(
-        nabla=tensor_from_numpy(comm.nabla, device),
-        worker_grads=tensor_from_numpy(comm.worker_grads, device),
+    kind = CommState if isinstance(comm.nabla, dict) else FlatCommState
+    return kind(
+        nabla=params_from_numpy(comm.nabla, device),
+        worker_grads=params_from_numpy(comm.worker_grads, device),
         staleness=tensor_from_numpy(comm.staleness, device),
         diff_hist=tensor_from_numpy(comm.diff_hist, device),
         extras=params_from_numpy(dict(comm.extras), device))
 
 
 def engine_state_from_numpy(state, device=None) -> EngineState:
-    """The JAX engine's flat-plane ``EngineState`` (numpy leaves) as the
-    port's :class:`EngineState`: the server optimizer's state and the
-    communication state (:func:`comm_state_from_numpy`)."""
+    """The JAX engine's ``EngineState`` (numpy leaves) of either plane as
+    the port's :class:`EngineState`: the server optimizer's state and the
+    communication state (:func:`comm_state_from_numpy`); ``params_flat``
+    is None on the pytree plane."""
     device = resolve_device(device)
     return EngineState(
         step=int(state.step),
         params=params_from_numpy(state.params, device),
         opt_state=opt_state_from_numpy(state.opt_state, device),
         comm=comm_state_from_numpy(state.comm, device),
-        params_flat=tensor_from_numpy(state.params_flat, device),
+        params_flat=(None if state.params_flat is None else
+                     tensor_from_numpy(state.params_flat, device)),
     )
 
 
 def train_state_from_numpy(state, device=None) -> DistTrainState:
-    """The JAX trainer's flat-plane ``DistTrainState`` (numpy leaves) as
-    the port's: the step as a Python int, the parameters, the (n_flat,)
-    moments, and the communication state (None for a stateless rule)."""
+    """The JAX trainer's ``DistTrainState`` (numpy leaves) of either plane
+    as the port's: the step as a Python int, the parameters, the moments
+    ((n_flat,) buffers, or dicts on the pytree plane), and the
+    communication state (None for a stateless rule)."""
     device = resolve_device(device)
     return DistTrainState(
         step=int(state.step),
         params=params_from_numpy(state.params, device),
-        h=tensor_from_numpy(state.h, device),
-        vhat=tensor_from_numpy(state.vhat, device),
+        h=params_from_numpy(state.h, device),
+        vhat=params_from_numpy(state.vhat, device),
         comm=(None if state.comm is None
               else comm_state_from_numpy(state.comm, device)))
 

@@ -1,12 +1,20 @@
-"""Communication rules as strategy objects, on the flat plane.
+"""Communication rules as strategy objects, and the per-leaf pytree round.
 
 A :class:`CommStrategy` subclass owns what is specific to one rule: its
-extra state (:meth:`~CommStrategy.init_flat_extras`), its LHS given fresh
-gradients (:meth:`~CommStrategy.flat_lhs`), its post-upload transition
-(:meth:`~CommStrategy.flat_post_upload`), its wire format
-(:meth:`~CommStrategy.flat_wire_delta`, :meth:`~CommStrategy.flat_sparse_wire`)
-and its accounting. :func:`repro_torch.core.flat.flat_comm_round` owns what
-every rule shares.
+extra state, its LHS given fresh gradients, its post-upload transition,
+its wire format and its accounting, each in two forms. The flat plane's
+hooks (:meth:`~CommStrategy.init_flat_extras`,
+:meth:`~CommStrategy.flat_lhs`, :meth:`~CommStrategy.flat_post_upload`,
+:meth:`~CommStrategy.flat_wire_delta`,
+:meth:`~CommStrategy.flat_sparse_wire`) serve
+:func:`repro_torch.core.flat.flat_comm_round`, the engine's and the
+trainer's default; the pytree hooks (:meth:`~CommStrategy.init_extras`,
+:meth:`~CommStrategy.pre_step`, :meth:`~CommStrategy.lhs`,
+:meth:`~CommStrategy.post_upload`, :meth:`~CommStrategy.wire_delta`) serve
+:func:`comm_round`, the per-leaf plane of ``fused=False``, which keeps the
+state as dicts of (M,)-leading leaves and is the readable oracle the flat
+plane is held against. Each of the two rounds owns what every rule
+shares.
 
   ==========  =======================  ====================================
   eq. (5)     :class:`LAGStrategy`     naive stochastic LAG (§2.1 baseline)
@@ -32,16 +40,95 @@ module.
 from __future__ import annotations
 
 import math
+from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.flat import (per_worker_quantize_dequantize_flat,
+from repro_torch.core.flat import (batch_has_local_axis, batch_map,
+                                   local_steps_vector,
+                                   per_worker_quantize_dequantize_flat,
                                    per_worker_topk_extract_flat,
                                    per_worker_topk_sparsify_flat)
-from repro_torch.core.quantize import ef_correct, ef_residual, topk_count
+# the pytree round's line-17 tail is the flat plane's: the RHS ring push
+# reads only ``diff_hist``, so one function serves both states
+from repro_torch.core.flat import record_progress  # noqa: F401
+from repro_torch.core.quantize import (ef_correct, ef_residual,
+                                       per_worker_quantize_dequantize,
+                                       per_worker_topk_sparsify, topk_count)
 from repro_torch.core.rules import CommRule
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import (tree_cast, tree_leaves, tree_map,
+                                     tree_size, tree_zeros_like)
+
+
+# ------------------------------------------------------------------ state
+
+class CommState(NamedTuple):
+    """The communication state of Algorithm 1 on the pytree plane:
+    gradient-shaped state as dicts, per-worker state as dicts of
+    (M,)-leading leaves. ``extras`` is the strategy-owned slice dict."""
+    nabla: Any               # ∇^{k-1}: aggregated stale gradient (eq. 3)
+    worker_grads: Any        # per-worker last contributed ∇ℓ(θ̂_m;ξ̂_m)
+    staleness: torch.Tensor  # τ_m, (M,) int32
+    diff_hist: torch.Tensor  # (d_max,) ring buffer of ||θ^{k+1-d}−θ^{k-d}||²
+    extras: dict             # strategy-owned per-rule slices
+
+
+class CommContext(NamedTuple):
+    """What a strategy's pytree hooks may consult. ``vgrad(params, batch)``
+    gives the per-worker (losses, gradients) at shared parameters,
+    ``vgrad_per`` at an (M,)-leading parameter dict."""
+    params: Any
+    batch: Any
+    fresh: Any               # per-worker fresh gradients at θ^k
+    comm: CommState
+    step: int
+    m: int
+    vgrad: Callable
+    vgrad_per: Callable
+    participation: Any = None  # (M,) bool round-participation mask | None
+
+
+class CommRoundResult(NamedTuple):
+    losses: torch.Tensor     # (M,) per-worker losses at θ^k
+    comm: CommState          # diff_hist NOT yet updated (record_progress)
+    upload: torch.Tensor     # (M,) bool upload mask
+    metrics: dict
+
+
+# ------------------------------------------------------------ tree helpers
+
+def per_worker_sq_norm(tree) -> torch.Tensor:
+    """(M,) squared norms of an M-leading dict, accumulated in fp32 leaf
+    by leaf in the reference's leaf order."""
+    tot = 0.0
+    for leaf in tree_leaves(tree):
+        sq = torch.square(leaf.float())
+        tot = tot + (sq.sum(dim=tuple(range(1, leaf.dim())))
+                     if leaf.dim() > 1 else sq)
+    return tot
+
+
+def select_rows(mask, new, old):
+    """Per-worker select: rows of ``new`` where ``mask``, else ``old`` (the
+    result keeps ``old``'s storage dtype)."""
+    def leaf(n, o):
+        mm = mask.reshape((-1,) + (1,) * (n.dim() - 1))
+        return torch.where(mm, n.to(o.dtype), o)
+    return tree_map(leaf, new, old)
+
+
+def broadcast_to_workers(tree, m: int):
+    return tree_map(lambda x: x[None].expand((m,) + tuple(x.shape)), tree)
+
+
+def _f32(tree):
+    return tree_cast(tree, torch.float32)
+
+
+def _innovation(fresh, stale):
+    """fresh − stale per leaf, in fp32."""
+    return tree_map(lambda f, s: f.float() - s.float(), fresh, stale)
 
 
 def adapt_period(period, grow, p_min, p_max):
@@ -85,6 +172,52 @@ class CommStrategy:
         when none is given), or None for the engine's default."""
         return None
 
+    # ---- the pytree plane (comm_round)
+    def init_extras(self, params, m: int, make_grad_zeros, bcast) -> dict:
+        """Strategy-owned state on the pytree plane. ``make_grad_zeros()``
+        gives a gradient-shaped zero dict in the comm storage dtype;
+        ``bcast(t, m)`` prepends the worker axis."""
+        del params, m, make_grad_zeros, bcast
+        return {}
+
+    def pre_step(self, extras: dict, params, k: int) -> dict:
+        """Start-of-iteration transition (e.g. CADA1 snapshot refresh)."""
+        del params, k
+        return extras
+
+    def lhs(self, ctx: CommContext, extras: dict):
+        """Rule LHS given fresh gradients: ((M,) lhs, cache for
+        :meth:`post_upload`)."""
+        raise NotImplementedError
+
+    def post_upload(self, extras: dict, cache, upload, ctx: CommContext
+                    ) -> dict:
+        """State transition once the upload mask is known."""
+        del cache, upload, ctx
+        return extras
+
+    def transform_delta(self, delta):
+        """Wire format of the uploaded innovation δ_m on the pytree plane:
+        the b-bit round trip at :attr:`bits_per_entry` below 32 (one scale
+        per worker and leaf), else the raw δ."""
+        if self.bits_per_entry < 32:
+            return per_worker_quantize_dequantize(delta, self.bits_per_entry)
+        return delta
+
+    def wire_delta(self, ctx: CommContext, extras: dict, cache, delta):
+        """The innovation that rides the wire, given the raw fp32
+        δ = fresh − stale; rules whose LHS already compressed it return
+        their cache instead."""
+        del ctx, extras, cache
+        return self.transform_delta(delta)
+
+    def local_payload(self, extras: dict, params, batch, m: int, vgrad_per,
+                      h_steps):
+        """The delta-payload rules' local run on the pytree plane:
+        ``(losses, payload, cache)`` (core/local_update.py)."""
+        raise NotImplementedError
+
+    # ---- the flat plane (flat.flat_comm_round)
     def init_flat_extras(self, layout, params, params_flat, m: int,
                          grad_dtype) -> dict:
         """Strategy-owned state on the flat plane."""
@@ -220,6 +353,11 @@ class AlwaysStrategy(CommStrategy):
     kind = "always"
     stateless = True
 
+    def lhs(self, ctx, extras):
+        dev = tree_leaves(ctx.fresh)[0].device
+        return torch.full((ctx.m,), torch.inf, dtype=torch.float32,
+                          device=dev), None
+
     def flat_lhs(self, ctx, extras):
         return torch.full((ctx.m,), torch.inf, dtype=torch.float32,
                           device=ctx.fresh.device), None
@@ -230,6 +368,10 @@ class LAGStrategy(CommStrategy):
     """Eq. (5): naive stochastic LAG — the LHS compares gradients drawn at
     DIFFERENT samples, so its variance never vanishes."""
     kind = "lag"
+
+    def lhs(self, ctx, extras):
+        return per_worker_sq_norm(_innovation(ctx.fresh,
+                                              ctx.comm.worker_grads)), None
 
     def flat_lhs(self, ctx, extras):
         return kops.batched_diff_sq_norm(
@@ -246,6 +388,27 @@ class CADA1Strategy(CommStrategy):
     grad_evals_per_iter = 2
     async_shared_extras = ("snapshot",)
 
+    def init_extras(self, params, m, make_grad_zeros, bcast):
+        return {"snapshot": params,
+                "worker_delta": bcast(make_grad_zeros(), m)}
+
+    def pre_step(self, extras, params, k):
+        if k % self.rule.max_delay == 0:
+            return {**extras, "snapshot": params}
+        return extras
+
+    def lhs(self, ctx, extras):
+        _, snap_grads = ctx.vgrad(extras["snapshot"], ctx.batch)
+        delta_fresh = _innovation(ctx.fresh, snap_grads)
+        diff = tree_map(lambda a, b: a - b.float(), delta_fresh,
+                        extras["worker_delta"])
+        return per_worker_sq_norm(diff), delta_fresh
+
+    def post_upload(self, extras, delta_fresh, upload, ctx):
+        return {**extras,
+                "worker_delta": select_rows(upload, delta_fresh,
+                                            extras["worker_delta"])}
+
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         return {"snapshot": params,
                 "worker_delta": torch.zeros((m, layout.n_flat),
@@ -253,9 +416,7 @@ class CADA1Strategy(CommStrategy):
                                             device=params_flat.device)}
 
     def flat_pre_step(self, extras, params, params_flat, k):
-        if k % self.rule.max_delay == 0:
-            return {**extras, "snapshot": params}
-        return extras
+        return self.pre_step(extras, params, k)
 
     def pooled_extras(self):
         # δ̃ is the one O(M·n) plane; θ̃ is shared and stays on the device
@@ -298,6 +459,21 @@ class CADA2Strategy(CommStrategy):
     # (free-running workers break the ring's occupancy bound), and a gate
     # sees a one-row ring of it
     async_indexed_extras = ("ring", "slot", "ring_version")
+
+    # the pytree plane keeps the dense (M,)-leading ``worker_params`` dict
+    # of stale iterates (the flat plane's ring is its compressed form)
+    def init_extras(self, params, m, make_grad_zeros, bcast):
+        return {"worker_params": bcast(params, m)}
+
+    def lhs(self, ctx, extras):
+        _, stale_now = ctx.vgrad_per(extras["worker_params"], ctx.batch)
+        return per_worker_sq_norm(_innovation(ctx.fresh, stale_now)), None
+
+    def post_upload(self, extras, cache, upload, ctx):
+        return {**extras,
+                "worker_params": select_rows(
+                    upload, broadcast_to_workers(ctx.params, ctx.m),
+                    extras["worker_params"])}
 
     def ring_rows(self, m: int) -> int:
         """R = min(M, max_delay) + 1 — the occupancy bound above."""
@@ -390,6 +566,15 @@ class CompressedInnovationStrategy(CommStrategy):
     kind = "cinn"
     default_bits = 8
 
+    def lhs(self, ctx, extras):
+        q = self.transform_delta(_innovation(ctx.fresh,
+                                             ctx.comm.worker_grads))
+        return per_worker_sq_norm(q), q
+
+    def wire_delta(self, ctx, extras, cache, delta):
+        del delta  # cache IS Q_b(δ) of this round's innovation
+        return cache
+
     def flat_lhs(self, ctx, extras):
         innovation = ctx.fresh - ctx.comm.worker_grads.float()
         q = self.transform_delta_flat(ctx.layout, innovation)
@@ -406,8 +591,37 @@ class ErrorFeedbackStrategy(CommStrategy):
     Subclasses supply the compressor (:meth:`_compress_flat`) and their
     accounting. ``error_feedback=False`` allocates no residual plane."""
 
-    def _compress_flat(self, layout, corrected):
+    def _compress(self, corrected):
+        """The compressor over the fp32 corrected innovation (dicts)."""
         raise NotImplementedError
+
+    def _compress_flat(self, layout, corrected):
+        """The compressor on the (M, n_flat) plane: the same bits."""
+        raise NotImplementedError
+
+    def init_extras(self, params, m, make_grad_zeros, bcast):
+        if not self.rule.error_feedback:
+            return {}
+        return {"residual": bcast(make_grad_zeros(), m)}
+
+    def lhs(self, ctx, extras):
+        delta = _innovation(ctx.fresh, ctx.comm.worker_grads)
+        corrected = (ef_correct(delta, extras["residual"])
+                     if self.rule.error_feedback else delta)
+        wire = self._compress(corrected)
+        return per_worker_sq_norm(wire), (wire, corrected)
+
+    def wire_delta(self, ctx, extras, cache, delta):
+        del delta
+        return cache[0]
+
+    def post_upload(self, extras, cache, upload, ctx):
+        if not self.rule.error_feedback:
+            return extras
+        wire, corrected = cache
+        return {**extras,
+                "residual": ef_residual(corrected, wire, upload,
+                                        extras["residual"])}
 
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         if not self.rule.error_feedback:
@@ -431,12 +645,7 @@ class ErrorFeedbackStrategy(CommStrategy):
         return cache[0]
 
     def flat_post_upload(self, extras, cache, upload, ctx):
-        if not self.rule.error_feedback:
-            return extras
-        wire, corrected = cache
-        return {**extras,
-                "residual": ef_residual(corrected, wire, upload,
-                                        extras["residual"])}
+        return self.post_upload(extras, cache, upload, ctx)
 
 
 @register
@@ -447,6 +656,9 @@ class LAQStrategy(ErrorFeedbackStrategy):
     is carried. Uploads are charged at b (default 8) bits per entry."""
     kind = "laq"
     default_bits = 8
+
+    def _compress(self, corrected):
+        return self.transform_delta(corrected)
 
     def _compress_flat(self, layout, corrected):
         return self.transform_delta_flat(layout, corrected)
@@ -463,6 +675,10 @@ class TopKStrategy(ErrorFeedbackStrategy):
     Accounting is SPARSE: an upload costs k·(value_bits + ⌈log₂ n⌉) bits
     with k = ⌈topk_frac·n⌉ and value_bits = ``quantize_bits`` or 32."""
     kind = "topk"
+
+    def _compress(self, corrected):
+        return self.transform_delta(
+            per_worker_topk_sparsify(corrected, self.rule.topk_frac))
 
     def _compress_flat(self, layout, corrected):
         sparse = per_worker_topk_sparsify_flat(layout, corrected,
@@ -510,10 +726,31 @@ class AVPStrategy(CommStrategy):
             return torch.where(due, energy, -torch.inf).float()
         return torch.where(due, torch.inf, -torch.inf).float()
 
+    def _init_periods(self, m: int, device):
+        return torch.full((m,), self.rule.period_min, dtype=torch.int32,
+                          device=device)
+
+    def init_extras(self, params, m, make_grad_zeros, bcast):
+        return {"period": self._init_periods(m,
+                                             tree_leaves(params)[0].device)}
+
+    def lhs(self, ctx, extras):
+        energy = per_worker_sq_norm(_innovation(ctx.fresh,
+                                                ctx.comm.worker_grads))
+        return self._gate(ctx.comm.staleness, extras["period"],
+                          energy), energy
+
+    def post_upload(self, extras, energy, upload, ctx):
+        period = self._adapt(extras["period"], energy, ctx.comm.diff_hist)
+        if ctx.participation is not None:
+            # an offline worker evaluated nothing this round: its period
+            # cannot adapt to a gradient it never computed
+            period = torch.where(ctx.participation, period,
+                                 extras["period"])
+        return {**extras, "period": period}
+
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
-        return {"period": torch.full((m,), self.rule.period_min,
-                                     dtype=torch.int32,
-                                     device=params_flat.device)}
+        return {"period": self._init_periods(m, params_flat.device)}
 
     def flat_lhs(self, ctx, extras):
         energy = kops.batched_diff_sq_norm(
@@ -526,16 +763,144 @@ class AVPStrategy(CommStrategy):
         return self._gate(ctx.comm.staleness, period, energy), energy
 
     def flat_post_upload(self, extras, energy, upload, ctx):
-        if ctx.cohort is not None:
-            # the cohort's form of the participation freeze: only the
-            # sampled rows evaluated a gradient, so only their periods
-            # adapt (the dense plane's integers exactly)
-            period = extras["period"]
-            return {**extras, "period": period.index_copy(
-                0, ctx.cohort, self._adapt(period[ctx.cohort], energy,
-                                           ctx.comm.diff_hist))}
-        period = self._adapt(extras["period"], energy, ctx.comm.diff_hist)
-        if ctx.participation is not None:
-            period = torch.where(ctx.participation, period,
-                                 extras["period"])
-        return {**extras, "period": period}
+        if ctx.cohort is None:
+            return self.post_upload(extras, energy, upload, ctx)
+        # the cohort's form of the participation freeze: only the sampled
+        # rows evaluated a gradient, so only their periods adapt (the dense
+        # plane's integers exactly)
+        period = extras["period"]
+        return {**extras, "period": period.index_copy(
+            0, ctx.cohort, self._adapt(period[ctx.cohort], energy,
+                                       ctx.comm.diff_hist))}
+
+
+# ----------------------------------------------------------- shared round
+
+def init_comm_state(strategy: CommStrategy, params, m: int,
+                    grad_dtype=None) -> CommState:
+    """Fresh pytree CommState: τ_m starts at D so iteration 0 uploads
+    everywhere. ``grad_dtype`` is the storage dtype of gradient-shaped
+    state (None follows each parameter's dtype)."""
+    r = strategy.rule
+    dev = tree_leaves(params)[0].device
+    zeros = tree_zeros_like(params, grad_dtype)
+    extras = strategy.init_extras(params, m, lambda: zeros,
+                                  broadcast_to_workers)
+    return CommState(
+        nabla=zeros,
+        worker_grads=broadcast_to_workers(zeros, m),
+        staleness=torch.full((m,), r.max_delay, dtype=torch.int32,
+                             device=dev),
+        diff_hist=torch.zeros((r.d_max,), dtype=torch.float32, device=dev),
+        extras=extras,
+    )
+
+
+def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
+               k: int, *, vgrad, vgrad_per=None, participation=None,
+               local_steps=None) -> CommRoundResult:
+    """One communication round of Algorithm 1 (lines 4-15) on the pytree
+    plane: the reference's expression order, leaf by leaf.
+
+    The caller applies the server update (lines 16-17) to
+    ``result.comm.nabla`` and then records the progress scalar with
+    :func:`record_progress`. ``participation`` ((M,) bool or None) masks
+    the uploads of a partial-participation round; ``local_steps`` is legal
+    for the delta-payload rules only, whose batch leads with the H axis
+    where ``flat.batch_has_local_axis`` says so and whose payload is the
+    model delta of the local run (``flat.flat_comm_round`` has the
+    contract)."""
+    r = strategy.rule
+    m = comm.staleness.shape[0]
+    if local_steps is not None and not strategy.delta_payload:
+        raise ValueError(
+            f"rule kind {r.kind!r} ships per-iteration gradients; "
+            "local_steps is only meaningful for delta-payload rules "
+            "(local_momentum, fedadam)")
+
+    # Line 4 (rule-owned): e.g. CADA1 snapshot refresh every D iterations.
+    extras = strategy.pre_step(comm.extras, params, k)
+
+    if strategy.delta_payload:
+        # h_w local optimizer steps per worker; the payload θ^k − θ_m^(h)
+        # takes the fresh gradient's place and always uploads
+        batch_h = (batch if batch_has_local_axis(r, local_steps)
+                   else batch_map(lambda x: x[None], batch))
+        h_steps = local_steps_vector(m, batch_h, local_steps,
+                                     device=comm.staleness.device)
+        losses, fresh, cache = strategy.local_payload(
+            extras, params, batch_h, m, vgrad_per, h_steps)
+        ctx = CommContext(params=params, batch=batch, fresh=fresh,
+                          comm=comm._replace(extras=extras), step=k, m=m,
+                          vgrad=vgrad, vgrad_per=vgrad_per,
+                          participation=participation)
+        lhs = torch.full((m,), torch.inf, dtype=torch.float32,
+                         device=comm.staleness.device)
+    else:
+        h_steps = None
+        # Lines 6/8: fresh stochastic gradients at θ^k (all rules).
+        losses, fresh = vgrad(params, batch)
+        ctx = CommContext(params=params, batch=batch, fresh=fresh,
+                          comm=comm._replace(extras=extras), step=k, m=m,
+                          vgrad=vgrad, vgrad_per=vgrad_per,
+                          participation=participation)
+        # Lines 7/9: rule LHS vs the shared recent-progress RHS.
+        lhs, cache = strategy.lhs(ctx, extras)
+    rhs = r.rhs(comm.diff_hist)
+    # Line 10: upload if the condition is VIOLATED or staleness capped.
+    upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
+    if participation is not None:
+        upload = upload & participation
+
+    # Eq. (3): the wire format is applied to δ before both the server
+    # aggregate and the worker's stale copy, and the cast to the stale
+    # storage dtype is the wire dtype, so the two sides stay in sync.
+    delta = strategy.wire_delta(ctx, extras, cache,
+                                _innovation(fresh, comm.worker_grads))
+    zeros = tree_zeros_like(delta)
+    wire = tree_map(lambda d, s: d.to(s.dtype),
+                    select_rows(upload, delta, zeros), comm.worker_grads)
+    nabla = tree_map(lambda n, d: (n.float() + d.float().mean(dim=0)
+                                   ).to(n.dtype), comm.nabla, wire)
+    worker_grads = tree_map(lambda s, d: (s.float() + d.float()).to(s.dtype),
+                            comm.worker_grads, wire)
+
+    staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)
+    extras = strategy.post_upload(extras, cache, upload, ctx)
+
+    uploads = upload.sum(dtype=torch.int32)
+    n_active = (torch.tensor(m, dtype=torch.int32, device=upload.device)
+                if participation is None
+                else participation.sum(dtype=torch.int32))
+    if strategy.delta_payload:
+        # one eval per local step: Σ_active h_w
+        grad_evals = (h_steps if participation is None
+                      else torch.where(participation, h_steps, 0)
+                      ).sum(dtype=torch.int32)
+    else:
+        grad_evals = n_active * strategy.grad_evals_per_iter
+    metrics = {
+        "uploads": uploads,
+        # the share of ACTIVE workers that skipped
+        "skip_rate": 1.0 - uploads.float() / n_active,
+        "upload_mask": upload,
+        "staleness": staleness,
+        "rhs": rhs,
+        "lhs": lhs,
+        "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
+        "max_staleness": staleness.max(),
+        "grad_evals": grad_evals,
+        "bytes_up": (uploads.float()
+                     * strategy.bytes_per_upload(tree_size(params))),
+    }
+    new_comm = CommState(nabla=nabla, worker_grads=worker_grads,
+                         staleness=staleness, diff_hist=comm.diff_hist,
+                         extras=extras)
+    return CommRoundResult(losses=losses, comm=new_comm, upload=upload,
+                           metrics=metrics)
+
+
+def nabla_f32(comm: CommState):
+    """The server-update driver ∇^k in fp32 (line 16's input)."""
+    return _f32(comm.nabla)
+

@@ -1,5 +1,5 @@
 """Server/worker engine for CADA (the paper's Algorithm 1) on the dense
-flat plane and on the cohort plane.
+flat plane, on the per-leaf pytree plane and on the cohort plane.
 
 A (virtual) server and M workers: worker gradients are a ``torch.func.vmap``
 over the worker axis of ``grad_and_value(loss_fn)``, the communication
@@ -11,6 +11,15 @@ its LAG baseline on SGD), for which ∇ is unpacked to fp32 leaves and
 The delta-payload rules (``local_momentum``, ``fedadam``) prescribe their
 own server optimizer (sgd(1.0), server Adam), which the engine takes when
 it is given none, and their batches lead with the local-steps axis H.
+
+Two state planes implement the round, step for step the same:
+``fused=True`` (the default), the flat plane above, and ``fused=False``,
+the per-leaf pytree plane (:func:`repro_torch.core.comm.comm_round`), kept
+as the readable oracle the flat plane is held against. Its server step is
+the protocol optimizer, or ``FusedAMSGrad`` through its protocol adapter:
+one AMSGrad step over the packed trees (``ops.fused_cada_update``, the
+kernel on the card), then updates = θ' − θ and ||Δθ||² their sum of
+squares.
 
 The cohort plane (:meth:`CADAEngine.init_cohort`, :meth:`~CADAEngine.
 step_cohort`, :meth:`~CADAEngine.run_cohort`) keeps the O(M·n) per-worker
@@ -29,21 +38,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import flat as F
-from repro_torch.core.comm import strategy_for
+from repro_torch.core.comm import (comm_round, init_comm_state, nabla_f32,
+                                   record_progress, strategy_for)
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.optim.base import Optimizer, apply_updates
-from repro_torch.optim.fused import FusedAMSGrad
-from repro_torch.utils.trees import tree_map, tree_sq_norm
+from repro_torch.optim.fused import FusedAMSGrad, as_optimizer
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_sq_norm
 
 
 class EngineState(NamedTuple):
     step: int                    # k
     params: dict                 # θ^k (server copy, dict form)
     opt_state: Any               # server-optimizer state
-    comm: F.FlatCommState
-    params_flat: torch.Tensor    # θ^k packed fp32
+    comm: Any                    # comm.CommState | flat.FlatCommState
+    params_flat: Any = None      # θ^k packed fp32 (flat plane only)
 
 
 class CohortEngineState(NamedTuple):
@@ -68,6 +78,8 @@ class CADAEngine:
         ``FusedAMSGrad(lr=1e-3)``.
       rule: the communication rule (a kind ported in core/comm.py).
       n_workers: M.
+      fused: run the flat plane (True, the default) or the per-leaf pytree
+        plane (False).
       fuse_evals: stack the rule's per-worker second gradient evaluation
         onto the fresh one in one vmapped call (default on, as in the
         reference).
@@ -94,6 +106,7 @@ class CADAEngine:
     def __init__(self, loss_fn: Callable,
                  optimizer: FusedAMSGrad | Optimizer | None = None,
                  rule: CommRule | None = None, n_workers: int = 1, *,
+                 fused: bool = True,
                  fuse_evals: bool | None = None, group_evals: bool = False,
                  impl=None, device=None, resum_every: int = 0,
                  allow_adaptive_local_steps: bool = False):
@@ -119,6 +132,7 @@ class CADAEngine:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.optimizer = optimizer
         self.m = n_workers
+        self.fused = fused
         self._fuse_evals = True if fuse_evals is None else fuse_evals
         self._group_evals = group_evals
         self._impl = impl
@@ -137,6 +151,11 @@ class CADAEngine:
     # ------------------------------------------------------------- state
     def init(self, params: dict) -> EngineState:
         params = tree_map(lambda p: p.to(self.device), params)
+        if not self.fused:
+            return EngineState(
+                step=0, params=params,
+                opt_state=self.optimizer.init(params),
+                comm=init_comm_state(self.strategy, params, self.m))
         layout = F.layout_of(params)
         self._layout = layout
         params_flat = layout.pack(params)
@@ -163,12 +182,17 @@ class CADAEngine:
         H local steps (``flat.batch_has_local_axis``); ``participation`` an
         optional (M,) bool mask; ``local_steps`` (None, a scalar or (M,))
         the per-worker step counts of a delta-payload round."""
-        if state.params_flat.device != self.device:
-            raise ValueError(f"the state lies on {state.params_flat.device}, "
-                             f"the engine on {self.device}")
+        state_dev = (state.params_flat if self.fused
+                     else tree_leaves(state.params)[0]).device
+        if state_dev != self.device:
+            raise ValueError(f"the state lies on {state_dev}, the engine on "
+                             f"{self.device}")
         if batch[0].device != self.device:
             raise ValueError(f"the batch lies on {batch[0].device}, the "
                              f"engine on {self.device}")
+        if not self.fused:
+            return self._step_pytree(state, batch, participation,
+                                     local_steps)
         k = state.step
         if self._layout is None:
             self._layout = F.layout_of(state.params)
@@ -188,6 +212,28 @@ class CADAEngine:
         new_state = EngineState(step=k + 1, params=params,
                                 opt_state=opt_state, comm=comm,
                                 params_flat=theta)
+        return new_state, {"loss": out.losses.mean(), **out.metrics}
+
+    def _step_pytree(self, state: EngineState, batch, participation=None,
+                     local_steps=None) -> tuple[EngineState, dict]:
+        """The per-leaf pytree plane: the shared round on dicts, then the
+        server step through the protocol (the fused step's adapter for
+        ``FusedAMSGrad``)."""
+        k = state.step
+        # Lines 4-15: the shared communication round.
+        out = comm_round(self.strategy, state.comm, state.params, batch, k,
+                         vgrad=self._vgrad, vgrad_per=self._vgrad_per,
+                         participation=participation,
+                         local_steps=local_steps)
+        # Lines 16-17: the server update driven by ∇^k (eqs. 2a-2c).
+        opt = (as_optimizer(self.optimizer, impl=self._impl)
+               if self._fused_opt else self.optimizer)
+        updates, opt_state = opt.update(nabla_f32(out.comm), state.opt_state,
+                                        state.params)
+        params = apply_updates(state.params, updates)
+        comm = record_progress(out.comm, tree_sq_norm(updates), k)
+        new_state = EngineState(step=k + 1, params=params,
+                                opt_state=opt_state, comm=comm)
         return new_state, {"loss": out.losses.mean(), **out.metrics}
 
     def _server_step(self, params, params_flat, opt_state, nabla):
@@ -216,6 +262,8 @@ class CADAEngine:
         put them in files). The server step is the fused AMSGrad kernel
         or any protocol optimizer (the delta-payload rules prescribe
         theirs)."""
+        if not self.fused:
+            raise ValueError("the cohort plane requires fused=True")
         params = tree_map(lambda p: p.to(self.device), params)
         layout = F.layout_of(params)
         self._layout = layout

@@ -28,9 +28,9 @@ Two forms, as in the JAX package's ``core/local_update.py``:
 The local run is a Python loop over the batch's H axis (the reference's
 ``lax.scan``) with per-worker masking at j < h_w: a worker past its own
 step count keeps its parameters and momenta, and its losses stop counting.
-Only the flat-plane form is ported; the reference's pytree forms
-(``local_payload``, ``post_upload``) belong to its ``fused=False`` plane,
-which the port does not have.
+Each rule has the flat plane's hooks (``flat_local_payload``,
+``flat_post_upload``) and the pytree plane's (``local_payload``,
+``post_upload``, for ``core.comm.comm_round`` under ``fused=False``).
 """
 from __future__ import annotations
 
@@ -38,13 +38,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.comm import CommStrategy, register
+from repro_torch.core.comm import (CommStrategy, broadcast_to_workers,
+                                   register, select_rows)
 from repro_torch.core.flat import batch_lead, batch_map
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.adam import adam
 from repro_torch.optim.base import apply_updates
 from repro_torch.optim.sgd import sgd
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_sub
 
 
 class LocalState(NamedTuple):
@@ -128,7 +129,7 @@ class LocalUpdateEngine:
                 momenta)
             server_opt = state.server_opt
         else:   # FedAdam: pseudo-gradient −(mean Δ) = θ_server − mean θ_m
-            pseudo = tree_map(torch.sub, state.params, mean_params)
+            pseudo = tree_sub(state.params, mean_params)
             updates, server_opt = self._server_opt.update(
                 pseudo, state.server_opt, state.params)
             params = apply_updates(state.params, updates)
@@ -173,6 +174,39 @@ class LocalUpdateStrategy(CommStrategy):
 
     delta_payload = True
 
+    # ---- the pytree plane
+    def _local_step(self, wp, grads, mom):
+        """(new_wp, new_mom) of one local step on (M,)-leading dicts;
+        ``mom`` may be None."""
+        raise NotImplementedError
+
+    def _initial_momenta(self, extras, params, m):
+        """(M,)-leading momentum dict carried into the round, or None."""
+        del extras, params, m
+        return None
+
+    def local_payload(self, extras, params, batch, m, vgrad_per, h_steps):
+        """The local run on dicts: ``batch`` leads with (H, M, ...),
+        ``h_steps`` is the (M,) int32 count of steps each worker takes.
+        Returns the (M,) mean losses over each worker's steps, the
+        (M,)-leading fp32 payload θ^k − θ_m^(h) and the momenta after the
+        run (or None)."""
+        wp = broadcast_to_workers(params, m)
+        mom = self._initial_momenta(extras, params, m)
+        step_losses = []
+        for j in range(batch_lead(batch)):
+            losses, grads = vgrad_per(wp, batch_map(lambda x: x[j], batch))
+            new_wp, new_mom = self._local_step(wp, grads, mom)
+            active = j < h_steps
+            wp = select_rows(active, new_wp, wp)
+            if mom is not None:
+                mom = select_rows(active, new_mom, mom)
+            step_losses.append(torch.where(active, losses, 0.0))
+        payload = tree_map(lambda p, w: p.float() - w.float(), params, wp)
+        return (_masked_mean_losses(torch.stack(step_losses), h_steps),
+                payload, mom)
+
+    # ---- the flat plane
     def _local_step_flat(self, wp, g, mom):
         """(new_wp, new_mom) of one local step on (M, n_flat) fp32 planes;
         ``mom`` may be None."""
@@ -234,6 +268,35 @@ class LocalMomentumStrategy(LocalUpdateStrategy):
     def server_optimizer(self):
         return sgd(1.0)
 
+    def _local_step(self, wp, grads, mom):
+        r = self.rule
+        new_mom = tree_map(
+            lambda mo, g: (r.local_beta * mo.float() + g.float()
+                           ).to(mo.dtype), mom, grads)
+        new_wp = tree_map(
+            lambda p, mo: (p.float() - r.local_lr * mo.float()).to(p.dtype),
+            wp, new_mom)
+        return new_wp, new_mom
+
+    def _initial_momenta(self, extras, params, m):
+        del params, m
+        return extras["momenta"]
+
+    def init_extras(self, params, m, make_grad_zeros, bcast):
+        return {"momenta": bcast(make_grad_zeros(), m)}
+
+    def post_upload(self, extras, cache, upload, ctx):
+        mom_run = cache   # the momenta after the local run
+        cnt = upload.sum(dtype=torch.int32).clamp_min(1).float()
+
+        def leaf(mn, mo):
+            mask = upload.reshape((-1,) + (1,) * (mn.dim() - 1))
+            avg = torch.where(mask, mn.float(), 0.0).sum(dim=0) / cnt
+            return torch.where(mask, avg[None].to(mo.dtype), mo)
+
+        return {**extras,
+                "momenta": tree_map(leaf, mom_run, extras["momenta"])}
+
     def _local_step_flat(self, wp, g, mom):
         r = self.rule
         new_mom = r.local_beta * mom + g
@@ -274,6 +337,11 @@ class FedAdamStrategy(LocalUpdateStrategy):
 
     def server_optimizer(self):
         return _fedadam_server(self.rule.server_lr)
+
+    def _local_step(self, wp, grads, mom):
+        lr = self.rule.local_lr
+        return tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+                        wp, grads), mom
 
     def _local_step_flat(self, wp, g, mom):
         return wp - self.rule.local_lr * g, mom

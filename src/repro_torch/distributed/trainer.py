@@ -42,10 +42,15 @@ round (``flat.flat_cohort_round``) and its pipelined driver; its
 per-worker gradients come from the same loop, its server step is the
 same AMSGrad kernel.
 
+``fused=False`` selects the per-leaf pytree plane, the reference's debug
+oracle: the state's moments are dicts, the round is
+:func:`repro_torch.core.comm.comm_round`, and the server step is
+:func:`_amsgrad_apply`, eager per-leaf PyTorch with no kernel, as in the
+reference. It runs the dense step only; the cohort plane refuses it.
+
 Not here, and refused by name where a field asks for them: the mesh, FSDP
 and ZeRO-sharded state (``fsdp``, ``fsdp_axes``, ``state_fsdp_axes``,
-``shard_cada_state``), the per-leaf debug plane (``fused=False``) and the
-pod shard_map. ``group_evals`` (cada2's second evaluation once per
+``shard_cada_state``) and the pod shard_map. ``group_evals`` (cada2's second evaluation once per
 occupied ring row, ``flat.grouped_second_plane``) reaches the dense flat
 step, as in the reference; the cohort step gathers.
 """
@@ -58,14 +63,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import flat as F
-from repro_torch.core.comm import strategy_for
+from repro_torch.core.comm import (comm_round, init_comm_state, nabla_f32,
+                                   record_progress, strategy_for)
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, lm_loss
-from repro_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
-                                     tree_unflatten)
+from repro_torch.utils.trees import (tree_add, tree_leaves, tree_map,
+                                     tree_paths, tree_sq_norm,
+                                     tree_unflatten, tree_zeros_like)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -87,7 +94,8 @@ class TrainHParams:
     microbatches: int = 1
     cada_dtype: str = "float32"     # ∇ / stale-plane storage
     moments_dtype: str = "float32"  # {h, v̂} storage (math stays fp32)
-    fused: bool = True              # the flat plane, the only one ported
+    fused: bool = True              # the flat plane; False: the per-leaf
+    #                                 pytree plane (the debug oracle)
     fsdp: bool | None = None
     fsdp_axes: tuple = ("data",)
     state_fsdp_axes: tuple = ()
@@ -101,10 +109,6 @@ class TrainHParams:
                 raise NotImplementedError(
                     f"TrainHParams.{name}={getattr(self, name)!r}: "
                     f"{what} is not ported to repro_torch yet")
-        if not self.fused:
-            raise NotImplementedError(
-                "TrainHParams.fused=False: the per-leaf debug plane is not "
-                "ported; repro_torch runs the flat plane only")
         for name in ("cada_dtype", "moments_dtype"):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
@@ -123,9 +127,10 @@ class TrainHParams:
 class DistTrainState(NamedTuple):
     step: int                # k
     params: Any              # θ^k (dict of tensors)
-    h: torch.Tensor          # (n_flat,) first moment
-    vhat: torch.Tensor       # (n_flat,) running max second moment
-    comm: Any                # FlatCommState (None for stateless rules)
+    h: Any                   # first moment: (n_flat,), or a dict (pytree)
+    vhat: Any                # running max second moment, likewise
+    comm: Any                # FlatCommState, or CommState on the pytree
+    #                          plane (None for stateless rules)
 
 
 def worker_split(batch: dict, m: int, local_steps: int = 1) -> dict:
@@ -153,11 +158,19 @@ def worker_split(batch: dict, m: int, local_steps: int = 1) -> dict:
 def init_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
                      seed: int = 0, device=None) -> DistTrainState:
     """Parameters drawn on ``device`` (None: the card) from ``seed``, zero
-    moments on the flat plane, and the rule's flat CommState (none for a
-    stateless rule)."""
+    moments and the rule's CommState (none for a stateless rule): on the
+    flat plane, or per leaf when ``hp.fused`` is False."""
     device = resolve_device(device)
     params = init_params(cfg, seed, device)
     strategy = strategy_for(hp.rule)
+    if not hp.fused:
+        return DistTrainState(
+            step=0, params=params,
+            h=tree_zeros_like(params, hp.moments_torch_dtype),
+            vhat=tree_zeros_like(params, hp.moments_torch_dtype),
+            comm=(None if strategy.stateless else
+                  init_comm_state(strategy, params, m,
+                                  grad_dtype=hp.cada_torch_dtype)))
     layout = F.layout_of(params)
     return DistTrainState(
         step=0,
@@ -169,6 +182,26 @@ def init_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
         comm=(None if strategy.stateless else
               F.init_flat_comm_state(strategy, layout, params, m,
                                      grad_dtype=hp.cada_torch_dtype)))
+
+
+def _amsgrad_apply(params, h, vhat, grad, hp: TrainHParams):
+    """The paper's (2a)-(2c) per leaf, in eager PyTorch (the pytree
+    plane's server step; no kernel, as in the reference): (params', h',
+    v̂', ||Δθ||²). Math in fp32; the moments keep their storage dtype."""
+    h_new = tree_map(
+        lambda m, g: (hp.b1 * m.float() + (1 - hp.b1) * g.float()
+                      ).to(m.dtype), h, grad)
+    vhat_new = tree_map(
+        lambda s, g: torch.maximum(
+            hp.b2 * s.float() + (1 - hp.b2) * torch.square(g.float()),
+            s.float()).to(s.dtype), vhat, grad)
+    upd = tree_map(lambda m, s: (-hp.lr * m.float()
+                                 / torch.sqrt(hp.eps + s.float())),
+                   h_new, vhat_new)
+    new_params = tree_map(lambda p, u: (p.float() + u).to(p.dtype),
+                          params, upd)
+    dsq = tree_sq_norm(upd)
+    return new_params, h_new, vhat_new, dsq
 
 
 def _value_and_grad(loss_fn, params, wbatch):
@@ -209,7 +242,7 @@ def make_worker_grad(cfg: ModelConfig, hp: TrainHParams):
             if g_s is None:   # the reference adds onto fp32 zeros: exact
                 loss_s, g_s = loss, tree_map(lambda x: x.float(), g)
             else:
-                loss_s, g_s = loss_s + loss, tree_map(torch.add, g_s, g)
+                loss_s, g_s = loss_s + loss, tree_add(g_s, g)
         return loss_s / nm, tree_map(lambda x: x / nm, g_s)
 
     return worker_grad
@@ -253,9 +286,11 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     (H, M) for a delta-payload rule with H local steps
     (:func:`worker_split`). ``impl`` is the dispatch override of
     ``kernels/ops.py`` (None on the main path). The state is not updated in
-    place."""
+    place. With ``hp.fused`` False the step runs the pytree plane."""
     strategy = strategy_for(hp.rule)
     vgrad, vgrad_per = make_vgrads(cfg, hp)
+    if not hp.fused:
+        return _make_pytree_step(strategy, hp, m, vgrad, vgrad_per)
 
     def fused_update(layout, pflat, h, vhat, grad_flat):
         """The server step on the packed fp32 plane (the AMSGrad kernel on
@@ -311,6 +346,47 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     return step_flat
 
 
+def _make_pytree_step(strategy, hp: TrainHParams, m: int, vgrad,
+                      vgrad_per):
+    """The pytree plane's step (``fused=False``): the per-leaf round and
+    :func:`_amsgrad_apply`."""
+    if strategy.stateless:
+        def step_always(state: DistTrainState, batch):
+            losses, fresh = vgrad(state.params, batch)
+            grad = tree_map(lambda g: torch.mean(g, dim=0), fresh)
+            params, h, vhat, dsq = _amsgrad_apply(
+                state.params, state.h, state.vhat, grad, hp)
+            new_state = state._replace(step=state.step + 1, params=params,
+                                       h=h, vhat=vhat)
+            dev = losses.device
+            return new_state, {
+                "loss": losses.mean(),
+                "uploads": torch.tensor(m, dtype=torch.int32, device=dev),
+                "skip_rate": torch.zeros((), dtype=torch.float32,
+                                         device=dev),
+                "upload_mask": torch.ones((m,), dtype=torch.bool,
+                                          device=dev),
+                "staleness": torch.ones((m,), dtype=torch.int32,
+                                        device=dev),
+                "dtheta_sq": dsq,
+            }
+        return step_always
+
+    def step(state: DistTrainState, batch):
+        k = state.step
+        out = comm_round(strategy, state.comm, state.params, batch, k,
+                         vgrad=vgrad, vgrad_per=vgrad_per)
+        params, h, vhat, dsq = _amsgrad_apply(
+            state.params, state.h, state.vhat, nabla_f32(out.comm), hp)
+        comm = record_progress(out.comm, dsq, k)
+        new_state = DistTrainState(step=k + 1, params=params, h=h,
+                                   vhat=vhat, comm=comm)
+        return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                           **out.metrics}
+
+    return step
+
+
 # ------------------------------------------------------- federated cohort
 
 class CohortTrainState(NamedTuple):
@@ -331,7 +407,9 @@ def init_cohort_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
     """(CohortTrainState, WorkerPool) for M federated workers, parameters
     drawn on ``device`` (None: the card) from ``seed``: device memory
     O(n), the host pool O(M·n) (``pool_storage="memmap"`` and
-    ``pool_path`` put it in files)."""
+    ``pool_path`` put it in files). Requires ``hp.fused``."""
+    if not hp.fused:
+        raise ValueError("the cohort plane requires fused=True")
     device = resolve_device(device)
     params = init_params(cfg, seed, device)
     layout = F.layout_of(params)
@@ -363,7 +441,9 @@ def make_cohort_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     federated M an (M, b, ...) batch is itself the memory wall); the
     per-worker gradients are :func:`make_vgrads`' loop over them.
     ``train_step.fused_step_for(pool)`` is the block step the pipelined
-    driver (:func:`run_cohort_train`) runs."""
+    driver (:func:`run_cohort_train`) runs. Requires ``hp.fused``."""
+    if not hp.fused:
+        raise ValueError("the cohort plane requires fused=True")
     strategy = strategy_for(hp.rule)
     vgrad, vgrad_per = make_vgrads(cfg, hp)
 

@@ -16,7 +16,7 @@ from repro_torch.kernels import cada_update as _cu
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssm_scan as _ss
-from repro_torch.utils.trees import tree_leaves
+from repro_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 IMPLS = (None, "plain", "kernel")
 
@@ -71,6 +71,52 @@ def diff_sq_norm_flat(a, b, *, impl=None):
     if use_kernel(a, impl):
         return _cu.diff_sq_norm_flat(a, b)
     return _ref.diff_sq_norm_ref(a, b)
+
+
+def _flatten_padded(tree, dtype, block=1024):
+    """Concat all leaves (as ``dtype``) into one flat buffer padded to a
+    multiple of ``block``, in the reference's leaf order. Returns (flat,
+    unflatten) with ``unflatten(buf, out_dtypes=None)`` cutting a buffer
+    back into the tree's shapes, each leaf in its own dtype or in
+    ``out_dtypes``."""
+    paths, leaves = tree_paths(tree), tree_leaves(tree)
+    sizes = [l.numel() for l in leaves]
+    shapes = [tuple(l.shape) for l in leaves]
+    dtypes = [l.dtype for l in leaves]
+    flat = torch.cat([l.reshape(-1).to(dtype) for l in leaves])
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+
+    def unflatten(buf, out_dtypes=None):
+        out_dtypes = out_dtypes or dtypes
+        outs, off = [], 0
+        for sz, shp, dt in zip(sizes, shapes, out_dtypes):
+            outs.append(buf[off:off + sz].reshape(shp).to(dt))
+            off += sz
+        return tree_unflatten(paths, outs)
+
+    return flat, unflatten
+
+
+def fused_cada_update(params, h, vhat, grads, lr, *, b1=0.9, b2=0.999,
+                      eps=1e-8, impl=None):
+    """The fused CADA/AMSGrad step over dicts of tensors: each tree is cast
+    to fp32 and packed into one buffer padded to a multiple of 1024, ONE
+    step runs over the buffers (the kernel on the card), and the result is
+    cut back into leaves. Returns (params' in each leaf's dtype, h' and
+    v̂' in fp32, ||θ'−θ||²). Padding lanes carry zero gradients, so their
+    moments stay zero and their update is 0 (eps > 0)."""
+    pf, unflat_p = _flatten_padded(params, torch.float32)
+    hf, unflat_m = _flatten_padded(h, torch.float32)
+    vhf, _ = _flatten_padded(vhat, torch.float32)
+    gf, _ = _flatten_padded(grads, torch.float32)
+    pt, ht, vht, sq = fused_amsgrad_flat(pf, hf, vhf, gf, lr, b1=b1, b2=b2,
+                                         eps=eps, impl=impl)
+    f32 = [torch.float32] * len(tree_leaves(h))
+    p_dtypes = [l.dtype for l in tree_leaves(params)]
+    return (unflat_p(pt, p_dtypes), unflat_m(ht, f32),
+            unflat_m(vht, f32), sq)
 
 
 def diff_sq_norm(tree_a, tree_b, *, impl=None):

@@ -105,6 +105,11 @@ class ModelConfig:
     def has_attention(self) -> bool:
         return self.block in ("dense", "moe") or self.attn_every > 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """Can this config decode at 500k+ context without O(S) full-KV?"""
+        return self.block in ("mamba1", "mamba2") or self.sliding_window > 0
+
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
 

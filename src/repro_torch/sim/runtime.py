@@ -62,7 +62,7 @@ from repro_torch.sim.clock import NetworkProfile, network_profile
 from repro_torch.sim.events import (COMPUTE_DONE, DOWNLOAD_DONE,
                                     UPLOAD_ARRIVE, EventQueue,
                                     ParticipationModel, WorkerProc)
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import tree_map, tree_size
 
 MODES = ("barrier", "async")
 
@@ -292,7 +292,8 @@ class SimRuntime:
         masks = mets["upload_mask"]                      # (steps, M)
         staleness = mets["staleness"]
         losses = np.asarray(mets["loss"], np.float64)
-        up_bytes, down_bytes = self._byte_costs(eng._layout.n)
+        up_bytes, down_bytes = self._byte_costs(
+            eng._layout.n if eng.fused else tree_size(params))
         evals = eng.strategy.grad_evals_per_iter
 
         tr = self.tracer
@@ -396,7 +397,8 @@ class SimRuntime:
                   else part.masks(steps))
 
         st = eng.init(params)
-        up_bytes, down_bytes = self._byte_costs(eng._layout.n)
+        up_bytes, down_bytes = self._byte_costs(
+            eng._layout.n if eng.fused else tree_size(params))
         evals = eng.strategy.grad_evals_per_iter
 
         tr = self.tracer

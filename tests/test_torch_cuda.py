@@ -115,6 +115,35 @@ def test_amsgrad_kernel_at_an_unaligned_offset(gen, n, moments, theta_dtype):
     torch.testing.assert_close(k[3], p[3], rtol=1e-5, atol=0)
 
 
+def test_fused_cada_update_on_a_pytree_matches_plain(gen):
+    """The pytree entry (``ops.fused_cada_update``: the leaves packed into
+    one fp32 buffer padded to a multiple of 1024) launches the AMSGrad
+    kernel once and gives its plain route's θ', h', v̂' bit for bit, leaf
+    for leaf (a bf16 leaf included), and its Σupd² within rtol 1e-5."""
+    def tree(scale, nonneg=False):
+        out = {}
+        for name, shape in (("a", (37, 5)), ("b", (1031,)),
+                            ("c", (3, 3, 3)), ("d", ())):
+            x = scale * torch.randn(shape, generator=gen, device="cuda")
+            out[name] = x.abs() if nonneg else x
+        return out
+    params = tree(1.0)
+    params["b"] = params["b"].to(torch.bfloat16)
+    h, vhat, grads = tree(0.1), tree(0.01, nonneg=True), tree(1.0)
+    before = cada_update.fused_amsgrad_flat.launches
+    k = ops.fused_cada_update(params, h, vhat, grads, 0.01)
+    assert cada_update.fused_amsgrad_flat.launches == before + 1
+    p = ops.fused_cada_update(params, h, vhat, grads, 0.01, impl="plain")
+    assert cada_update.fused_amsgrad_flat.launches == before + 1
+    for got, want in zip(k[:3], p[:3]):
+        for name in want:
+            assert got[name].dtype == want[name].dtype, name
+            assert got[name].shape == want[name].shape, name
+            assert torch.equal(got[name], want[name]), name
+    assert k[0]["b"].dtype == torch.bfloat16
+    torch.testing.assert_close(k[3], p[3], rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 8), (10, 48), (10, 101_776),
                                    (3, 1_000_003)])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),

@@ -136,8 +136,7 @@ def test_state_follows_the_hyper_parameters():
 
 @pytest.mark.parametrize("field,value", [
     ("fsdp", True), ("fsdp_axes", ("data", "pod")),
-    ("state_fsdp_axes", ("data",)), ("shard_cada_state", True),
-    ("fused", False)])
+    ("state_fsdp_axes", ("data",)), ("shard_cada_state", True)])
 def test_unported_hyper_parameters_are_refused_by_name(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TrainHParams(**{field: value})
