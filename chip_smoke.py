@@ -211,6 +211,23 @@ Phases, each of which raises on failure (the exit code is then not 0):
         ``TrainHParams(fused=False)`` and ``fused=True``, cada2, 4 steps:
         masks equal, losses within 1e-2 of each other, both step times
         and peak memories.
+ 13. the mesh runtime (``trainer.jit_train_step`` on a process group): 2
+     ranks spawned on the one card (gloo: NCCL refuses two ranks on one
+     device), a (data=2, model=1) mesh, M = 2, one worker a rank;
+     stablelm-1.6b at phase 7's width with 2 of its 24 layers, cada2 at
+     12d's c = 1000 with ``state_fsdp_axes=("data",)``, 4 steps of phase
+     7's batches. Each rank holds half of the server planes and its
+     worker's row of the stale plane, and launches exactly one AMSGrad
+     (on its half) and one two-operand norm (on its row) a step and no
+     eq. (3) kernel (a collective there); counts set to 0 just before and
+     read just after. On the first step's operands each rank holds both
+     kernels against their plain versions, and times the shard-local
+     AMSGrad against a launch at the full plane's size. Rank 0 then runs
+     the one-process trainer (fused, M = 2) from the same init and
+     batches: masks and losses equal at every step, ‖Δθ‖² within 1e-6,
+     θ, h, v̂, ∇ and the stale plane bit-equal. Per rank: step ms, peak
+     memory, and each collective's time (gloo through the host, not
+     NCCL's). A rank that fails fails the phase.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -227,9 +244,11 @@ checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -266,6 +285,7 @@ from repro_torch.distributed import trainer  # noqa: E402
 from repro_torch.distributed.scheduler import (DecodeScheduler,  # noqa: E402
                                                Request)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import DATA, MODEL, Mesh  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
 from repro_torch.models import frontends  # noqa: E402
@@ -483,6 +503,22 @@ PYTREE_ROUNDS, PYTREE_RTOL, PYTREE_ATOL = 20, 1e-4, 1e-6
 PYTREE_TRAIN_STEPS, PYTREE_TRAIN_C = 4, 1000.0
 PYTREE_LOSS_BAND, PYTREE_DTHETA_BAND, PYTREE_LHS_BAND = 1e-4, 5e-5, 6e-5
 PYTREE_PARAM_ULPS, PYTREE_PARAM_DIFFS = 4.0, 1000
+# phase 13: the mesh runtime (trainer.jit_train_step) on the one card: 2
+# ranks over gloo (NCCL refuses two ranks on one device; gloo carries the
+# CUDA tensors through the host), a (data=2, model=1) mesh, M = 2 (one
+# worker a rank); stablelm-1.6b at phase 7's width with MESH_LAYERS of its
+# 24 layers (the cut: two ranks and the one-process reference, run by rank
+# 0 after the mesh run, share the card's 80 GB), cada2 at 12d's skipping c
+# with state_fsdp_axes=("data",), MESH_STEPS steps of phase 7's batches;
+# ‖Δθ‖² (two per-shard partial sums against one launch's) within
+# MESH_DSQ_RTOL of the one-process trainer's: the kernel sums Σupd² in
+# fp32, each thread adding its ~1,000 (a half plane) or ~2,000 (the whole
+# plane) elements in sequence, so each launch carries a few 1e-6 of its
+# own; measured 3.89e-6 apart (PERF.md, PR 23), and each side's gap to an
+# fp64 sum of the same updates is printed at step 0
+MESH_LAYERS, MESH_STEPS, MESH_RANKS = 2, 4, 2
+MESH_DSQ_RTOL = 1e-5
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -2220,8 +2256,8 @@ def step_wire(step, state, batch):
     step fed to eq. (3), and what the kernel gave the step for it)."""
     real, seen = kops.eq3_row_mean, []
 
-    def capture(plane, m_total, *, impl=None):
-        out = real(plane, m_total, impl=impl)
+    def capture(plane, m_total, *, impl=None, shard=None):
+        out = real(plane, m_total, impl=impl, shard=shard)
         if m_total == TRAIN_M and not seen:   # the wire; momenta take 1
             seen.append((plane, out))
         return out
@@ -4363,6 +4399,331 @@ def phase_slice11(card: str, rates, params, batches, skipping_c: dict
     return totals, long["window_shape"]
 
 
+# ------------------------------------------------------- the mesh runtime
+
+@contextlib.contextmanager
+def _first_operands(rec: dict):
+    """Records the operands the step's first call of the AMSGrad and the
+    two-operand norm dispatch (``kernels/ops.py``, shard-local: the rank's
+    slices) hands its kernel, as host copies (the card keeps only the
+    run's own memory): the tensors and the step's hyper-parameters, not
+    the dispatch options."""
+    names = {"amsgrad": "fused_amsgrad_flat",
+             "batched_diff_sq": "batched_diff_sq_norm"}
+    saved = {name: getattr(kops, attr) for name, attr in names.items()}
+
+    def recording(name, f):
+        def call(*args, **kw):
+            if name not in rec:
+                rec[name] = ([a.to("cpu", copy=True) if torch.is_tensor(a)
+                              else a for a in args],
+                             {k: v for k, v in kw.items()
+                              if k not in ("impl", "shard")})
+            return f(*args, **kw)
+        return call
+
+    for name, attr in names.items():
+        setattr(kops, attr, recording(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, attr in names.items():
+            setattr(kops, attr, saved[name])
+
+
+@contextlib.contextmanager
+def _timed_collectives(log: list):
+    """Each all_reduce and all_gather of the process group timed on the
+    host's clock between two synchronisations of the card, as (op, bytes,
+    ms): gloo stages CUDA tensors through the host."""
+    import torch.distributed as dist
+    saved = {op: getattr(dist, op) for op in ("all_reduce", "all_gather")}
+
+    def timed(op, f):
+        def call(*args, **kw):
+            t = args[0] if op == "all_reduce" else args[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args, **kw)
+            torch.cuda.synchronize()
+            log.append((op, t.numel() * t.element_size(),
+                        (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    for op, f in saved.items():
+        setattr(dist, op, timed(op, f))
+    try:
+        yield
+    finally:
+        for op, f in saved.items():
+            setattr(dist, op, f)
+
+
+def _mesh_rank(rank: int, workdir: str) -> None:
+    """One rank of phase 13 (spawned): the gloo process group on the one
+    card, the run, its results as ``rank<r>.json``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load("cada_update")       # built by the parent: loaded, not built
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "rdv"),
+        rank=rank, world_size=MESH_RANKS)
+    out = mesh_rank_run(rank)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_rank_run(rank: int) -> dict:
+    """13 on one rank: the mesh runtime's MESH_STEPS steps (counts set to 0
+    just before and read just after; the first step's shard-local kernel
+    operands and every collective recorded). The ranks gather the whole
+    state, and rank 0 runs the one-process trainer from the same init and
+    batches, which must give the same masks and θ, h, v̂, ∇ and stale
+    plane bit for bit. Then, one rank after the other (the card to
+    itself), the two kernels on the recorded operands against their
+    plain versions, and the AMSGrad kernel timed on them and at the full
+    plane's size."""
+    import torch.distributed as dist
+    cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=MESH_LAYERS)
+    rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": PYTREE_TRAIN_C})
+    hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR,
+                              state_fsdp_axes=(DATA,))
+    mesh = Mesh((MESH_RANKS, 1), (DATA, MODEL))
+    make, _, m = trainer.jit_train_step(cfg, mesh, hp)
+    fs = trainer.flat_sharding(cfg, mesh, hp)
+    tokens = make_token_batches(cfg, global_batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, steps=MESH_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    whole = trainer.init_train_state(cfg, hp, m, 0, shards=fs.shards)
+    n_flat = whole.h.numel()
+    state = trainer.shard_train_state(whole, fs, hp)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make(_batch_on_card(tokens[0]))
+    rec, coll, step_ms, masks, dsq, losses = {}, [], [], [], [], []
+    with _first_operands(rec), _timed_collectives(coll):
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            state, mets = step(state, _batch_on_card(tokens[i]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            masks.append(mets["upload_mask"].tolist())
+            dsq.append(float(mets["dtheta_sq"]))
+            losses.append(float(mets["loss"]))
+        launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not _all_cuda(state):
+        raise RuntimeError(f"13 rank {rank}: the state left the card")
+    out = {"rank": rank, "n_flat": n_flat, "local_h": state.h.numel(),
+           "local_rows": list(state.comm.worker_grads.shape),
+           "step_ms": step_ms, "peak_gib": peak / 2**30, "masks": masks,
+           "dsq": dsq, "losses": losses, "launches": launches}
+    by_op: dict = {}
+    for op, nbytes, ms in coll:
+        by_op.setdefault(f"{op} {nbytes} B", []).append(ms)
+    out["collectives"] = {k: [len(v), statistics.median(v), max(v)]
+                          for k, v in by_op.items()}
+    print(f"    rank {rank}: {MESH_STEPS} steps, ms {out['step_ms']}, masks "
+          f"{masks}, peak {out['peak_gib']:.3f} GiB", flush=True)
+    # step 0's ||dtheta||^2 in fp64: the rank's updates, summed over ranks
+    (t, h, v, g, lr), kw = rec["amsgrad"]
+    _, h2, v2, _ = ref.amsgrad_ref(t.cuda(), h.cuda(), v.cuda(), g.cuda(),
+                                   lr, **kw)
+    # each update as both routes compute it (fp32), squared and summed in
+    # fp64
+    upd = (-lr * h2.float() / torch.sqrt(kw["eps"] + v2.float())).double()
+    exact = torch.sum(upd * upd).reshape(1)
+    del upd, h2, v2
+    dist.all_reduce(exact)
+    out["dsq0_fp64"] = float(exact)
+
+    whole = trainer.unshard_train_state(state, fs, hp)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["reference"] = _mesh_reference(cfg, hp, m, fs.shards, tokens,
+                                           whole, masks, dsq, losses,
+                                           out["dsq0_fp64"])
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in range(MESH_RANKS):
+        if r == rank:
+            out.update(_mesh_kernels(rank, rec))
+        dist.barrier()
+    return out
+
+
+def _mesh_kernels(rank: int, rec: dict) -> dict:
+    """The shard-local operands of the first step back on the card: each
+    kernel against its plain version, the AMSGrad kernel's device time on
+    them and on operands of the full plane's size."""
+    out = {}
+    (t, h, v, g, lr), kw = rec.pop("amsgrad")
+    t, h, v, g = (x.cuda() for x in (t, h, v, g))
+    k_out = cada_update.fused_amsgrad_flat(t, h, v, g, lr, **kw)
+    p_out = ref.amsgrad_ref(t, h, v, g, lr, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(k_out[:3], p_out[:3])):
+        raise RuntimeError(f"13 rank {rank}: the shard-local AMSGrad step "
+                           "is not bit-equal to its plain version")
+    sq_err = abs(float(k_out[3]) - float(p_out[3]))
+    if sq_err > SUM_RTOL * float(p_out[3]):
+        raise RuntimeError(f"13 rank {rank}: sum upd^2 {float(k_out[3])} "
+                           f"vs plain {float(p_out[3])}")
+    del k_out, p_out
+    local_ms = device_ms(lambda: cada_update.fused_amsgrad_flat(
+        t, h, v, g, lr, **kw), ("amsgrad_kernel",), calls=5)
+    full = [torch.cat([x, x]) for x in (t, h, v, g)]
+    out["amsgrad"] = {
+        "n": t.numel(), "n_full": full[0].numel(), "max_abs_err": sq_err,
+        "device_ms": local_ms,
+        "full_device_ms": device_ms(lambda: cada_update.fused_amsgrad_flat(
+            *full, lr, **kw), ("amsgrad_kernel",), calls=5)}
+    del full, t, h, v, g
+    torch.cuda.empty_cache()
+    a, b = (x.cuda() for x in rec.pop("batched_diff_sq")[0])
+    k_n = cada_update.batched_diff_sq_norm_flat(a, b)
+    p_n = ref.batched_diff_sq_norm_ref(a, b)
+    rel = _max_rel(k_n, p_n)
+    if rel > SUM_RTOL:
+        raise RuntimeError(f"13 rank {rank}: the row norm's rel err {rel}")
+    out["batched_diff_sq"] = {
+        "shape": list(a.shape), "max_abs_err": float((k_n - p_n).abs().max()),
+        "device_ms": device_ms(lambda: cada_update.batched_diff_sq_norm_flat(
+            a, b), ("row_sq_kernel",), calls=5)}
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_reference(cfg, hp, m, shards, tokens, whole, masks, dsq,
+                    losses, exact0: float) -> dict:
+    """The one-process trainer (fused, M workers on one process) from the
+    same init and batches as the mesh run: masks and losses equal at every
+    step, ‖Δθ‖² within MESH_DSQ_RTOL, and θ, h, v̂, ∇ and the stale plane
+    equal bit for bit after the run; raises otherwise, naming every array
+    that differs with its largest gap."""
+    state = trainer.init_train_state(cfg, hp, m, 0, shards=shards)
+    step = trainer.make_train_step(cfg, hp, m, shards=shards)
+    r_masks, r_dsq, r_losses, ms = [], [], [], []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = step(state, _batch_on_card(tokens[i]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        r_masks.append(mets["upload_mask"].tolist())
+        r_dsq.append(float(mets["dtheta_sq"]))
+        r_losses.append(float(mets["loss"]))
+    pairs = [("h", whole.h, state.h), ("vhat", whole.vhat, state.vhat),
+             ("nabla", whole.comm.nabla, state.comm.nabla),
+             ("worker_grads", whole.comm.worker_grads,
+              state.comm.worker_grads)]
+    pairs += [(f"theta {'/'.join(k)}", _leaf(whole.params, k),
+               _leaf(state.params, k)) for k in tree_paths(state.params)]
+    differ = {name: float((a.float() - b.float()).abs().max())
+              for name, a, b in pairs if not torch.equal(a, b)}
+    dsq_gap = max(abs(a - b) / b for a, b in zip(dsq, r_dsq))
+    out = {"masks": r_masks, "dsq": r_dsq, "losses": r_losses,
+           "step_ms": ms, "dsq_gap": dsq_gap, "differ": differ,
+           "arrays": len(pairs)}
+    out["dsq0_fp64_gap"] = {"mesh": abs(dsq[0] - exact0) / exact0,
+                             "one_process": abs(r_dsq[0] - exact0) / exact0}
+    if masks != r_masks or losses != r_losses:
+        raise RuntimeError(f"13: masks {masks} / losses {losses} on the "
+                           f"mesh, {r_masks} / {r_losses} in one process")
+    if dsq_gap > MESH_DSQ_RTOL:
+        raise RuntimeError(f"13: ||dtheta||^2 {dsq} on the mesh, {r_dsq} "
+                           f"in one process ({dsq_gap:.3g} apart)")
+    if differ:
+        raise RuntimeError(f"13: not bit-equal to the one-process trainer: "
+                           f"{differ}")
+    return out
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 13: MESH_RANKS ranks spawned (the ``spawn`` start method, the
+    kernels built by this process before), each failing the phase if it
+    fails. Prints each rank's run and returns the launches of the driven
+    runs summed over the ranks."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(str(MESH_DIR),), nprocs=MESH_RANKS,
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    results = []
+    for r in range(MESH_RANKS):
+        with open(MESH_DIR / f"rank{r}.json") as f:
+            results.append(json.load(f))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    want = {**dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0),
+            "amsgrad": MESH_STEPS, "batched_diff_sq": MESH_STEPS}
+    totals = dict.fromkeys(want, 0)
+    first = results[0]
+    rule = dict(TRAIN_RULE, c=PYTREE_TRAIN_C)
+    print(f"  13 {TRAIN_ARCH} at full width, {MESH_LAYERS} of 24 layers "
+          f"(n_flat {first['n_flat']:,}), cada2 {rule}, state_fsdp_axes "
+          f"('data',), mesh (data={MESH_RANKS}, model=1), "
+          f"M = {MESH_RANKS}, {MESH_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens; {MESH_RANKS} ranks on one card over gloo, "
+          f"spawned and joined in {wall:.1f} s, on {card}")
+    for res in results:
+        if res["launches"] != want:
+            raise RuntimeError(f"13 rank {res['rank']}: launches "
+                               f"{res['launches']}, expected {want}")
+        if res["masks"] != first["masks"] or res["dsq"] != first["dsq"]:
+            raise RuntimeError("13: the ranks' metrics differ")
+        for k, v in res["launches"].items():
+            totals[k] += v
+        am, nm = res["amsgrad"], res["batched_diff_sq"]
+        print(f"    rank {res['rank']}: server slice {res['local_h']:,} of "
+              f"{res['n_flat']:,}, stale plane {res['local_rows']}; step "
+              f"ms {[round(x, 1) for x in res['step_ms']]} (host clock, "
+              f"collectives included); peak memory "
+              f"{res['peak_gib']:.3f} GiB; launches amsgrad "
+              f"{res['launches']['amsgrad']}, batched_diff_sq "
+              f"{res['launches']['batched_diff_sq']}, eq3_row_mean "
+              f"{res['launches']['eq3_row_mean']}")
+        print(f"      shard-local AMSGrad n = {am['n']:,}: bit-equal to "
+              f"plain, sum upd^2 |err| {am['max_abs_err']:.3g}; device "
+              f"{_ms(am['device_ms'])} against {_ms(am['full_device_ms'])} "
+              f"for the full plane's n = {am['n_full']:,}; row norm "
+              f"{nm['shape']} |err| {nm['max_abs_err']:.3g}, device "
+              f"{_ms(nm['device_ms'])}")
+        print("      collectives (gloo through the host, not NCCL; count, "
+              "median ms, max ms): " + "; ".join(
+                  f"{k} x{c} {med:.2f} / {mx:.2f}"
+                  for k, (c, med, mx) in res["collectives"].items()))
+    r = first["reference"]
+    print(f"    masks {first['masks']}, losses {first['losses']}: equal to "
+          f"the one-process trainer's; ||dtheta||^2 mesh {first['dsq']}, "
+          f"one process {r['dsq']} (largest gap {r['dsq_gap']:.3g}, band "
+          f"{MESH_DSQ_RTOL}; at step 0 against the fp64 sum of the same "
+          f"updates {first['dsq0_fp64']:.9g}: mesh "
+          f"{r['dsq0_fp64_gap']['mesh']:.3g}, one process "
+          f"{r['dsq0_fp64_gap']['one_process']:.3g}); theta, h, vhat, "
+          f"nabla and the stale plane "
+          f"({r['arrays']} arrays) bit-equal; one-process step ms "
+          f"{[round(x, 1) for x in r['step_ms']]}")
+    if all(all(row) for row in first["masks"]) or not any(
+            any(row) for row in first["masks"]):
+        raise RuntimeError(f"13: masks {first['masks']}: no step skipped, "
+                           "or none uploaded")
+    return totals
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -4445,6 +4806,11 @@ def main() -> None:
         launches[name] += v
     main_shape["flash_attention"]["window_8192_shape"] = window_flash
     print(f"    phase 12 took {time.perf_counter() - t12:.1f} s")
+    print("[13] the mesh runtime")
+    t13 = time.perf_counter()
+    for name, v in phase_mesh(card).items():
+        launches[name] += v
+    print(f"    phase 13 took {time.perf_counter() - t13:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

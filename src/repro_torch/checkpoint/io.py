@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -174,7 +174,9 @@ def _to_leaf(a: np.ndarray, like_leaf, device):
                 dtype=like_leaf.dtype)
 
 
-def restore(path: str, like: Any, device=None) -> tuple[Any, int | None]:
+def restore(path: str, like: Any, device=None,
+            device_put_fn: Callable[[str, np.ndarray], Any] | None = None
+            ) -> tuple[Any, int | None]:
     """Restore into the structure of ``like``; returns (state, step).
 
     Each leaf must have ``like``'s path, shape and logical dtype, else this
@@ -183,6 +185,12 @@ def restore(path: str, like: Any, device=None) -> tuple[Any, int | None]:
     plane saved with ``flat_meta`` restores into a target with another
     padded ``n_flat`` (the true entries kept, the zero tail re-cut). Each
     tensor goes to ``device`` if given, else to ``like``'s leaf's device.
+
+    ``device_put_fn(path, array)`` (the reference's hook), if given, makes
+    each leaf instead: it gets the leaf's path string and the array as the
+    file holds it (after the re-cut above; a bf16 leaf widened to fp32),
+    and returns the leaf, for example a rank's slice of a flat plane on
+    its device (``FlatSharding.cut_server``).
     """
     if device is not None:
         device = resolve_device(device)
@@ -206,7 +214,8 @@ def restore(path: str, like: Any, device=None) -> tuple[Any, int | None]:
             raise ValueError(
                 f"dtype mismatch at {p}: checkpoint holds "
                 f"{saved_dtypes[i]}, restore target expects {ref_dtype}")
-        out.append(_to_leaf(a, ref, device))
+        out.append(device_put_fn(p, a) if device_put_fn
+                   else _to_leaf(a, ref, device))
     return _unflatten(like, iter(out)), manifest["step"]
 
 

@@ -48,7 +48,7 @@ from repro_torch.core.flat import (batch_has_local_axis, batch_map,
                                    local_steps_vector,
                                    per_worker_quantize_dequantize_flat,
                                    per_worker_topk_extract_flat,
-                                   per_worker_topk_sparsify_flat)
+                                   per_worker_topk_sparsify_flat, spec_dim)
 # the pytree round's line-17 tail is the flat plane's: the RHS ring push
 # reads only ``diff_hist``, so one function serves both states
 from repro_torch.core.flat import record_progress  # noqa: F401
@@ -224,6 +224,14 @@ class CommStrategy:
         del layout, params, params_flat, m, grad_dtype
         return {}
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis: str,
+                          P, col_axes: tuple = ()) -> dict:
+        """PartitionSpec dict matching :meth:`init_flat_extras` (the
+        reference's table). ``col_axes`` are the state-shard axes of the
+        flat dim of (M, n_flat) planes."""
+        del param_spec, worker_param_spec, waxis, P, col_axes
+        return {}
+
     def pooled_extras(self) -> tuple:
         """Keys of the extras that are O(M·n) per-worker PLANES: the entries
         the cohort plane (``flat.flat_cohort_round``) keeps in the host
@@ -285,14 +293,15 @@ class CommStrategy:
         del cache, upload, ctx
         return extras
 
-    def transform_delta_flat(self, layout, delta):
+    def transform_delta_flat(self, layout, delta, shard=None):
         """Wire format of the uploaded innovation on the (M, n_flat) plane:
         the b-bit round trip at :attr:`bits_per_entry` below 32 (one scale
-        per worker and leaf segment), else the raw δ. Both sides apply it,
-        so the server's stale worker copies stay what each worker sent."""
+        per worker and leaf segment, completed over the column group on
+        the mesh), else the raw δ. Both sides apply it, so the server's
+        stale worker copies stay what each worker sent."""
         if self.bits_per_entry < 32:
             return per_worker_quantize_dequantize_flat(
-                layout, delta, self.bits_per_entry)
+                layout, delta, self.bits_per_entry, shard=shard)
         return delta
 
     def flat_wire_delta(self, ctx, extras: dict, cache, delta):
@@ -300,7 +309,7 @@ class CommStrategy:
         δ = fresh − stale. Rules whose LHS already compressed the plane
         return their cache instead."""
         del extras, cache
-        return self.transform_delta_flat(ctx.layout, delta)
+        return self.transform_delta_flat(ctx.layout, delta, ctx.shard)
 
     def flat_sparse_wire(self, ctx, extras: dict, cache, delta):
         """An optional true sparse wire, ((M, K) values, (M, K) int64 flat
@@ -375,7 +384,8 @@ class LAGStrategy(CommStrategy):
 
     def flat_lhs(self, ctx, extras):
         return kops.batched_diff_sq_norm(
-            ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl), None
+            ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl,
+            shard=ctx.shard), None
 
 
 @register
@@ -415,6 +425,11 @@ class CADA1Strategy(CommStrategy):
                                             dtype=grad_dtype,
                                             device=params_flat.device)}
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis, P,
+                          col_axes=()):
+        return {"snapshot": param_spec,
+                "worker_delta": P(waxis, spec_dim(col_axes))}
+
     def flat_pre_step(self, extras, params, params_flat, k):
         return self.pre_step(extras, params, k)
 
@@ -428,13 +443,14 @@ class CADA1Strategy(CommStrategy):
     def flat_lhs(self, ctx, extras):
         delta_fresh = ctx.fresh - ctx.second
         lhs = kops.batched_diff_sq_norm(
-            delta_fresh, extras["worker_delta"].float(), impl=ctx.impl)
+            delta_fresh, extras["worker_delta"].float(), impl=ctx.impl,
+            shard=ctx.shard)
         return lhs, delta_fresh
 
     def flat_post_upload(self, extras, delta_fresh, upload, ctx):
         wd = extras["worker_delta"]
         return {**extras,
-                "worker_delta": torch.where(upload[:, None],
+                "worker_delta": torch.where(ctx.plane_rows(upload)[:, None],
                                             delta_fresh.to(wd.dtype), wd)}
 
 
@@ -491,6 +507,15 @@ class CADA2Strategy(CommStrategy):
                                         device=dev),
         }
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis, P,
+                          col_axes=()):
+        del worker_param_spec, waxis, col_axes
+        # ring rows shard like params (the leading R axis replicated); the
+        # index vectors ride with the other (M,) scalars
+        return {"ring": tree_map(lambda sp: P(None, *sp), param_spec),
+                "slot": P(None),
+                "ring_version": P(None)}
+
     def second_eval_indexed(self, extras):
         return extras["ring"], extras["slot"]
 
@@ -503,7 +528,8 @@ class CADA2Strategy(CommStrategy):
 
     def flat_lhs(self, ctx, extras):
         return kops.batched_diff_sq_norm(ctx.fresh, ctx.second,
-                                         impl=ctx.impl), None
+                                         impl=ctx.impl,
+                                         shard=ctx.shard), None
 
     def flat_post_upload(self, extras, cache, upload, ctx):
         slot, version = extras["slot"], extras["ring_version"]
@@ -577,8 +603,8 @@ class CompressedInnovationStrategy(CommStrategy):
 
     def flat_lhs(self, ctx, extras):
         innovation = ctx.fresh - ctx.comm.worker_grads.float()
-        q = self.transform_delta_flat(ctx.layout, innovation)
-        return kops.batched_sq_norm(q, impl=ctx.impl), q
+        q = self.transform_delta_flat(ctx.layout, innovation, ctx.shard)
+        return kops.batched_sq_norm(q, impl=ctx.impl, shard=ctx.shard), q
 
     def flat_wire_delta(self, ctx, extras, cache, delta):
         del delta  # cache IS Q_b(δ) of this round's innovation
@@ -595,8 +621,9 @@ class ErrorFeedbackStrategy(CommStrategy):
         """The compressor over the fp32 corrected innovation (dicts)."""
         raise NotImplementedError
 
-    def _compress_flat(self, layout, corrected):
-        """The compressor on the (M, n_flat) plane: the same bits."""
+    def _compress_flat(self, layout, corrected, shard=None):
+        """The compressor on the (M, n_flat) plane: the same bits (on the
+        mesh over the rank's column slice, ``shard``)."""
         raise NotImplementedError
 
     def init_extras(self, params, m, make_grad_zeros, bcast):
@@ -629,6 +656,12 @@ class ErrorFeedbackStrategy(CommStrategy):
         return {"residual": torch.zeros((m, layout.n_flat), dtype=grad_dtype,
                                         device=params_flat.device)}
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis, P,
+                          col_axes=()):
+        if not self.rule.error_feedback:
+            return {}
+        return {"residual": P(waxis, spec_dim(col_axes))}
+
     def pooled_extras(self):
         # e_m is a worker-plane: pooled where it exists at all
         return ("residual",) if self.rule.error_feedback else ()
@@ -637,15 +670,16 @@ class ErrorFeedbackStrategy(CommStrategy):
         delta = ctx.fresh - ctx.comm.worker_grads.float()
         corrected = (ef_correct(delta, extras["residual"])
                      if self.rule.error_feedback else delta)
-        wire = self._compress_flat(ctx.layout, corrected)
-        return kops.batched_sq_norm(wire, impl=ctx.impl), (wire, corrected)
+        wire = self._compress_flat(ctx.layout, corrected, ctx.shard)
+        return (kops.batched_sq_norm(wire, impl=ctx.impl, shard=ctx.shard),
+                (wire, corrected))
 
     def flat_wire_delta(self, ctx, extras, cache, delta):
         del delta
         return cache[0]
 
     def flat_post_upload(self, extras, cache, upload, ctx):
-        return self.post_upload(extras, cache, upload, ctx)
+        return self.post_upload(extras, cache, ctx.plane_rows(upload), ctx)
 
 
 @register
@@ -660,8 +694,8 @@ class LAQStrategy(ErrorFeedbackStrategy):
     def _compress(self, corrected):
         return self.transform_delta(corrected)
 
-    def _compress_flat(self, layout, corrected):
-        return self.transform_delta_flat(layout, corrected)
+    def _compress_flat(self, layout, corrected, shard=None):
+        return self.transform_delta_flat(layout, corrected, shard)
 
 
 @register
@@ -680,14 +714,20 @@ class TopKStrategy(ErrorFeedbackStrategy):
         return self.transform_delta(
             per_worker_topk_sparsify(corrected, self.rule.topk_frac))
 
-    def _compress_flat(self, layout, corrected):
+    def _compress_flat(self, layout, corrected, shard=None):
         sparse = per_worker_topk_sparsify_flat(layout, corrected,
-                                               self.rule.topk_frac)
-        return self.transform_delta_flat(layout, sparse)
+                                               self.rule.topk_frac, shard)
+        return self.transform_delta_flat(layout, sparse, shard)
 
     def flat_sparse_wire(self, ctx, extras, cache, delta):
+        """The (values, indices) pair of each row's kept entries. On a mesh
+        whose worker planes shard columns no rank holds a whole segment,
+        and the dense masked wire rides instead: the pair rebuilds it
+        value for value, and the mesh's eq. (3) collective is dense."""
         del extras, delta
         if not self.rule.sparse_wire or self.rule.topk_frac >= 1.0:
+            return None
+        if ctx.shard is not None and ctx.shard.col_axes:
             return None
         return per_worker_topk_extract_flat(ctx.layout, cache[0],
                                             self.rule.topk_frac)
@@ -752,9 +792,14 @@ class AVPStrategy(CommStrategy):
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         return {"period": self._init_periods(m, params_flat.device)}
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis, P,
+                          col_axes=()):
+        return {"period": P(None)}
+
     def flat_lhs(self, ctx, extras):
         energy = kops.batched_diff_sq_norm(
-            ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl)
+            ctx.fresh, ctx.comm.worker_grads.float(), impl=ctx.impl,
+            shard=ctx.shard)
         # a cohort round gates its C rows against their own periods; the
         # (M,) period vector stays on the server
         period = extras["period"]

@@ -55,7 +55,12 @@ class FlatLayout:
     """Static flat layout of a parameter dict: one contiguous padded buffer.
 
     ``n`` is the true scalar count, ``n_flat`` the padded buffer length (a
-    multiple of ``PAD_ALIGN``); padding lanes stay zero through every op.
+    multiple of ``PAD_ALIGN · shards``); padding lanes stay zero through
+    every op. ``shards`` is the state-shard count of the mesh (1 =
+    unsharded): shard ``s`` owns the contiguous slice
+    ``[s·shard_len, (s+1)·shard_len)``, the split a ``PartitionSpec`` over
+    the state-shard axes gives each rank, so the layout, the sharding
+    specs and the shard-local kernels agree on where every entry lives.
     """
     paths: tuple
     shapes: tuple
@@ -64,6 +69,23 @@ class FlatLayout:
     offsets: tuple
     n: int
     n_flat: int
+    shards: int = 1
+
+    @property
+    def shard_len(self) -> int:
+        """Flat entries owned by one state shard (``n_flat / shards``)."""
+        return self.n_flat // self.shards
+
+    def shard_split(self, buf: torch.Tensor) -> torch.Tensor:
+        """(..., n_flat) buffer -> (..., shards, shard_len) view: shard s
+        is the contiguous slice it owns, so ``shard_merge`` undoes it bit
+        for bit."""
+        return buf.reshape(tuple(buf.shape[:-1])
+                           + (self.shards, self.shard_len))
+
+    def shard_merge(self, parts: torch.Tensor) -> torch.Tensor:
+        """(..., shards, shard_len) -> (..., n_flat)."""
+        return parts.reshape(tuple(parts.shape[:-2]) + (self.n_flat,))
 
     def pack(self, tree, dtype=torch.float32) -> torch.Tensor:
         """Dict -> (n_flat,) buffer in ``dtype`` (zero-padded tail)."""
@@ -111,9 +133,13 @@ class FlatLayout:
         return torch.cat(parts)
 
 
-def layout_of(tree, align: int = PAD_ALIGN) -> FlatLayout:
+def layout_of(tree, align: int = PAD_ALIGN, shards: int = 1) -> FlatLayout:
     """The :class:`FlatLayout` of a dict of tensors (only shapes and dtypes
-    are read)."""
+    are read; ``meta`` tensors do). ``n_flat`` is padded to a multiple of
+    ``align · shards``, so every state shard gets an equal ``align``-aligned
+    slice; ``shards=1`` is the unsharded layout."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     leaves = tree_leaves(tree)
     shapes = tuple(tuple(l.shape) for l in leaves)
     sizes = tuple(int(l.numel()) for l in leaves)
@@ -121,11 +147,21 @@ def layout_of(tree, align: int = PAD_ALIGN) -> FlatLayout:
     for s in sizes:
         offsets.append(off)
         off += s
-    n_flat = off + ((-off) % align)
+    step = align * shards
+    n_flat = off + ((-off) % step)
     return FlatLayout(paths=tuple(tree_paths(tree)), shapes=shapes,
                       dtypes=tuple(l.dtype for l in leaves), sizes=sizes,
                       offsets=tuple(offsets), n=off,
-                      n_flat=max(n_flat, align))
+                      n_flat=max(n_flat, step), shards=shards)
+
+
+def spec_dim(axes: tuple):
+    """One PartitionSpec DIMENSION entry for a tuple of mesh axes: ``()``
+    -> None (replicated), one axis -> its name, several -> the tuple
+    (sharded over their product)."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
 
 
 # --------------------------------------------------------- wire compressors
@@ -146,39 +182,67 @@ def _segment_ids_on(layout: FlatLayout, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_segment_ids(layout)).to(device)
 
 
-def per_worker_quantize_dequantize_flat(layout: FlatLayout, buf, bits: int):
+def _cols(layout: FlatLayout, shard) -> tuple[int, int]:
+    """The flat columns ``[c0, c1)`` a plane holds: all of them, or the
+    rank's column slice on a mesh whose worker planes shard columns."""
+    return (0, layout.n_flat) if shard is None else shard.col_range(layout)
+
+
+def per_worker_quantize_dequantize_flat(layout: FlatLayout, buf, bits: int,
+                                        shard=None):
     """Flat-plane twin of ``quantize.per_worker_quantize_dequantize``: b-bit
     symmetric uniform round trip with one max-abs scale per (worker, leaf
     segment), bit-identical to the dict form (a max is exact). One row-max
     per segment (a scatter-max onto the (M, segments) scales would contend
     on a few dozen outputs) and one gather spreads the scales back; the
-    padding tail passes through untouched."""
+    padding tail passes through untouched.
+
+    ``shard`` (a ``distributed.sharding.FlatSharding`` on a mesh, or None):
+    ``buf`` holds the rank's column slice; a segment's max over the slice
+    (0 where the slice misses it) is completed by one all-reduce(MAX) over
+    the column group, so every scale is the whole segment's, as the
+    reference's partitioner completes it."""
     if bits <= 0 or bits >= 32:
         return buf
     levels = float(2 ** (bits - 1) - 1)
     n_seg = len(layout.sizes)
-    seg = _segment_ids_on(layout, buf.device)
+    c0, c1 = _cols(layout, shard)
+    seg = _segment_ids_on(layout, buf.device)[c0:c1]
     mag = buf.float().abs()
     ones = torch.ones((buf.shape[0],), dtype=torch.float32, device=buf.device)
+    zeros = torch.zeros_like(ones)
+    parts = []
+    for o, s in zip(layout.offsets, layout.sizes):
+        lo, hi = max(o, c0), min(o + s, c1)
+        parts.append(ones if not s else
+                     mag[:, lo - c0:hi - c0].amax(dim=1) if lo < hi else zeros)
     # the padding tail's column is never used: its entries pass through
-    seg_max = torch.stack(
-        [mag[:, o:o + s].amax(dim=1) if s else ones
-         for o, s in zip(layout.offsets, layout.sizes)] + [ones], dim=1)
-    scale = torch.clamp_min(seg_max, 1e-12)[:, seg]       # (M, n_flat)
+    seg_max = torch.stack(parts + [ones], dim=1)
+    if shard is not None and shard.col_axes:
+        seg_max = shard.all_reduce(seg_max, shard.col_axes, "max")
+    scale = torch.clamp_min(seg_max, 1e-12)[:, seg]       # (M, cols)
     deq = round_trip(buf, scale, levels)
     if layout.n_flat > layout.n:
         deq = torch.where(seg < n_seg, deq, buf)
     return deq
 
 
-def per_worker_topk_sparsify_flat(layout: FlatLayout, buf, frac: float):
+def per_worker_topk_sparsify_flat(layout: FlatLayout, buf, frac: float,
+                                  shard=None):
     """Flat-plane twin of ``quantize.per_worker_topk_sparsify``: keep
     EXACTLY the top-⌈frac·size⌉ largest-|x| entries per (worker, leaf
     segment), ties to the lower index, zero the rest: the same selection
     over the same entries in the same order as the dict form. The padding
-    tail passes through untouched."""
+    tail passes through untouched.
+
+    ``shard``: on a mesh whose worker planes shard columns, the selection
+    needs whole segments, so the rank's rows are gathered over the column
+    group once, sparsified, and cut back to its slice."""
     if frac >= 1.0:
         return buf
+    if shard is not None and shard.col_axes:
+        return shard.cut_cols(per_worker_topk_sparsify_flat(
+            layout, shard.gather_cols(buf), frac), layout)
     parts = []
     for o, s in zip(layout.offsets, layout.sizes):
         seg = buf[:, o:o + s]
@@ -273,7 +337,12 @@ class FlatCommState(NamedTuple):
 class FlatCommContext(NamedTuple):
     """What a strategy's flat hooks may consult. ``fresh`` is the packed
     (M, n_flat) fp32 fresh-gradient plane; ``second`` the packed gradients
-    at the strategy's second evaluation points (None if it has none)."""
+    at the strategy's second evaluation points (None if it has none).
+    ``shard`` is the mesh runtime's ``distributed.sharding.FlatSharding``
+    (None off the mesh): the planes then hold the rank's worker rows and
+    column slice, the (M,) vectors all M workers, and the hooks pass it to
+    the kernels and compressors and cut (M,) vectors to the planes' rows
+    with :meth:`plane_rows`."""
     layout: FlatLayout
     params: Any               # θ^k dict
     fresh: torch.Tensor
@@ -289,6 +358,12 @@ class FlatCommContext(NamedTuple):
     # C rows, and the (M,) server extras (avp's periods, cada2's slots)
     # must be indexed by it
     cohort: Any = None
+    shard: Any = None         # FlatSharding of the mesh runtime | None
+
+    def plane_rows(self, v):
+        """The entries of an (M,) vector (the round's upload mask) that
+        belong to the rows the planes hold: all of them off the mesh."""
+        return v if self.shard is None else v[self.shard.row_index(v.device)]
 
 
 class FlatCommRoundResult(NamedTuple):
@@ -315,6 +390,24 @@ def init_flat_comm_state(strategy, layout: FlatLayout, params, m: int,
         diff_hist=torch.zeros((r.d_max,), dtype=torch.float32, device=dev),
         extras=strategy.init_flat_extras(layout, params, params_flat, m,
                                          grad_dtype),
+    )
+
+
+def flat_comm_state_specs(strategy, param_spec, worker_param_spec,
+                          waxis: str, P, state_axes: tuple = (),
+                          col_axes: tuple = ()) -> FlatCommState:
+    """PartitionSpec tree matching :func:`init_flat_comm_state`: (n_flat,)
+    server buffers shard over ``state_axes``, worker-leading (M, n_flat)
+    planes over the worker axis × ``col_axes`` (``state_axes`` minus the
+    worker axis: an axis may not repeat within one spec), parameter-shaped
+    extras take the param specs."""
+    return FlatCommState(
+        nabla=P(spec_dim(state_axes)),
+        worker_grads=P(waxis, spec_dim(col_axes)),
+        staleness=P(None),
+        diff_hist=P(None),
+        extras=strategy.flat_extras_specs(param_spec, worker_param_spec,
+                                          waxis, P, col_axes=col_axes),
     )
 
 
@@ -418,12 +511,21 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                     params, params_flat, batch, k: int, *, vgrad,
                     vgrad_per: Callable | None = None,
                     fuse_evals: bool = True, group_evals: bool = False,
-                    impl=None, participation=None,
+                    impl=None, shard=None, participation=None,
                     local_steps=None) -> FlatCommRoundResult:
     """One communication round of Algorithm 1 (lines 4-15) on flat buffers.
 
     ``fuse_evals`` and ``group_evals`` pick the form of the rule's second
     evaluation (:func:`eval_two_point`).
+
+    ``shard`` (a ``distributed.sharding.FlatSharding`` on the mesh
+    runtime, or None) runs the round on one rank: ``comm``'s (M, n_flat)
+    planes hold the rank's worker rows and column slice, ∇ its server
+    slice, the (M,) vectors all M workers; ``batch`` holds the rank's rows
+    and ``vgrad``/``vgrad_per`` give its workers' gradients. The LHS norms
+    come back for all M rows (one all-reduce of fp32 partials), the wire
+    keeps the rank's rows, and eq. (3) is a sum over the worker group, the
+    collective a round in which no worker uploads skips.
 
     ``participation`` ((M,) bool or None) models partial participation: a
     non-participating worker never uploads this round, not even when its
@@ -443,6 +545,9 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
             f"rule kind {r.kind!r} ships per-iteration gradients; "
             "local_steps is only meaningful for delta-payload rules "
             "(local_momentum, fedadam)")
+    # the rows evaluated here: all M, or the rank's own on the mesh
+    rows = None if shard is None else shard.row_index(comm.staleness.device)
+    m_rows = m if rows is None else rows.shape[0]
 
     # Line 4 (rule-owned): e.g. CADA1 snapshot refresh every D iterations.
     extras = strategy.flat_pre_step(comm.extras, params, params_flat, k)
@@ -458,20 +563,27 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         h_steps = local_steps_vector(m, batch_h, local_steps,
                                      device=params_flat.device)
         losses, fresh, cache = strategy.flat_local_payload(
-            layout, extras, params_flat, batch_h, m, vgrad_per, h_steps)
+            layout, extras, params_flat, batch_h, m_rows, vgrad_per,
+            h_steps if rows is None else h_steps[rows], shard=shard)
         second = None
     else:
         h_steps = None
         # Lines 6/8: fresh gradients at θ^k, plus the rule's second
         # evaluation.
         losses, fresh, second = eval_two_point(
-            strategy, layout, extras, params, batch, m, vgrad=vgrad,
+            strategy, layout, extras, params, batch, m_rows, vgrad=vgrad,
             vgrad_per=vgrad_per, fuse_evals=fuse_evals,
-            group_evals=group_evals)
+            group_evals=group_evals, cohort=rows)
+        if shard is not None:
+            fresh = shard.cut_cols(fresh, layout)
+            second = None if second is None else shard.cut_cols(second,
+                                                                layout)
+    if shard is not None:
+        losses = shard.rows_sum(losses, (shard.waxis,), m)
     ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
                           second=second, comm=comm._replace(extras=extras),
                           step=k, m=m, impl=impl,
-                          participation=participation)
+                          participation=participation, shard=shard)
 
     # Lines 7/9: rule LHS vs the shared recent-progress RHS; a delta round
     # always uploads (the "skip" axis is folded into h_w).
@@ -488,6 +600,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
 
     # Eq. (3): innovation delta, wire format, masked aggregation, whole
     # planes.
+    up_rows = ctx.plane_rows(upload)
     wg32 = comm.worker_grads.float()
     delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
     sparse = strategy.flat_sparse_wire(ctx, extras, cache, delta)
@@ -496,15 +609,24 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         # dense plane is rebuilt server-side. Values are masked and cast as
         # the dense wire is, so the two paths agree bit for bit.
         vals, idx = sparse
-        vals = torch.where(upload[:, None], vals, 0.0).to(
+        vals = torch.where(up_rows[:, None], vals, 0.0).to(
             comm.worker_grads.dtype)
-        wire = sparse_rows_to_dense(idx, vals, layout.n_flat)
+        wire = sparse_rows_to_dense(idx, vals, delta.shape[1])
     else:
-        wire = torch.where(upload[:, None], delta, 0.0).to(
+        wire = torch.where(up_rows[:, None], delta, 0.0).to(
             comm.worker_grads.dtype)
-    # Order-fixed row accumulation: masked zero rows are exact no-ops.
-    nabla = (comm.nabla.float() + kops.eq3_row_mean(wire, m, impl=impl)).to(
-        comm.nabla.dtype)
+    # Order-fixed row accumulation: masked zero rows are exact no-ops. On
+    # the mesh a round in which no worker uploads adds the same +0.0
+    # without the collective.
+    if shard is None:
+        inc = kops.eq3_row_mean(wire, m, impl=impl)
+    elif bool(upload.any()):
+        inc = shard.cols_to_server(
+            kops.eq3_row_mean(wire, m, impl=impl, shard=shard), layout)
+    else:
+        inc = torch.zeros(comm.nabla.shape, dtype=torch.float32,
+                          device=comm.nabla.device)
+    nabla = (comm.nabla.float() + inc).to(comm.nabla.dtype)
     worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
 
     staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)

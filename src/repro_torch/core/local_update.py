@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.core.comm import (CommStrategy, broadcast_to_workers,
                                    register, select_rows)
-from repro_torch.core.flat import batch_lead, batch_map
+from repro_torch.core.flat import batch_lead, batch_map, spec_dim
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.adam import adam
 from repro_torch.optim.base import apply_updates
@@ -218,16 +218,23 @@ class LocalUpdateStrategy(CommStrategy):
         return None
 
     def flat_local_payload(self, layout, extras, params_flat, batch, m,
-                           vgrad_per, h_steps):
+                           vgrad_per, h_steps, shard=None):
         """The local run: ``batch`` leads with (H, M, ...); ``h_steps`` is
         the (M,) int32 count of steps each worker takes. Returns the (M,)
         mean losses over each worker's steps, the (M, n_flat) fp32 payload
         θ^k − θ_m^(h) and the momenta after the run (or None). Each step
         evaluates the M workers at their own parameters (``vgrad_per``,
-        which gets them cast to the layout's dtypes)."""
+        which gets them cast to the layout's dtypes).
+
+        On the mesh (``shard``) M is the rank's rows: the local steps need
+        whole rows, so momenta held as a column slice are gathered over the
+        column group first, and the payload and momenta are cut back to
+        the slice at the end."""
         theta = params_flat.float()
         wp = theta[None].expand((m, layout.n_flat))
         mom = self._initial_momenta_flat(extras)
+        if mom is not None and shard is not None and shard.col_axes:
+            mom = shard.gather_cols(mom)
         step_losses = []
         for j in range(batch_lead(batch)):
             # each step's temporaries are freed before the next one is
@@ -246,6 +253,10 @@ class LocalUpdateStrategy(CommStrategy):
             del new_mom
             step_losses.append(torch.where(active, losses, 0.0))
         payload = theta[None] - wp
+        if shard is not None:
+            payload = shard.cut_cols(payload, layout)
+            if mom is not None:
+                mom = shard.cut_cols(mom, layout)
         return (_masked_mean_losses(torch.stack(step_losses), h_steps),
                 payload, mom)
 
@@ -309,19 +320,26 @@ class LocalMomentumStrategy(LocalUpdateStrategy):
         return {"momenta": torch.zeros((m, layout.n_flat), dtype=grad_dtype,
                                        device=params_flat.device)}
 
+    def flat_extras_specs(self, param_spec, worker_param_spec, waxis, P,
+                          col_axes=()):
+        return {"momenta": P(waxis, spec_dim(col_axes))}
+
     def pooled_extras(self):
         return ("momenta",)
 
     def flat_post_upload(self, extras, cache, upload, ctx):
         mom_run = cache   # the momenta after the local run
         cnt = upload.sum(dtype=torch.int32).clamp_min(1).float()
-        masked = torch.where(upload[:, None], mom_run, 0.0)
+        rows = ctx.plane_rows(upload)
+        masked = torch.where(rows[:, None], mom_run, 0.0)
         # the order-fixed row sum (denominator 1), then a true division by
         # the count: a masked plane and its uploaders' rows alone give the
-        # same bits, as eq. (3)'s aggregate does
-        avg = kops.eq3_row_mean(masked, 1, impl=ctx.impl) / cnt
+        # same bits, as eq. (3)'s aggregate does (on the mesh: the sum over
+        # the worker group of the rank's columns)
+        avg = kops.eq3_row_mean(masked, 1, impl=ctx.impl,
+                                shard=ctx.shard) / cnt
         mom = extras["momenta"]
-        new = torch.where(upload[:, None], avg[None].to(mom.dtype), mom)
+        new = torch.where(rows[:, None], avg[None].to(mom.dtype), mom)
         return {**extras, "momenta": new}
 
 

@@ -1,5 +1,5 @@
-"""The LM trainer on one device: the mesh-free part of the JAX package's
-``distributed/trainer.py``.
+"""The LM trainer: the JAX package's ``distributed/trainer.py``, on one
+device and on a mesh of ranks.
 
 The paper's server/worker protocol on a language model. The communication
 round is :func:`repro_torch.core.flat.flat_comm_round`, the SAME core the
@@ -48,11 +48,30 @@ oracle: the state's moments are dicts, the round is
 :func:`_amsgrad_apply`, eager per-leaf PyTorch with no kernel, as in the
 reference. It runs the dense step only; the cohort plane refuses it.
 
-Not here, and refused by name where a field asks for them: the mesh, FSDP
-and ZeRO-sharded state (``fsdp``, ``fsdp_axes``, ``state_fsdp_axes``,
-``shard_cada_state``) and the pod shard_map. ``group_evals`` (cada2's second evaluation once per
-occupied ring row, ``flat.grouped_second_plane``) reaches the dense flat
-step, as in the reference; the cohort step gathers.
+``group_evals`` (cada2's second evaluation once per occupied ring row,
+``flat.grouped_second_plane``) reaches the dense flat step, as in the
+reference; the cohort step gathers.
+
+The mesh runtime (:func:`jit_train_step`, the reference's step of the
+same name on a mesh whose model axis is 1) runs the worker axis as
+processes of a ``torch.distributed`` process group (``launch.mesh.Mesh``):
+worker m is the ranks at coordinate m of the worker axis ("data" on the
+single-pod mesh, "pod" on the multi-pod one), and each rank computes only
+its own worker's gradient (the structural locality of the reference's
+``make_pod_vgrads``), the mean over its pod's "data" ranks on the pod
+mesh. The flat state is ZeRO-sharded as ``flat_state_axes`` resolves it
+(``state_fsdp_axes``, ``shard_cada_state``): a rank holds its server slice
+of θ, h, v̂ and ∇, and its worker's row of the (M, n_flat) planes, cut to
+its column slice; the AMSGrad kernel and the LHS norms run on those
+slices and one all-reduce completes their scalars (``kernels/ops.py``).
+θ' is gathered back to every rank for the next forward: parameters stay
+replicated at rest, as they are with the model axis at 1 and no FSDP.
+
+Refused by name, for the next slice: parameter FSDP (``fsdp`` on, by value
+or by ``sharding.wants_fsdp``, and ``fsdp_axes``), a model axis above 1
+(tensor parallelism), and sharded state on the pytree plane
+(``fused=False`` with ``state_fsdp_axes`` or ``shard_cada_state``, and the
+pytree plane on the mesh).
 """
 from __future__ import annotations
 
@@ -67,21 +86,18 @@ from repro_torch.core.comm import (comm_round, init_comm_state, nabla_f32,
                                    record_progress, strategy_for)
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (FlatSharding, P,
+                                              param_pspecs, wants_fsdp)
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import DATA, MODEL, POD, mesh_axis_size
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import init_params, lm_loss
+from repro_torch.models.model import abstract_params, init_params, lm_loss
 from repro_torch.utils.trees import (tree_add, tree_leaves, tree_map,
                                      tree_paths, tree_sq_norm,
                                      tree_unflatten, tree_zeros_like)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# field: (its default, what would run it)
-_REFUSED = {"fsdp": (None, "the mesh runtime"),
-            "fsdp_axes": (("data",), "the mesh runtime"),
-            "state_fsdp_axes": ((), "the mesh runtime (ZeRO-sharded state)"),
-            "shard_cada_state": (False,
-                                 "the mesh runtime (ZeRO-sharded state)")}
+_NEXT = "is the next slice of the port (ROADMAP.md queue 1)"
 
 
 @dataclass(frozen=True)
@@ -104,11 +120,16 @@ class TrainHParams:
     #                                 occupied ring row (flat step only)
 
     def __post_init__(self):
-        for name, (default, what) in _REFUSED.items():
-            if getattr(self, name) != default:
+        if self.fsdp_axes != ("data",):
+            raise NotImplementedError(
+                f"TrainHParams.fsdp_axes={self.fsdp_axes!r}: parameter "
+                f"FSDP {_NEXT}")
+        for name in ("state_fsdp_axes", "shard_cada_state"):
+            if getattr(self, name) and not self.fused:
                 raise NotImplementedError(
-                    f"TrainHParams.{name}={getattr(self, name)!r}: "
-                    f"{what} is not ported to repro_torch yet")
+                    f"TrainHParams.{name}={getattr(self, name)!r} with "
+                    f"fused=False: the pytree plane's per-leaf sharded "
+                    f"state {_NEXT}")
         for name in ("cada_dtype", "moments_dtype"):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
@@ -156,12 +177,27 @@ def worker_split(batch: dict, m: int, local_steps: int = 1) -> dict:
 
 
 def init_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
-                     seed: int = 0, device=None) -> DistTrainState:
+                     seed: int = 0, device=None,
+                     shards: int = 1) -> DistTrainState:
     """Parameters drawn on ``device`` (None: the card) from ``seed``, zero
     moments and the rule's CommState (none for a stateless rule): on the
-    flat plane, or per leaf when ``hp.fused`` is False."""
+    flat plane, or per leaf when ``hp.fused`` is False. ``shards`` is the
+    flat plane's state-shard count (the pad divisor of ``n_flat``): 1
+    off the mesh; ``flat_state_shards(cfg, mesh, hp)`` for a state that
+    :func:`shard_train_state` cuts for :func:`jit_train_step`."""
     device = resolve_device(device)
-    params = init_params(cfg, seed, device)
+    return _state(hp, m, init_params(cfg, seed, device), device, shards)
+
+
+def abstract_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
+                         shards: int = 1) -> DistTrainState:
+    """:func:`init_train_state`'s structure on the ``meta`` device: every
+    tensor's shape and dtype, no storage."""
+    return _state(hp, m, abstract_params(cfg), torch.device("meta"), shards)
+
+
+def _state(hp: TrainHParams, m: int, params, device,
+           shards: int) -> DistTrainState:
     strategy = strategy_for(hp.rule)
     if not hp.fused:
         return DistTrainState(
@@ -171,7 +207,7 @@ def init_train_state(cfg: ModelConfig, hp: TrainHParams, m: int,
             comm=(None if strategy.stateless else
                   init_comm_state(strategy, params, m,
                                   grad_dtype=hp.cada_torch_dtype)))
-    layout = F.layout_of(params)
+    layout = F.layout_of(params, shards=shards)
     return DistTrainState(
         step=0,
         params=params,
@@ -279,14 +315,35 @@ def make_vgrads(cfg: ModelConfig, hp: TrainHParams):
     return vgrad, vgrad_per
 
 
+def _always_metrics(losses, m: int, dsq) -> dict:
+    """A stateless rule's step metrics: every worker uploads, none waits."""
+    dev = losses.device
+    return {"loss": losses.mean(),
+            "uploads": torch.tensor(m, dtype=torch.int32, device=dev),
+            "skip_rate": torch.zeros((), dtype=torch.float32, device=dev),
+            "upload_mask": torch.ones((m,), dtype=torch.bool, device=dev),
+            "staleness": torch.ones((m,), dtype=torch.int32, device=dev),
+            "dtheta_sq": dsq}
+
+
+def _refuse_fsdp(cfg: ModelConfig, hp: TrainHParams, mesh=None) -> None:
+    if hp.fsdp or (hp.fsdp is None and mesh is not None
+                   and wants_fsdp(cfg, mesh)):
+        raise NotImplementedError(
+            f"TrainHParams.fsdp={hp.fsdp!r} (resolved on for {cfg.name}): "
+            f"parameter FSDP {_NEXT}")
+
+
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
-                    impl=None):
+                    impl=None, shards: int = 1):
     """``step(state, batch) -> (state, metrics)``: one round of Algorithm 1
     on the LM. ``batch`` leaves carry an (M,)-leading worker axis, or
     (H, M) for a delta-payload rule with H local steps
     (:func:`worker_split`). ``impl`` is the dispatch override of
     ``kernels/ops.py`` (None on the main path). The state is not updated in
-    place. With ``hp.fused`` False the step runs the pytree plane."""
+    place. With ``hp.fused`` False the step runs the pytree plane.
+    ``shards`` is the state's pad divisor (:func:`init_train_state`)."""
+    _refuse_fsdp(cfg, hp)
     strategy = strategy_for(hp.rule)
     vgrad, vgrad_per = make_vgrads(cfg, hp)
     if not hp.fused:
@@ -303,7 +360,7 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     # stateless rules (always ⇒ distributed AMSGrad): no innovation state
     if strategy.stateless:
         def step_always(state: DistTrainState, batch):
-            layout = F.layout_of(state.params)
+            layout = F.layout_of(state.params, shards=shards)
             losses, fresh = vgrad(state.params, batch)
             grad_flat = torch.mean(layout.pack_worker(fresh), dim=0)
             params, h, vhat, dsq = fused_update(
@@ -311,25 +368,14 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
                 grad_flat)
             new_state = state._replace(step=state.step + 1, params=params,
                                        h=h, vhat=vhat)
-            dev = grad_flat.device
-            return new_state, {
-                "loss": losses.mean(),
-                "uploads": torch.tensor(m, dtype=torch.int32, device=dev),
-                "skip_rate": torch.zeros((), dtype=torch.float32,
-                                         device=dev),
-                "upload_mask": torch.ones((m,), dtype=torch.bool,
-                                          device=dev),
-                "staleness": torch.ones((m,), dtype=torch.int32,
-                                        device=dev),
-                "dtheta_sq": dsq,
-            }
+            return new_state, _always_metrics(losses, m, dsq)
         return step_always
 
     # rules with innovation state: the shared Algorithm-1 core drives the
     # round; this function only applies the server update
     def step_flat(state: DistTrainState, batch):
         k = state.step
-        layout = F.layout_of(state.params)
+        layout = F.layout_of(state.params, shards=shards)
         pflat = layout.pack(state.params)
         out = F.flat_comm_round(
             strategy, layout, state.comm, state.params, pflat, batch, k,
@@ -358,18 +404,7 @@ def _make_pytree_step(strategy, hp: TrainHParams, m: int, vgrad,
                 state.params, state.h, state.vhat, grad, hp)
             new_state = state._replace(step=state.step + 1, params=params,
                                        h=h, vhat=vhat)
-            dev = losses.device
-            return new_state, {
-                "loss": losses.mean(),
-                "uploads": torch.tensor(m, dtype=torch.int32, device=dev),
-                "skip_rate": torch.zeros((), dtype=torch.float32,
-                                         device=dev),
-                "upload_mask": torch.ones((m,), dtype=torch.bool,
-                                          device=dev),
-                "staleness": torch.ones((m,), dtype=torch.int32,
-                                        device=dev),
-                "dtheta_sq": dsq,
-            }
+            return new_state, _always_metrics(losses, m, dsq)
         return step_always
 
     def step(state: DistTrainState, batch):
@@ -507,3 +542,298 @@ def run_cohort_train(train_step, state: CohortTrainState, pool, batches,
         train_step.fused_step_for(pool), state, pool, batch_fn, cohorts,
         pipeline=pipeline, metrics_every=metrics_every, trace=trace,
         metrics_out=metrics_out)
+
+
+# ------------------------------------------------------------ mesh runtime
+
+def worker_axis_name(mesh) -> str:
+    """The mesh axis of CADA's workers: "pod" on the multi-pod mesh, else
+    "data"."""
+    return POD if POD in mesh.shape else DATA
+
+
+def flat_state_axes(cfg: ModelConfig, mesh, hp: TrainHParams) -> tuple:
+    """Mesh axes the (n_flat,) flat SERVER planes (θ, h, v̂, ∇) shard over:
+    explicit ``state_fsdp_axes``, then ``shard_cada_state`` (("data",)),
+    then the param FSDP axes when FSDP is on (explicitly or by
+    ``sharding.wants_fsdp``), else none. Axes absent from the mesh or of
+    size 1 are dropped, so the same hyper-parameters resolve on every
+    mesh. The pytree plane has no flat state: ()."""
+    if not hp.fused:
+        return ()
+    if hp.state_fsdp_axes:
+        axes = hp.state_fsdp_axes
+    elif hp.shard_cada_state:
+        axes = (DATA,)
+    elif hp.fsdp or (hp.fsdp is None and wants_fsdp(cfg, mesh)):
+        axes = hp.fsdp_axes
+    else:
+        return ()
+    return tuple(a for a in axes if a in mesh.shape and mesh.shape[a] > 1)
+
+
+def flat_sharding(cfg: ModelConfig, mesh, hp: TrainHParams) -> FlatSharding:
+    """The resolved :class:`sharding.FlatSharding` for (cfg, mesh, hp): the
+    one object the layout's pad divisor (``.shards``), the plane specs and
+    the shard-local kernels all read."""
+    return FlatSharding(mesh=mesh, waxis=worker_axis_name(mesh),
+                        axes=flat_state_axes(cfg, mesh, hp))
+
+
+def flat_state_shards(cfg: ModelConfig, mesh, hp: TrainHParams) -> int:
+    """The flat plane's state-shard count on ``mesh``: pass it as
+    ``shards=`` to :func:`init_train_state` for :func:`jit_train_step`."""
+    return flat_sharding(cfg, mesh, hp).shards
+
+
+def flat_layout(cfg: ModelConfig, shards: int = 1) -> F.FlatLayout:
+    """The trainer's flat layout for ``cfg`` at a state-shard count."""
+    return F.layout_of(abstract_params(cfg), shards=shards)
+
+
+def _strip_axis(spec: P, axis: str) -> P:
+    """Remove ``axis`` from every dim of a PartitionSpec."""
+    dims = []
+    for d in spec:
+        if d == axis:
+            dims.append(None)
+        elif isinstance(d, tuple):
+            kept = tuple(a for a in d if a != axis)
+            dims.append(kept if kept else None)
+        else:
+            dims.append(d)
+    return P(*dims)
+
+
+def _prepend_worker(specs, axis: str):
+    """(M, ...)-leading per-worker tree: the worker axis leads; inner dims
+    keep their param sharding minus the worker axis."""
+    return tree_map(lambda sp: P(axis, *_strip_axis(sp, axis)), specs)
+
+
+def train_state_specs(cfg: ModelConfig, mesh, hp: TrainHParams
+                      ) -> DistTrainState:
+    """PartitionSpecs of the flat plane's state (the reference's table):
+    (n_flat,) server planes over the state axes, (M, n_flat) planes over
+    the worker axis × the column axes, parameter-shaped entries by their
+    param specs."""
+    if not hp.fused:
+        raise NotImplementedError(
+            f"train_state_specs with fused=False: the pytree plane's "
+            f"per-leaf sharded state {_NEXT}")
+    psp = param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)
+    waxis = worker_axis_name(mesh)
+    strategy = strategy_for(hp.rule)
+    fs = flat_sharding(cfg, mesh, hp)
+    return DistTrainState(
+        step=P(), params=psp, h=fs.server_spec(), vhat=fs.server_spec(),
+        comm=(None if strategy.stateless else
+              F.flat_comm_state_specs(
+                  strategy, psp, _prepend_worker(psp, waxis), waxis, P,
+                  state_axes=fs.axes, col_axes=fs.col_axes)))
+
+
+def train_batch_specs(mesh, local_steps: int = 1):
+    """``spec_for(key, ndim)``: the worker-split batch's spec. Leaves are
+    (M, b_m, ...); M shards over the worker axis, b_m over "data" on the
+    multi-pod mesh (where the worker is a whole pod); M-RoPE positions are
+    (M, 3, b_m, S). With ``local_steps`` H > 1 every leaf gains a leading
+    replicated local-step axis."""
+    waxis = worker_axis_name(mesh)
+    inner = DATA if waxis == POD else None
+    lead = (None,) if local_steps > 1 else ()
+
+    def spec_for(key, ndim):
+        ndim -= len(lead)
+        if key == "positions":
+            return P(*lead, waxis, None, inner, *(None,) * (ndim - 3))
+        return P(*lead, waxis, inner, *(None,) * (ndim - 2))
+
+    return spec_for
+
+
+def worker_split_abstract(batch: dict, m: int, local_steps: int = 1
+                          ) -> dict:
+    """:func:`worker_split`'s shapes on the ``meta`` device."""
+    lead = (local_steps,) if local_steps > 1 else ()
+    hm = local_steps * m
+    out = {}
+    for key, leaf in batch.items():
+        if key == "positions":
+            three, b = leaf.shape[0], leaf.shape[1]
+            shp = lead + (m, three, b // hm) + tuple(leaf.shape[2:])
+        else:
+            shp = lead + (m, leaf.shape[0] // hm) + tuple(leaf.shape[1:])
+        out[key] = torch.empty(shp, dtype=leaf.dtype, device="meta")
+    return out
+
+
+def _worker_planes(strategy) -> tuple:
+    """The comm state's (M, n_flat) entries: the stale rows and the
+    strategy's per-worker planes."""
+    return ("worker_grads",) + tuple(strategy.pooled_extras())
+
+
+def shard_train_state(state: DistTrainState, fs: FlatSharding,
+                      hp: TrainHParams) -> DistTrainState:
+    """A whole flat state (every rank holds the same one, made by
+    :func:`init_train_state` at ``shards=fs.shards``) -> this rank's: its
+    server slice of h, v̂ and ∇, its worker row of the (M, n_flat) planes
+    cut to its columns; parameters and (M,) vectors stay whole."""
+    layout = F.layout_of(state.params, shards=fs.shards)
+    cut = {"h": fs.cut_server(state.h, layout),
+           "vhat": fs.cut_server(state.vhat, layout)}
+    if state.comm is not None:
+        planes = _worker_planes(strategy_for(hp.rule))
+        extras = {k: fs.cut_rows(v, layout) if k in planes else v
+                  for k, v in state.comm.extras.items()}
+        cut["comm"] = state.comm._replace(
+            nabla=fs.cut_server(state.comm.nabla, layout),
+            worker_grads=fs.cut_rows(state.comm.worker_grads, layout),
+            extras=extras)
+    return state._replace(**cut)
+
+
+def unshard_train_state(state: DistTrainState, fs: FlatSharding,
+                        hp: TrainHParams) -> DistTrainState:
+    """This rank's state -> the whole one, on every rank (the gathers of
+    :func:`shard_train_state`'s cuts)."""
+    whole = {"h": fs.gather_server(state.h),
+             "vhat": fs.gather_server(state.vhat)}
+    if state.comm is not None:
+        planes = _worker_planes(strategy_for(hp.rule))
+        extras = {k: fs.gather_rows(v) if k in planes else v
+                  for k, v in state.comm.extras.items()}
+        whole["comm"] = state.comm._replace(
+            nabla=fs.gather_server(state.comm.nabla),
+            worker_grads=fs.gather_rows(state.comm.worker_grads),
+            extras=extras)
+    return state._replace(**whole)
+
+
+def _mesh_vgrads(cfg: ModelConfig, hp: TrainHParams, fs: FlatSharding,
+                 layout: F.FlatLayout):
+    """The rank's worker's gradients. On the multi-pod mesh the worker is
+    a pod: each of its "data" ranks takes its slice of the pod's batch,
+    and the pod's gradient and loss are their mean (one all-reduce of the
+    packed fp32 gradient over "data")."""
+    vgrad, vgrad_per = make_vgrads(cfg, hp)
+    d = fs.mesh.size((DATA,)) if fs.waxis == POD else 1
+    if d == 1:
+        return vgrad, vgrad_per
+    f32 = [torch.float32] * len(layout.sizes)
+
+    def pod_mean(out):
+        losses, grads = out
+        plane = fs.all_reduce(layout.pack_worker(grads), (DATA,)) / d
+        return (fs.all_reduce(losses.float(), (DATA,)) / d,
+                layout.unpack_worker(plane, f32))
+
+    return (lambda p, b: pod_mean(vgrad(p, b)),
+            lambda p, b: pod_mean(vgrad_per(p, b)))
+
+
+def _local_batch(batch: dict, fs: FlatSharding, lead: int) -> dict:
+    """The rank's part of a worker-split batch: its worker's row (kept as
+    a one-row axis) and, on the multi-pod mesh, its "data" slice of the
+    pod's b_m samples (``train_batch_specs``)."""
+    w = fs.mesh.coord(fs.waxis)
+    d = fs.mesh.size((DATA,)) if fs.waxis == POD else 1
+    out = {}
+    for key, leaf in batch.items():
+        x = leaf.narrow(lead, w, 1)
+        if d > 1:
+            bdim = lead + (2 if key == "positions" else 1)
+            b = x.shape[bdim]
+            if b % d:
+                raise ValueError(f"{key}: b_m = {b} does not divide into "
+                                 f"the pod's {d} data ranks")
+            x = x.narrow(bdim, fs.mesh.coord(DATA) * (b // d), b // d)
+        out[key] = x
+    return out
+
+
+def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
+    """The mesh runtime's step builder: the counterpart of the reference's
+    ``jit_train_step``, whose name it keeps so that a reader finds it
+    (nothing is traced or compiled here). Returns ``(make, specs, m)``:
+    ``make(batch)`` gives ``step(state, batch) -> (state, metrics)`` for
+    batches shaped like ``batch``, ``specs`` are
+    :func:`train_state_specs`, and ``m`` is the worker axis's size.
+
+    Every rank of ``mesh`` (a ``launch.mesh.Mesh`` over the process group)
+    calls this and then ``step`` in lockstep. ``state`` is the rank's:
+    :func:`shard_train_state` of :func:`init_train_state` at
+    ``shards=flat_state_shards(cfg, mesh, hp)``. ``batch`` is the whole
+    worker-split batch (:func:`worker_split`, the same on every rank); the
+    step reads its rank's part. Metrics are whole (M,) vectors on every
+    rank. ``impl`` is the dispatch override of ``kernels/ops.py``."""
+    _refuse_fsdp(cfg, hp, mesh)
+    if mesh_axis_size(mesh, MODEL) > 1:
+        raise NotImplementedError(
+            f"a model axis of {mesh.shape[MODEL]}: tensor parallelism "
+            f"{_NEXT}")
+    if not hp.fused:
+        raise NotImplementedError(
+            f"the pytree plane (fused=False) on the mesh runtime {_NEXT}")
+    fs = flat_sharding(cfg, mesh, hp)
+    fs.groups()
+    m = mesh.shape[fs.waxis]
+    specs = train_state_specs(cfg, mesh, hp)
+    layout = flat_layout(cfg, fs.shards)
+    strategy = strategy_for(hp.rule)
+    lead = int(strategy.delta_payload
+               and F.batch_has_local_axis(hp.rule, None))
+    vgrad, vgrad_per = _mesh_vgrads(cfg, hp, fs, layout)
+
+    def server_step(pflat, h, vhat, grad):
+        """The AMSGrad kernel on the rank's server slice, Σupd² summed over
+        the state axes, then θ' gathered whole and rounded through each
+        leaf's dtype."""
+        theta, h2, vh2, dsq = kops.fused_amsgrad_flat(
+            fs.cut_server(pflat, layout), h, vhat, grad, hp.lr, b1=hp.b1,
+            b2=hp.b2, eps=hp.eps, impl=impl, shard=fs)
+        theta = layout.cast_roundtrip(fs.gather_server(theta))
+        return layout.unpack(theta), h2, vh2, dsq
+
+    def step_always(state: DistTrainState, batch):
+        wb = _local_batch(batch, fs, lead)
+        losses, fresh = vgrad(state.params, wb)
+        pflat = layout.pack(state.params)
+        grad = fs.cols_to_server(kops.eq3_row_mean(
+            fs.cut_cols(layout.pack_worker(fresh), layout), m, shard=fs),
+            layout)
+        params, h, vhat, dsq = server_step(pflat, state.h, state.vhat, grad)
+        return state._replace(step=state.step + 1, params=params, h=h,
+                              vhat=vhat), _always_metrics(
+            fs.rows_sum(losses, (fs.waxis,)), m, dsq)
+
+    def step_flat(state: DistTrainState, batch):
+        k = state.step
+        pflat = layout.pack(state.params)
+        out = F.flat_comm_round(
+            strategy, layout, state.comm, state.params, pflat,
+            _local_batch(batch, fs, lead), k, vgrad=vgrad,
+            vgrad_per=vgrad_per, fuse_evals=False,
+            group_evals=hp.group_evals, impl=impl, shard=fs)
+        params, h, vhat, dsq = server_step(pflat, state.h, state.vhat,
+                                           F.nabla_f32(out.comm))
+        new_state = DistTrainState(step=k + 1, params=params, h=h,
+                                   vhat=vhat,
+                                   comm=F.record_progress(out.comm, dsq, k))
+        return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                           **out.metrics}
+
+    step = step_always if strategy.stateless else step_flat
+
+    def make(batch: dict):
+        """The step, for batches shaped like ``batch`` (checked against
+        the mesh: M rows, and b_m that the pod's data ranks divide)."""
+        for key, leaf in batch.items():
+            if leaf.shape[lead] != m:
+                raise ValueError(f"{key}: {leaf.shape[lead]} worker rows "
+                                 f"for a worker axis of {m}")
+        _local_batch(batch, fs, lead)
+        return step
+
+    return make, specs, m

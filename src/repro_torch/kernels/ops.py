@@ -7,6 +7,15 @@ raises: there is no fallback. ``impl="plain"`` forces the
 plain version on any device; it exists so a comparison on the card can run
 both, and the engine's main path never passes it. ``impl="kernel"`` asks
 for the kernel and raises on a CPU tensor.
+
+The shard-local forms (``shard=``, a ``distributed.sharding.FlatSharding``
+of the mesh runtime): each rank runs the same kernel on its own slice (its
+``n_flat / shards`` of the server planes, or its rows × column slice of an
+(M, n_flat) plane), and ONE all-reduce of the fp32 partials completes the
+scalars: ‖Δθ‖² over the state axes, the (M,) norms over the worker and
+column axes. No plane is gathered. Eq. (3)'s row mean on the mesh is the
+reference's tree sum: a sum over the worker group, then ``/ m_total``;
+it launches no kernel.
 """
 from __future__ import annotations
 
@@ -39,30 +48,42 @@ def use_kernel(t, impl=None) -> bool:
 
 
 def fused_amsgrad_flat(theta, h, vhat, grad, lr, *, b1=0.9, b2=0.999,
-                       eps=1e-8, impl=None):
+                       eps=1e-8, impl=None, shard=None):
     """Fused AMSGrad/CADA step over (n,) buffers of any length:
-    (θ', h', v̂', Σupd²). Moments keep their storage dtype."""
+    (θ', h', v̂', Σupd²). Moments keep their storage dtype. With ``shard``
+    the buffers are the rank's server slice and Σupd² is summed over the
+    state axes; the step is elementwise, so each slice's result is the
+    whole plane's there."""
     f = (_cu.fused_amsgrad_flat if use_kernel(theta, impl)
          else _ref.amsgrad_ref)
-    return f(theta, h, vhat, grad, lr, b1=b1, b2=b2, eps=eps)
+    out = f(theta, h, vhat, grad, lr, b1=b1, b2=b2, eps=eps)
+    if shard is not None and shard.axes:
+        return (*out[:3], shard.all_reduce(out[3], shard.axes))
+    return out
 
 
-def batched_diff_sq_norm(a, b, *, impl=None):
+def batched_diff_sq_norm(a, b, *, impl=None, shard=None):
     """(R,) per-row ||a_r − b_r||² over (R, n) planes (the rule LHS for all
     workers in one pass). A row's value depends on neither R nor any other
-    row."""
+    row. With ``shard`` the planes are the rank's rows × column slice and
+    the result is (M,): every worker's norm."""
     if use_kernel(a, impl):
-        return _cu.batched_diff_sq_norm_flat(a, b)
-    return _ref.batched_diff_sq_norm_ref(a, b)
+        part = _cu.batched_diff_sq_norm_flat(a, b)
+    else:
+        part = _ref.batched_diff_sq_norm_ref(a, b)
+    return part if shard is None else shard.rows_sum(part, shard.plane_axes)
 
 
-def batched_sq_norm(a, *, impl=None):
+def batched_sq_norm(a, *, impl=None, shard=None):
     """(R,) per-row ||a_r||² over an (R, n) fp32 or bf16 plane (the gate of
     the compressed-wire rules cinn, laq, topk), accumulated in fp32. A
-    row's value depends on neither R nor any other row."""
+    row's value depends on neither R nor any other row. ``shard`` as in
+    :func:`batched_diff_sq_norm`."""
     if use_kernel(a, impl):
-        return _cu.batched_sq_norm_flat(a)
-    return _ref.batched_sq_norm_ref(a)
+        part = _cu.batched_sq_norm_flat(a)
+    else:
+        part = _ref.batched_sq_norm_ref(a)
+    return part if shard is None else shard.rows_sum(part, shard.plane_axes)
 
 
 def diff_sq_norm_flat(a, b, *, impl=None):
@@ -127,11 +148,26 @@ def diff_sq_norm(tree_a, tree_b, *, impl=None):
     return diff_sq_norm_flat(af, bf, impl=impl)
 
 
-def eq3_row_mean(plane, m_total: int, *, impl=None):
+def eq3_row_mean(plane, m_total: int, *, impl=None, shard=None):
     """Eq. (3) aggregate increment Σ_rows(plane) / m_total of an (R, n)
     plane as (n,) fp32, order-fixed (see ``ref.eq3_row_mean_ref``): the
     same bits on both routes, and the same bits with all-zero rows
-    dropped."""
+    dropped.
+
+    With ``shard`` (the mesh runtime) ``plane`` holds the rank's rows of
+    its column slice, and the result is that slice's sum over every
+    worker, ``/ m_total``: the reference's tree sum under a sharded worker
+    axis (a cross-rank sequential order is not expressible), one
+    all-reduce over the worker group and no kernel. The all-reduce moves
+    the slice in fp32 (4 · n / column shards bytes; a ring all-reduce over
+    W ranks sends and receives 2 · (W − 1) / W of that a rank) and the
+    caller cuts its server slice out of the sum: a reduce-scatter would
+    move half, but all-reduce and all-gather are the collectives gloo
+    takes CUDA tensors for, and local momentum's momenta need the whole
+    column slice."""
+    if shard is not None:
+        return shard.all_reduce(plane.float().sum(dim=0),
+                                (shard.waxis,)) / m_total
     if use_kernel(plane, impl):
         return _cu.eq3_row_mean_flat(plane, m_total)
     return _ref.eq3_row_mean_ref(plane, m_total)

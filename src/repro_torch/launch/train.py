@@ -1,4 +1,4 @@
-"""Training launcher on one device: ``python -m repro_torch.launch.train``.
+"""Training launcher: ``python -m repro_torch.launch.train``.
 
     python -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
         --device cpu --workers 2 --steps 8 --global-batch 4 --seq 32
@@ -10,12 +10,26 @@
         --global-batch 4 --seq 32
 
 ``--runtime mesh`` (the default) runs the LM trainer
-(``distributed/trainer.py``) with M simulated workers on one device, the
-card unless ``--device cpu``: the mesh-free flags of the JAX package's
-``launch/train.py`` and its ``loss= uploads= skip=`` lines. A delta-payload
-rule runs ``--local-steps`` H local steps per round, each on its own
-B / (H · M) slice of the global batch, and the AMSGrad server step at
-``--lr`` consumes the mean delta. ``--ckpt-dir`` saves ``state.params``
+(``distributed/trainer.py``). In a single process it simulates M workers
+on one device, the card unless ``--device cpu``. Started as several
+processes (``torchrun``, or the reference's ``REPRO_COORDINATOR``,
+``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID`` in each process's
+environment; ``launch/multihost.py``) it runs the mesh runtime
+(``trainer.jit_train_step``): a (data=world, model=1) mesh whose ranks are
+the M workers, the flat state ZeRO-sharded over ``--state-fsdp-axes``;
+``--backend`` picks the process group's (default: nccl on the card, gloo
+on the CPU; gloo where ranks share one card). Rank 0 alone prints the
+log and writes ``history.json``, the trace, the metrics and the
+checkpoints. The flags are the JAX package's ``launch/train.py``'s, with
+its ``loss= uploads= skip=`` lines:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch stablelm-1.6b --smoke --device cpu --runtime mesh \\
+        --state-fsdp-axes data --steps 8 --global-batch 4 --seq 32
+
+A delta-payload rule runs ``--local-steps`` H local steps per round,
+each on its own B / (H · M) slice of the global batch, and the AMSGrad
+server step at ``--lr`` consumes the mean delta. ``--ckpt-dir`` saves ``state.params``
 every ``--ckpt-every`` steps and at the end (``repro_torch.checkpoint``,
 the reference's format) with the logged rows as ``history.json``;
 ``--trace`` records a ``train_step`` span per step on the wall clock, and
@@ -46,8 +60,13 @@ from repro_torch.core.comm import STRATEGIES, strategy_for, strategy_kinds
 from repro_torch.core.rules import CommRule
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.device import resolve_device
-from repro_torch.distributed.trainer import (TrainHParams, init_train_state,
-                                             make_train_step, worker_split)
+from repro_torch.distributed.trainer import (TrainHParams, flat_sharding,
+                                             init_train_state,
+                                             jit_train_step,
+                                             make_train_step,
+                                             shard_train_state, worker_split)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.multihost import bootstrap, is_coordinator
 from repro_torch.models.model import init_params, lm_loss
 from repro_torch.obs import (CommLedger, MetricsRegistry, Tracer, as_tracer,
                              write_chrome_trace, write_jsonl)
@@ -252,6 +271,14 @@ def main(argv=None) -> list[dict]:
                    help="adaptive local steps: upper bound (0 = max-delay)")
     p.add_argument("--local-lr", type=float, default=0.1,
                    help="delta-payload rules: local optimizer step size")
+    p.add_argument("--state-fsdp-axes", default="",
+                   help="comma list of mesh axes to ZeRO the flat "
+                        "optimizer/comm state over (e.g. 'data'); the mesh "
+                        "runtime on several processes")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend when several "
+                        "processes run (default: nccl on the card, gloo on "
+                        "the CPU; gloo where ranks share one card)")
     p.add_argument("--moments-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the flat {h, v̂} moment planes")
@@ -261,9 +288,10 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--microbatches", type=int, default=1)
     p.add_argument("--workers", type=int, default=0,
-                   help="M, simulated on the one device; 0 = 1 on the "
-                        "mesh runtime (the reference's one-device mesh), "
-                        "4 on the sim")
+                   help="M: simulated on the one device (0 = 1 there, the "
+                        "reference's one-device mesh; 4 on the sim); on "
+                        "several processes M is the world's data-axis "
+                        "size, and this must be 0 or equal it")
     p.add_argument("--ckpt-dir", default=None,
                    help="mesh runtime: save state.params under "
                         "DIR/step_<k> and the logged rows as "
@@ -288,6 +316,10 @@ def main(argv=None) -> list[dict]:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    ranked = args.runtime == "mesh" and bootstrap(backend=args.backend,
+                                                  device=device)
+    if ranked and device.type == "cuda":   # the card bootstrap selected
+        device = resolve_device(None)
     cfg = (C.get_smoke_config(args.arch) if args.smoke
            else C.get_config(args.arch))
     if args.layers:
@@ -315,23 +347,42 @@ def main(argv=None) -> list[dict]:
                     local_lr=args.local_lr, server_lr=args.lr)
     if args.runtime == "sim":
         return [run_sim(cfg, rule, args, device)]
-    m = args.workers or 1
+    hp = TrainHParams(rule=rule, lr=args.lr, microbatches=args.microbatches,
+                      moments_dtype=args.moments_dtype,
+                      state_fsdp_axes=tuple(
+                          a for a in args.state_fsdp_axes.split(",") if a))
+    if ranked:
+        mesh = make_host_mesh()
+        make, _, m = jit_train_step(cfg, mesh, hp)
+        if args.workers not in (0, m):
+            raise SystemExit(f"--workers {args.workers}: the mesh's data "
+                             f"axis has {m} ranks")
+    else:
+        m = args.workers or 1
     if args.global_batch % m:
         raise SystemExit(f"--global-batch {args.global_batch} must divide "
                          f"into {m} workers")
-    hp = TrainHParams(rule=rule, lr=args.lr, microbatches=args.microbatches,
-                      moments_dtype=args.moments_dtype)
     h = _round_local_steps(rule, args, m)
-    step = make_train_step(cfg, hp, m)
-    state = init_train_state(cfg, hp, m, 0, device)
     batches = make_token_batches(cfg, global_batch=args.global_batch,
                                  seq=args.seq, steps=args.steps)
+    if ranked:
+        fs = flat_sharding(cfg, mesh, hp)
+        state = shard_train_state(init_train_state(
+            cfg, hp, m, 0, device, shards=fs.shards), fs, hp)
+        step = make(worker_split({"tokens": torch.from_numpy(
+            batches[0]).to(device=device, dtype=torch.long)}, m,
+            local_steps=h))
+    else:
+        step = make_train_step(cfg, hp, m)
+        state = init_train_state(cfg, hp, m, 0, device)
+    lead = is_coordinator()
 
     # telemetry: a train_step span per step on the wall clock, and a comm
     # ledger fed from the steps' metrics, fetched every --metrics-every
     # steps
-    obs_on = bool(args.trace or args.metrics_out or args.metrics_prom)
-    tracer = Tracer() if args.trace else None
+    obs_on = lead and bool(args.trace or args.metrics_out
+                           or args.metrics_prom)
+    tracer = Tracer() if (args.trace and lead) else None
     ledger = (CommLedger.for_strategy(strategy_for(rule)) if obs_on
               else None)
     tr = as_tracer(tracer)
@@ -360,27 +411,31 @@ def main(argv=None) -> list[dict]:
             row["step"] = i
             row["wall_s"] = round(time.time() - t0, 1)
             history.append(row)
-            print(f"step {i:5d} loss={row['loss']:.4f} "
-                  f"uploads={int(row['uploads'])}/{m} "
-                  f"skip={row['skip_rate']:.2f} "
-                  f"({row['wall_s']}s)", flush=True)
-        if args.ckpt_every and args.ckpt_dir and i and \
+            if lead:
+                print(f"step {i:5d} loss={row['loss']:.4f} "
+                      f"uploads={int(row['uploads'])}/{m} "
+                      f"skip={row['skip_rate']:.2f} "
+                      f"({row['wall_s']}s)", flush=True)
+        if lead and args.ckpt_every and args.ckpt_dir and i and \
                 i % args.ckpt_every == 0:
             ckpt.save(os.path.join(args.ckpt_dir, f"step_{i}"),
                       state.params, step=i)
-    if args.ckpt_dir:
+    if lead and args.ckpt_dir:
         ckpt.save(os.path.join(args.ckpt_dir, f"step_{args.steps}"),
                   state.params, step=args.steps)
         with open(os.path.join(args.ckpt_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=1)
     final = np.mean([h["loss"] for h in history[-3:]])
-    print(f"done: final loss {final:.4f} on {device}")
+    if lead:
+        print(f"done: final loss {final:.4f} on {device}")
     if obs_on:
         drain_obs()
         _write_obs(args, tracer, {
             "runtime": "mesh", "arch": args.arch, "rule": args.rule,
             "steps": args.steps, "final_loss": float(final),
             **ledger.summary()})
+    if ranked:
+        torch.distributed.destroy_process_group()
     return history
 
 

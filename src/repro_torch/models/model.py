@@ -53,7 +53,15 @@ INIT_STD = 0.02
 
 # ================================================================== init
 
+class _MetaGen:
+    """Stands in for a generator on the ``meta`` device, which draws
+    nothing: :func:`abstract_params` builds shapes and dtypes only."""
+    device = torch.device("meta")
+
+
 def _dense(gen, shape, dtype, std=INIT_STD):
+    if isinstance(gen, _MetaGen):
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * std).to(dtype)
 
@@ -137,9 +145,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     card) from ``seed`` with an explicit ``torch.Generator``. The draws are
     not the reference's ``jax.random`` bits; tests convert the reference's
     own parameters with ``repro_torch.convert.lm_params_from_numpy``."""
-    cfg.validate()
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    return _params(cfg, torch.Generator(device=device).manual_seed(seed))
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """:func:`init_params`' tree on the ``meta`` device: every leaf's shape
+    and dtype, no storage (the reference's ``abstract_params``)."""
+    return _params(cfg, _MetaGen())
+
+
+def _params(cfg: ModelConfig, gen) -> dict:
+    cfg.validate()
+    device = gen.device
     dtype = cfg.torch_dtype
     params = {"embed": _dense(gen, (cfg.vocab, cfg.d_model), dtype),
               "blocks": _block_params(cfg, gen, dtype),

@@ -1016,3 +1016,64 @@ def test_bf16_pool_round_trip_through_pinned_slots(gen):
     for name in pool.plane_order:
         assert torch.equal(pool.planes[name].view(torch.int16),
                            want[name].view(torch.int16))
+
+
+# ------------------------------------------------------- the mesh runtime
+
+def _mesh_on_card(tmp_path, backend: str, steps: int = 3):
+    """The mesh runtime on 2 ranks at stablelm's smoke size (cada2,
+    state_fsdp_axes=("data",), a (data=2, model=1) mesh) and the
+    one-process trainer on the card from the same state and batches."""
+    import mesh_ranks
+    from repro_torch.utils.trees import tree_leaves
+    cfg = TC.get_smoke_config("stablelm-1.6b")
+    hp = TrainHParams(rule=CommRule(kind="cada2", c=20.0, d_max=4,
+                                    max_delay=10), lr=1e-3,
+                      state_fsdp_axes=("data",))
+    state = init_train_state(cfg, hp, 2, 0, "cpu", shards=2)
+    toks = torch.randint(0, cfg.vocab, (steps, 4, 33),
+                         generator=torch.Generator().manual_seed(0))
+    batches = [worker_split({"tokens": t}, 2) for t in toks]
+    ranks = mesh_ranks.spawn(mesh_ranks.run_steps, 2, tmp_path, {
+        "sizes": (2, 1), "axes": ("data", "model"), "device": "cuda",
+        "backend": backend, "cases": [("mesh", cfg, hp, state, batches)]})
+    step = make_train_step(cfg, hp, 2, shards=2)
+    st = mesh_ranks._to(state, torch.device("cuda"))   # the ranks' state
+    mets = []
+    for b in batches:
+        st, m = step(st, {k: v.cuda() for k, v in b.items()})
+        mets.append(m)
+    for r in ranks:
+        got = r["mesh"]
+        assert got["launches"] == {"amsgrad": steps,
+                                   "batched_diff_sq": steps,
+                                   "batched_sq": 0, "eq3_row_mean": 0}
+        for k in range(steps):
+            assert got["metrics"][k]["upload_mask"].tolist() == \
+                mets[k]["upload_mask"].tolist()
+            assert float(got["metrics"][k]["dtheta_sq"]) == pytest.approx(
+                float(mets[k]["dtheta_sq"]), rel=1e-6)
+        final = got["states"][-1]
+        for a, b in ((final.h, st.h), (final.vhat, st.vhat),
+                     (final.comm.nabla, st.comm.nabla),
+                     (final.comm.worker_grads, st.comm.worker_grads)):
+            assert torch.equal(a, b.cpu())
+        for a, b in zip(tree_leaves(final.params), tree_leaves(st.params)):
+            assert torch.equal(a, b.cpu())
+
+
+def test_mesh_two_ranks_on_one_card_equal_one_process(gen, tmp_path):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device): each launches the AMSGrad kernel on its half of the server
+    plane and the row norm on its worker's row once a step, eq. (3) is a
+    collective with no kernel, and the run equals the one-process trainer
+    bit for bit (‖Δθ‖² within 1e-6: two partial sums)."""
+    _mesh_on_card(tmp_path, "gloo")
+
+
+def test_mesh_nccl_one_card_per_rank(gen, tmp_path):
+    """NCCL, the backend for one card per rank: the same run and
+    contract as the gloo test above."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one per rank)")
+    _mesh_on_card(tmp_path, "nccl")

@@ -170,6 +170,22 @@ def test_the_moe_and_multimodal_slice_is_covered():
                   if f.name != "__init__.py") == ref
 
 
+def test_the_mesh_runtime_slice_is_covered():
+    """... and so are the mesh runtime's modules: the sharding tables, the
+    mesh of ranks, the multi-process bootstrap and the training policy;
+    the rank programs the CPU tests spawn import no JAX either."""
+    assert {"repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.multihost",
+            "repro_torch.launch.policy"} <= set(_modules())
+    f = ROOT / "tests" / "mesh_ranks.py"
+    tree = ast.parse(f.read_text(), filename=str(f))
+    tops = {a.name.split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, ast.Import) for a in node.names}
+    tops |= {node.module.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) and node.level == 0}
+    assert not tops & {"jax", "jaxlib", "repro"}, tops
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no

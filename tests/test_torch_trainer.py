@@ -138,8 +138,18 @@ def test_state_follows_the_hyper_parameters():
     ("fsdp", True), ("fsdp_axes", ("data", "pod")),
     ("state_fsdp_axes", ("data",)), ("shard_cada_state", True)])
 def test_unported_hyper_parameters_are_refused_by_name(field, value):
+    """What the port leaves to its next slice is refused by name: parameter
+    FSDP (``fsdp``, ``fsdp_axes``; ``fsdp=True`` is a legal value, as
+    ``launch.policy`` sets it, and the step builders refuse it) and
+    ZeRO-sharded state on the pytree plane (the state knobs with
+    ``fused=False``; on the flat plane they run on the mesh runtime and
+    the mesh-free step ignores them)."""
+    pytree = field in ("state_fsdp_axes", "shard_cada_state")
     with pytest.raises(NotImplementedError, match=field):
-        TrainHParams(**{field: value})
+        hp = TrainHParams(**{field: value}, fused=not pytree)
+        make_train_step(CFG, hp, 2)
+    if pytree:
+        make_train_step(CFG, TrainHParams(**{field: value}), 2)
 
 
 # ------------------------------------------------ engine against trainer
