@@ -228,6 +228,27 @@ Phases, each of which raises on failure (the exit code is then not 0):
      θ, h, v̂, ∇ and the stale plane bit-equal. Per rank: step ms, peak
      memory, and each collective's time (gloo through the host, not
      NCCL's). A rank that fails fails the phase.
+ 14. tensor-parallel serving (``distributed/serving.py``'s
+     ``jit_prefill_step``/``jit_decode_step``): 2 ranks spawned on the one
+     card over gloo, a (data=1, model=2) mesh, each holding its shards of
+     the params (``shard_params``) and of the cache. 14a zamba2-2.7b and
+     14b granite-moe-1b-a400m at full width and depth, 2 prompts of 2048,
+     32 decode steps teacher-forced on the one-process greedy tokens (run
+     by this process first, on the same params and prompts). The driven
+     run is bf16 (counts set to 0 just before and read just after: per
+     rank 54 scans at 2560 of 5120 channels and 9 flash launches at 16 of
+     32 heads per zamba2 prefill, 24 at 8/4 of 16/8 heads per granite-moe
+     prefill, none per decode step); a second prefill times it warm (a
+     MoE model's must be bit-equal to the first). Then the same in fp32
+     on the upcast weights. Against the one-process runs: the prefill's
+     last logits, each step's logits and the gathered cache (conv and SSM
+     state, K/V), in fp32 within TP_BAND_F32 of scale, in bf16 within
+     TP_BF16_FLOORS times bf16's own distance from fp32; the first step
+     at which the greedy tokens differ. Per rank: parameter bytes against
+     one process's, prefill ms, decode tokens/s, peak memory, each
+     collective's count and median/max ms; flash and scan against their
+     plain versions at the rank's shapes, timed. A rank that fails fails
+     the phase.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -519,6 +540,48 @@ PYTREE_PARAM_ULPS, PYTREE_PARAM_DIFFS = 4.0, 1000
 MESH_LAYERS, MESH_STEPS, MESH_RANKS = 2, 4, 2
 MESH_DSQ_RTOL = 1e-5
 MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+# phase 14: tensor-parallel serving (distributed/serving.py's builders) on
+# TP_RANKS ranks sharing the one card over gloo, a (data=1, model=2) mesh;
+# label -> (arch, prompts, prompt length, greedy decode steps), each at
+# full width and depth: 14a zamba2-2.7b (the scan on 2560 of 5120
+# channels, 40 of 80 heads; flash on 16 of 32 heads), 14b
+# granite-moe-1b-a400m (16 of 32 experts a rank, GQA 16/8 -> 8/4, the
+# vocab of 49155 replicated). The driven run is bf16, the served dtype.
+# Against the one-process run on the same params and prompts (this
+# process, before the spawn), each decode step teacher-forced on the
+# one-process bf16 run's greedy tokens:
+#   * fp32 (the bf16 weights upcast, both sides): the prefill's last
+#     logits, each step's logits and the gathered cache within
+#     TP_BAND_F32 of the one-process array's scale. The ranks add a
+#     row-parallel product's two fp32 partials where one GEMM sums the
+#     whole row, so the gap is the fp32 order of sums through 63 (14a)
+#     or 48 (14b) blocks: phase 6's fp32 prefill(S-1) + decode against
+#     prefill(S) is 1.1e-5 of scale at this depth, and the band is a
+#     hundred times that, 50 times tighter than DECODE_RTOL's 0.05
+#     (measured on the H100: 14a at most 1.69e-4, PERF.md);
+#   * bf16: each array no further from the one-process bf16 run than
+#     TP_BF16_FLOORS times the one-process bf16 run's own distance from
+#     the fp32 run. Each of the two bf16 runs is a rounding of the fp32
+#     trajectory, and a bf16 ULP flip grows layer by layer (phase 6's
+#     first stage: kernels vs plain in bf16 half of bf16's distance from
+#     fp32 after 7 blocks), so at full depth the two may decorrelate:
+#     then their distance is bounded by the sum of their distances from
+#     fp32, two floors, if the ranks' bf16 run is as close to fp32 as the
+#     one process's (the fp32 check above holds the arithmetic)
+TP_RANKS = 2
+TP_SERVE = {"14a": (SERVE_ARCH, 2, 2048, 32),
+            "14b": ("granite-moe-1b-a400m", 2, 2048, 32)}
+TP_BAND_F32 = 1e-3
+# a MoE config's fp32 band: a routing near-tie (top-k of the experts, or an
+# expert's top-C of the tokens) that the fp32 order of sums tips gives a
+# token another expert set, a discrete change of its hidden state and of
+# the K/V it leaves in later layers (the CPU MoE tests' ROUTE_BAND). Set
+# after a first run on the H100 showed 14b's fp32 K cache 7.37e-3 of
+# scale from one process's (its logits 2.5e-6), at DECODE_RTOL's 0.05,
+# the loosest band the logits' check may take
+TP_BAND_MOE = DECODE_RTOL
+TP_BF16_FLOORS = 2.0
+TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -4724,6 +4787,400 @@ def phase_mesh(card: str) -> dict:
     return totals
 
 
+# ------------------------------------------------ tensor-parallel serving
+
+def _tp_one_process(cfg, params, prompts, inputs: list, max_seq: int
+                    ) -> dict:
+    """One process: the prefill's last logits and cache (host copies) and
+    the logits of each decode step fed ``inputs`` in turn."""
+    logits, cache = lm.prefill(cfg, params, prompts, max_seq=max_seq)
+    out = {"prefill_logits": logits.cpu(), "logits": [],
+           "cache": {f: getattr(cache, f).cpu() for f in ("k", "v", "conv",
+                                                         "ssm")
+                     if getattr(cache, f) is not None}}
+    for tok in inputs:
+        logits, cache = lm.decode_step(cfg, params, cache, tok.cuda())
+        out["logits"].append(logits.cpu())
+    return out
+
+
+def _tp_reference(label: str) -> dict:
+    """The one-process runs of a phase-14 config, in this process before
+    the spawn: params from seed 0 and prompts from seed 1 drawn on the
+    card (the ranks draw the same), prefill at a width of S + steps, then
+    greedy decode in bf16; the same prefill and steps (fed the bf16 run's
+    tokens) in fp32 on the upcast weights. Saves for the ranks the
+    per-leaf fp64 sums of the params, the step inputs and each bf16
+    array's distance from its fp32 run (``<label>_small.pt``), and both
+    runs' logits and caches (``<label>.pt``, rank 0's); returns the
+    parameter bytes and the bf16 warm prefill's ms."""
+    arch, b, s, steps = TP_SERVE[label]
+    cfg = lm_configs.get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, 0)
+    prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
+    logits, cache = lm.prefill(cfg, params, prompts, max_seq=s + steps)
+    inputs, tok = [], torch.argmax(logits, dim=-1)
+    for _ in range(steps):
+        inputs.append(tok.cpu())
+        logits, cache = lm.decode_step(cfg, params, cache, tok)
+        tok = torch.argmax(logits, dim=-1)
+    del cache
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    lm.prefill(cfg, params, prompts, max_seq=s + steps)
+    end.record()
+    end.synchronize()
+    runs = {"bf16": _tp_one_process(cfg, params, prompts, inputs, s + steps),
+            "fp32": _tp_one_process(cfg.with_(dtype="float32"),
+                                    _upcast(params), prompts, inputs,
+                                    s + steps)}
+    f32 = _tp_arrays(runs["fp32"])
+    floors = {name: _band(a, f32[name], float("inf"), "")
+              for name, a in _tp_arrays(runs["bf16"]).items()}
+    torch.save({"sums": [float(t.double().sum())
+                         for t in tree_leaves(params)],
+                "inputs": inputs, "floors": floors},
+               TP_DIR / f"{label}_small.pt")
+    torch.save(runs, TP_DIR / f"{label}.pt")
+    out = {"param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "warm_ms": start.elapsed_time(end)}
+    del params, prompts, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_arrays(run: dict) -> dict:
+    """A run's compared arrays by name: the prefill's logits, each cache
+    field, each decode step's logits."""
+    return {"prefill logits": run["prefill_logits"],
+            **{f"cache {f}": v for f, v in run["cache"].items()},
+            **{f"step {i}": v for i, v in enumerate(run["logits"])}}
+
+
+def _tp_rank(rank: int, workdir: str) -> None:
+    """One rank of phase 14 (spawned): the gloo process group on the one
+    card, both configs, the results as ``rank<r>.json``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("ssm_scan", "flash_attention"):
+        build.load(name)         # built by the parent: loaded, not built
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "rdv"),
+        rank=rank, world_size=TP_RANKS)
+    mesh = Mesh((1, TP_RANKS), (DATA, MODEL))
+    rates = card_rates(torch.cuda.get_device_name(0))
+    out = {label: tp_rank_run(rank, label, mesh, rates)
+           for label in TP_SERVE}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_serve(cfg, mesh, params, prompts, inputs: list, steps: int,
+              coll: list | None = None) -> dict:
+    """The builders' prefill (at S + steps) and a decode step fed each of
+    ``inputs``, on this rank's ``params`` shards: the whole logits, the
+    gathered cache after the prefill, the first prefill's host ms, the
+    decode tokens/s and the collectives per prefill (each collective
+    timed into ``coll`` when given; the gather of the cache is not)."""
+    from repro_torch.distributed import serving
+    from repro_torch.distributed.sharding import gather_cache
+    b, s = prompts.shape
+    prefill = serving.jit_prefill_step(cfg, mesh, {"tokens": torch.empty(
+        prompts.shape, dtype=prompts.dtype, device="meta")},
+        max_seq=s + steps)
+    decode, _, _ = serving.jit_decode_step(cfg, mesh, b, s + steps)
+    log = [] if coll is None else coll
+    timing = _timed_collectives(log) if coll is not None \
+        else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    with timing:
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill_logits": logits, "prefill_ms": prefill_ms,
+           "n_prefill_coll": len(log), "per_prefill": {
+               **_counts(), **_lm_counts()}, "logits": []}
+    whole = gather_cache(cache, cfg, mesh, b)
+    out["cache"] = {f: getattr(whole, f) for f in ("k", "v", "conv", "ssm")
+                    if getattr(whole, f) is not None}
+    del whole
+    timing = _timed_collectives(log) if coll is not None \
+        else contextlib.nullcontext()
+    with timing:
+        t0 = time.perf_counter()
+        for tok in inputs:
+            lg, cache = decode(params, cache, {"tokens": tok.cuda()})
+            out["logits"].append(lg)
+        torch.cuda.synchronize()
+        out["tokens_per_s"] = steps * b / (time.perf_counter() - t0)
+    out["prefill"] = prefill
+    return out
+
+
+def tp_rank_run(rank: int, label: str, mesh, rates) -> dict:
+    """14a or 14b on one rank: the whole params drawn and cut to the rank's
+    shards (``shard_params``); the driven run in bf16 through the builders
+    (the counts set to 0 just before and read just after; every collective
+    timed); a warm prefill by CUDA events (a MoE model's must give the
+    first one's bits); then the same in fp32 on the upcast weights. Rank 0
+    holds each run against the one-process runs (TP_BAND_F32; bf16 within
+    TP_BF16_FLOORS of bf16's own distance from fp32). Then, one rank
+    after the other (the card to itself), the flash and scan kernels at
+    the rank's shapes against their plain versions, timed."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import shard_params
+    arch, b, s, steps = TP_SERVE[label]
+    cfg = lm_configs.get_config(arch)
+    small = torch.load(TP_DIR / f"{label}_small.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = lm.init_params(cfg, 0)
+    if [float(t.double().sum()) for t in tree_leaves(whole)] != \
+            small["sums"]:
+        raise RuntimeError(f"{label} rank {rank}: the params drawn differ "
+                           "from the one-process run's")
+    params = shard_params(whole, cfg, mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_p = params["shared"]["attn"] if cfg.attn_every else \
+        params["blocks"]["attn"]
+    shapes = {"heads": attn_p["wq"].shape[-1] // cfg.hd,
+              "kv_heads": attn_p["wk"].shape[-1] // cfg.hd}
+    if cfg.block == "mamba2":
+        shapes["d_inner"] = params["blocks"]["in_x"].shape[-1]
+    if cfg.block == "moe":
+        shapes["experts"] = params["blocks"]["mlp"]["w_up"].shape[1]
+    prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
+    coll: list = []
+    _reset_all_counts()
+    run = _tp_serve(cfg, mesh, params, prompts, small["inputs"], steps, coll)
+    launches = {**_counts(), **_lm_counts()}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    again, cache2 = run["prefill"](params, {"tokens": prompts})
+    end.record()
+    end.synchronize()
+    same = torch.equal(again, run["prefill_logits"])
+    if cfg.block == "moe":
+        third, cache3 = run["prefill"](params, {"tokens": prompts})
+        same = (same and torch.equal(third, again)
+                and torch.equal(cache2.k, cache3.k)
+                and torch.equal(cache2.v, cache3.v))
+        del third, cache3
+        if not same:
+            raise RuntimeError(f"{label} rank {rank}: two prefills of the "
+                               "same prompts differ")
+    del again, cache2
+    peak = torch.cuda.max_memory_allocated()
+    local_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    tokens = [torch.argmax(run["prefill_logits"], -1)] + [
+        torch.argmax(lg, -1) for lg in run["logits"]]
+    differ = [i for i, (a, w) in enumerate(zip(tokens[:-1],
+                                               small["inputs"]))
+              if not torch.equal(a.cpu(), w)]
+    by_op: dict = {}
+    for i, (op, nbytes, ms) in enumerate(coll):
+        where = "prefill" if i < run["n_prefill_coll"] else "decode"
+        by_op.setdefault(f"{where} {op} {nbytes} B", []).append(ms)
+    out = {"rank": rank, "shapes": shapes, "per_prefill": run["per_prefill"],
+           "launches": launches, "prefill_ms": run["prefill_ms"],
+           "warm_prefill_ms": start.elapsed_time(end),
+           "decode_tokens_per_s": run["tokens_per_s"],
+           "peak_gib": peak / 2**30, "param_bytes": local_bytes,
+           "first_token_diff": differ[0] if differ else None,
+           "prefill_bits_same": same,
+           "logits_sum": float(run["prefill_logits"].double().sum()),
+           "collectives": {k: [len(v), statistics.median(v), max(v)]
+                           for k, v in by_op.items()},
+           "collectives_per_prefill": run["n_prefill_coll"],
+           "collectives_per_step": (len(coll) - run["n_prefill_coll"])
+           / steps}
+    runs = {"bf16": {k: run[k] for k in ("prefill_logits", "cache",
+                                         "logits")}}
+    del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = _upcast(lm.init_params(cfg, 0))
+    params = shard_params(whole, cfg, mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = _tp_serve(cfg.with_(dtype="float32"), mesh, params, prompts,
+                    small["inputs"], steps)
+    runs["fp32"] = {k: run[k] for k in ("prefill_logits", "cache",
+                                        "logits")}
+    del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["floors"] = small["floors"]
+        out.update(_tp_compare(label, cfg, runs))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in range(TP_RANKS):
+        if r == rank:
+            gen = torch.Generator(device="cuda").manual_seed(14)
+            out["flash_attention"] = check_flash(
+                b, s, shapes["heads"], shapes["kv_heads"], cfg.hd,
+                cfg.sliding_window, rates, gen, timed=True)
+            if cfg.block == "mamba2":
+                out["selective_scan"] = check_scan(
+                    b, s, shapes["d_inner"], cfg.ssm_state,
+                    cfg.mamba_headdim, rates, gen, timed=True,
+                    per_channel=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _tp_compare(label: str, cfg, runs: dict) -> dict:
+    """Rank 0's comparison of the ranks' fp32 and bf16 runs with the
+    one-process runs: every array's largest gap as a share of the
+    one-process array's scale, and in fp32 the count of elements above
+    TP_BAND_F32 of it; printed at once, then each held to its band (fp32:
+    TP_BAND_F32, a MoE config's TP_BAND_MOE; bf16: TP_BF16_FLOORS times
+    bf16's own distance from fp32). Raises naming every array outside."""
+    ref = torch.load(TP_DIR / f"{label}.pt")
+    floors = torch.load(TP_DIR / f"{label}_small.pt")["floors"]
+    shares, above, outside = {}, {}, []
+    for dt in ("fp32", "bf16"):
+        want = _tp_arrays(ref[dt])
+        shares[dt] = {}
+        for name, got in _tp_arrays(runs[dt]).items():
+            w = want[name].cuda().double()
+            gap = (got.double() - w).abs()
+            scale = float(w.abs().max().clamp_min(1e-30))
+            shares[dt][name] = float(gap.max()) / scale
+            if dt == "fp32":
+                above[name] = int((gap > TP_BAND_F32 * scale).sum())
+            band = ((TP_BAND_MOE if cfg.block == "moe" else TP_BAND_F32)
+                    if dt == "fp32" else TP_BF16_FLOORS * floors[name])
+            if shares[dt][name] > band:
+                outside.append(f"{dt} {name} {shares[dt][name]:.4g} > "
+                               f"{band:.4g}")
+    print(f"    {label} rank 0 against one process: fp32 "
+          + ", ".join(f"{k} {v:.3g}" + (f" ({above[k]} elements above "
+                                        f"{TP_BAND_F32})" if above[k] else "")
+                      for k, v in shares["fp32"].items())
+          + "; bf16 " + ", ".join(f"{k} {v:.3g} (floor {floors[k]:.3g})"
+                                  for k, v in shares["bf16"].items()),
+          flush=True)
+    if outside:
+        raise RuntimeError(f"{label}: outside the bands: {outside}")
+    return {"shares": shares, "above": above}
+
+
+def _worst(shares: dict, prefix: str) -> str:
+    items = {k: v for k, v in shares.items() if k.startswith(prefix)}
+    k = max(items, key=items.get)
+    return f"{items[k]:.4g} ({k})"
+
+
+def phase_tp(card: str) -> tuple[dict, dict]:
+    """Phase 14: the one-process runs here, then TP_RANKS ranks spawned
+    (the ``spawn`` start method, the kernels built by this process
+    before), each failing the phase if it fails. Prints each rank's run;
+    returns the launches of the driven runs summed over the ranks and
+    rank 0's kernel checks at 14a's shapes."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    one = {label: _tp_reference(label) for label in TP_SERVE}
+    print(f"  the one-process runs (bf16 and fp32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(str(TP_DIR),), nprocs=TP_RANKS,
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    results = []
+    for r in range(TP_RANKS):
+        with open(TP_DIR / f"rank{r}.json") as f:
+            results.append(json.load(f))
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    totals = dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0)
+    print(f"  {TP_RANKS} ranks on one card over gloo (through the host, not "
+          f"NCCL), mesh (data=1, model={TP_RANKS}), spawned and joined in "
+          f"{wall:.1f} s, on {card}; every all-reduce in fp32")
+    for label, (arch, b, s, steps) in TP_SERVE.items():
+        cfg = lm_configs.get_config(arch)
+        n_attn = (cfg.n_layers // cfg.attn_every if cfg.attn_every
+                  else cfg.n_layers)
+        want = {**dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0),
+                "flash_attention": n_attn,
+                "selective_scan": cfg.n_layers if cfg.block == "mamba2"
+                else 0}
+        first = results[0][label]
+        print(f"  {label} {cfg.name} at full width and depth, {b} x {s} "
+              f"prompts, {steps} decode steps teacher-forced on the "
+              f"one-process bf16 tokens; one process: "
+              f"{one[label]['param_bytes']:,} parameter bytes, warm bf16 "
+              f"prefill {one[label]['warm_ms']:.2f} ms (CUDA events)")
+        for res in (r[label] for r in results):
+            if res["per_prefill"] != want or res["launches"] != want:
+                raise RuntimeError(
+                    f"{label} rank {res['rank']}: launches per prefill "
+                    f"{res['per_prefill']}, in all {res['launches']}; "
+                    f"expected {want} in the prefill and none in decode")
+            if res["logits_sum"] != first["logits_sum"]:
+                raise RuntimeError(f"{label}: the ranks' logits differ")
+            for k, v in res["launches"].items():
+                totals[k] += v
+            print(f"    rank {res['rank']}: local {res['shapes']}; "
+                  f"{res['param_bytes']:,} parameter bytes "
+                  f"({res['param_bytes'] / one[label]['param_bytes']:.4f} of "
+                  f"one process); launches per prefill flash "
+                  f"{res['per_prefill']['flash_attention']}, scan "
+                  f"{res['per_prefill']['selective_scan']}, 0 in decode; "
+                  f"bf16 prefill {res['prefill_ms']:.2f} ms first call (host"
+                  f" clock), {res['warm_prefill_ms']:.2f} ms warm (CUDA "
+                  f"events), a second prefill bit-equal "
+                  f"{res['prefill_bits_same']}; decode "
+                  f"{res['decode_tokens_per_s']:.2f} tokens/s; peak memory "
+                  f"{res['peak_gib']:.3f} GiB; "
+                  f"{res['collectives_per_prefill']} collectives per "
+                  f"prefill, {res['collectives_per_step']:.0f} per decode "
+                  f"step")
+            print("      collectives (count, median ms, max ms): " + "; ".join(
+                f"{k} x{c} {med:.3f} / {mx:.3f}"
+                for k, (c, med, mx) in res["collectives"].items()))
+        sh = first["shares"]
+        floors = first["floors"]
+        band = TP_BAND_MOE if cfg.block == "moe" else TP_BAND_F32
+        print(f"    against one process, the largest share of the "
+              f"one-process array's scale: fp32 (band {band}; "
+              f"{sum(first['above'].values())} elements above "
+              f"{TP_BAND_F32} in all) "
+              f"prefill logits {sh['fp32']['prefill logits']:.4g}, decode "
+              f"{_worst(sh['fp32'], 'step')}, cache "
+              f"{_worst(sh['fp32'], 'cache')}; bf16 (band "
+              f"{TP_BF16_FLOORS} x bf16's own distance from fp32) prefill "
+              f"logits {sh['bf16']['prefill logits']:.4g} (floor "
+              f"{floors['prefill logits']:.4g}), decode "
+              f"{_worst(sh['bf16'], 'step')}, cache "
+              f"{_worst(sh['bf16'], 'cache')}; floors: decode "
+              f"{_worst(floors, 'step')}, cache {_worst(floors, 'cache')}; "
+              f"bf16 greedy tokens first differ at "
+              + ("no step" if first["first_token_diff"] is None else
+                 f"token {first['first_token_diff']} (0 = the prefill's)"))
+    kernels = {k: results[0]["14a"][k] for k in LM_WRAPPERS}
+    return totals, kernels
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -4811,6 +5268,16 @@ def main() -> None:
     for name, v in phase_mesh(card).items():
         launches[name] += v
     print(f"    phase 13 took {time.perf_counter() - t13:.1f} s")
+    print("[14] tensor-parallel serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    tp_launches, tp_kernels = phase_tp(card)
+    for name, v in tp_launches.items():
+        launches[name] += v
+    for name, entry in tp_kernels.items():
+        main_shape[name]["tp_rank_shape"] = entry
+    print(f"    phase 14 took {time.perf_counter() - t14:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

@@ -18,9 +18,13 @@ and mesh shape (a mesh is read through its ``.shape`` dict only):
     are CADA's workers.
 
 Of these, the mesh runtime executes the worker axis and the flat state's
-axes (:class:`FlatSharding`); the model axis, parameter FSDP and the
-pytree plane's per-leaf sharded state are tables only, and the trainer
-refuses them by name.
+axes (:class:`FlatSharding`), and serving (``distributed/serving.py``)
+the model axis and the batch over the data axes: :func:`shard_params`,
+:func:`shard_cache` and :func:`shard_batch` cut the rank's blocks by the
+tables, and a :class:`TPContext` carries the collectives the model code
+completes a sharded dim with. Training on the model axis, parameter FSDP
+and the pytree plane's per-leaf sharded state are tables only, and the
+trainer refuses them by name.
 
 :class:`FlatSharding` is both the reference's static description (the
 mesh, the worker axis, the state axes) and, on a mesh of ranks
@@ -41,7 +45,8 @@ import torch.distributed as dist
 
 from repro_torch.core.flat import FlatLayout, spec_dim
 from repro_torch.models.config import ModelConfig, param_count
-from repro_torch.models.model import DecodeCache, abstract_params
+from repro_torch.models.model import (DecodeCache, abstract_params,
+                                      init_cache)
 from repro_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 FSDP_THRESHOLD = 6e9  # bytes of bf16 params per model shard before FSDP
@@ -151,33 +156,18 @@ class FlatSharding:
         dist.all_reduce(out, op=_OPS[op], group=group)
         return out
 
-    def _gather(self, x: torch.Tensor, axes: tuple, dim: int = -1
-                ) -> torch.Tensor:
-        """Concatenate ``x`` along ``dim`` over the ``axes`` group, parts in
-        the row-major order of ``axes``."""
-        group = self.mesh.group(axes)
-        if group is None:
-            return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
-            group))]
-        dist.all_gather(parts, x, group=group)
-        order = [self.mesh.index(axes, r) for r in self.mesh.group_ranks(
-            axes)]
-        return torch.cat([parts[order.index(i)] for i in range(len(parts))],
-                         dim=dim)
-
     def gather_cols(self, buf: torch.Tensor) -> torch.Tensor:
         """This rank's column slice of its rows -> the whole rows."""
-        return self._gather(buf, self.col_axes)
+        return gather_over(self.mesh, buf, self.col_axes)
 
     def gather_rows(self, plane: torch.Tensor) -> torch.Tensor:
         """This rank's rows × columns -> the whole (M, n_flat) plane."""
-        return self._gather(self.gather_cols(plane), (self.waxis,), dim=0)
+        return gather_over(self.mesh, self.gather_cols(plane),
+                           (self.waxis,), dim=0)
 
     def gather_server(self, buf: torch.Tensor) -> torch.Tensor:
         """This rank's server slice -> the whole (n_flat,) plane."""
-        return self._gather(buf, self.axes)
+        return gather_over(self.mesh, buf, self.axes)
 
     def cols_to_server(self, buf: torch.Tensor, layout: FlatLayout):
         """A buffer over this rank's columns -> its server slice. The slice
@@ -207,6 +197,22 @@ class FlatSharding:
         for axes in ((self.waxis,), self.col_axes, self.axes,
                      self.plane_axes):
             self.mesh.group(axes)
+
+
+def gather_over(mesh, x: torch.Tensor, axes: tuple, dim: int = -1
+                ) -> torch.Tensor:
+    """Concatenate ``x`` along ``dim`` over the ``axes`` group of ``mesh``,
+    parts in the row-major order of ``axes`` (``x`` itself when that group
+    is this rank alone)."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    order = [mesh.index(axes, r) for r in mesh.group_ranks(axes)]
+    return torch.cat([parts[order.index(i)] for i in range(len(parts))],
+                     dim=dim)
 
 
 def _axsize(mesh, name):
@@ -394,3 +400,165 @@ def cache_pspecs(cfg: ModelConfig, cache_specs: DecodeCache, mesh
 
     return DecodeCache(**{name: None if leaf is None else rule(name, leaf)
                           for name, leaf in cache_specs._asdict().items()})
+
+
+# ------------------------------------------------ the rank's cuts (serving)
+
+def spec_axes(entry) -> tuple:
+    """One dim's spec entry as a tuple of axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def cut(x, spec: P, mesh):
+    """This rank's block of a whole tensor ``x`` by ``spec``: each sharded
+    dim narrowed to the rank's index over its axes. A strict part is a
+    contiguous copy, so the whole tensor may be freed; a tensor no axis
+    cuts is returned as it is, and so is a non-tensor leaf (the cache's
+    int ``index``)."""
+    if not torch.is_tensor(x):
+        return x
+    out = x
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        n = mesh.size(axes)
+        if n > 1:
+            step = x.shape[dim] // n
+            out = out.narrow(dim, mesh.index(axes) * step, step)
+    if out is x:
+        return x
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def uncut(x, spec: P, mesh):
+    """The whole tensor from every rank's block (:func:`cut`'s inverse):
+    one all-gather per sharded dim over its axes."""
+    if not torch.is_tensor(x):
+        return x
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if mesh.size(axes) > 1:
+            x = gather_over(mesh, x, axes, dim)
+    return x
+
+
+def _serving_param_pspecs(cfg: ModelConfig, mesh) -> dict:
+    """Serving never uses parameter FSDP (the reference's
+    ``_serving_param_pspecs``): tensor parallelism only."""
+    return param_pspecs(cfg, mesh, fsdp=False)
+
+
+def shard_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """A whole parameter tree -> this rank's shards by
+    ``param_pspecs(cfg, mesh, fsdp=False)`` (the counterpart of the
+    reference's ``device_put(params, shardings)``)."""
+    specs = _serving_param_pspecs(cfg, mesh)
+    return tree_unflatten(tree_paths(params), [
+        cut(x, s, mesh) for x, s in zip(tree_leaves(params),
+                                        tree_leaves(specs))])
+
+
+def gather_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's shards -> the whole tree (every rank gets it)."""
+    specs = _serving_param_pspecs(cfg, mesh)
+    return tree_unflatten(tree_paths(params), [
+        uncut(x, s, mesh) for x, s in zip(tree_leaves(params),
+                                          tree_leaves(specs))])
+
+
+def shard_cache(cache: DecodeCache, cfg: ModelConfig, mesh) -> DecodeCache:
+    """A whole decode cache -> this rank's shards by ``cache_pspecs``
+    (``index`` and ``slot_pos`` stay whole)."""
+    specs = cache_pspecs(cfg, cache, mesh)
+    return DecodeCache(*(None if x is None else cut(x, s, mesh)
+                         for x, s in zip(cache, specs)))
+
+
+def gather_cache(cache: DecodeCache, cfg: ModelConfig, mesh, batch: int
+                 ) -> DecodeCache:
+    """This rank's cache shards -> the whole cache of ``batch`` sequences
+    (for tests and checks: serving never gathers it)."""
+    specs = cache_pspecs(cfg, init_cache(cfg, batch, cache.slot_pos.shape[0],
+                                         device="meta"), mesh)
+    return DecodeCache(*(None if x is None else uncut(x, s, mesh)
+                         for x, s in zip(cache, specs)))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """A whole batch -> this rank's rows by ``batch_pspecs`` (over the data
+    axes, guarded by divisibility; M-RoPE positions on their second dim)."""
+    specs = batch_pspecs(batch, mesh)
+    return tree_unflatten(tree_paths(batch), [
+        cut(x, s, mesh) for x, s in zip(tree_leaves(batch),
+                                        tree_leaves(specs))])
+
+
+class TPContext:
+    """The rank's place on the ``model`` axis, for the collectives that
+    tensor parallelism needs and GSPMD inserts in the reference.
+
+    The model functions take it as ``tp`` (None: one process, no
+    collective). They read every count from the local shapes (a tensor
+    sharded over the model axis is this rank's block of it) and complete a
+    sharded dim through these methods: ``all_reduce`` (partial sums of a
+    row-parallel product, the sharded norm's Σx², the vocab-parallel
+    lookup) and ``all_gather`` (vocab-parallel logits, the query heads
+    of a ring sharded over W). ``batch_axes`` are the mesh axes the batch
+    was cut over (``gather_batch`` makes a whole batch of the ranks' rows:
+    the returned logits, a MoE layer's global dispatch). Which leaves are
+    sharded is ``param_pspecs(cfg, mesh, fsdp=False)``'s, read back from
+    the shapes ``shard_params`` cut: a leaf that falls back to replication
+    keeps its whole shape and takes no collective.
+    """
+
+    def __init__(self, cfg: ModelConfig, mesh, batch_axes: tuple = ()):
+        self.mesh = mesh
+        self.size = mesh.size(("model",))
+        self.index = mesh.coord("model")
+        self.group = mesh.group("model")
+        self.batch_axes = tuple(batch_axes)
+        self.batch_group = mesh.group(self.batch_axes)
+        if (cfg.block == "mamba2" and self.size > 1
+                and (cfg.d_inner % self.size == 0)
+                != (cfg.ssm_heads % self.size == 0)):
+            raise NotImplementedError(
+                f"{cfg.name}: d_inner {cfg.d_inner} and {cfg.ssm_heads} SSM "
+                f"heads split differently over a model axis of {self.size}")
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` summed (or maxed) over the model axis, in fp32, returned in
+        ``x``'s dtype (one rounding of the fp32 sum)."""
+        if self.group is None:
+            return x
+        out = x.float().clone()
+        dist.all_reduce(out, op=_OPS[op], group=self.group)
+        return out.to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of ``x`` along ``dim``, in model-axis order."""
+        return gather_over(self.mesh, x, ("model",), dim)
+
+    def gather_batch(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The whole batch from the ranks' rows along ``dim``."""
+        return gather_over(self.mesh, x, self.batch_axes, dim)
+
+    def batch_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of a whole batch along ``dim``."""
+        n = self.mesh.size(self.batch_axes)
+        if n == 1:
+            return x
+        step = x.shape[dim] // n
+        return x.narrow(dim, self.mesh.index(self.batch_axes) * step, step)
+
+    def local_cache_shapes(self, cfg: ModelConfig, shapes: dict) -> dict:
+        """Field -> the rank's shape of a decode cache with these whole
+        shapes: each dim ``cache_pspecs`` shards over the model axis cut
+        (the batch dims stay as given: the caller's rows)."""
+        whole = DecodeCache(index=0, slot_pos=torch.empty(
+            (1,), device="meta"), **{k: torch.empty(v, device="meta")
+                                     for k, v in shapes.items()})
+        specs = cache_pspecs(cfg, whole, self.mesh)
+        return {k: tuple(n // (self.size if "model" in spec_axes(e) else 1)
+                         for n, e in zip(v, getattr(specs, k)))
+                for k, v in shapes.items()}

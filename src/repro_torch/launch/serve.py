@@ -8,13 +8,19 @@ decode (the port of the JAX package's ``launch/serve.py``).
     python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke \\
         --device cpu --image-grid 4,4
 
-Weights and prompts are drawn from ``--seed`` with explicit
-``torch.Generator``s. An embedding-input model (qwen2-vl, musicgen) takes
-random prompt embeddings (the stub frontends of ``models/frontends.py``)
-and zero embeddings at each decode step, as the reference's launcher;
-``--image-grid GH,GW`` gives an M-RoPE model the positions of a text
-prefix and a GH x GW image (``frontends.mrope_positions``). Prefill and decode are timed on the host clock around
-work that ends in ``torch.cuda.synchronize()`` (on the card).
+Prefill and decode go through ``distributed/serving.py``'s
+``jit_prefill_step`` and ``jit_decode_step`` on ``make_host_mesh()``, as
+the reference's launcher decodes: one rank without a process group, and
+under one (joined from torchrun's or the ``REPRO_*`` environment by
+``launch.multihost.bootstrap``) the world's ranks, the batch cut over the
+data axis and only rank 0 printing. Weights and prompts are drawn from
+``--seed`` with explicit ``torch.Generator``s. An embedding-input model
+(qwen2-vl, musicgen) takes random prompt embeddings (the stub frontends
+of ``models/frontends.py``) and zero embeddings at each decode step, as
+the reference's launcher; ``--image-grid GH,GW`` gives an M-RoPE model
+the positions of a text prefix and a GH x GW image
+(``frontends.mrope_positions``). Prefill and decode are timed on the host
+clock around work that ends in ``torch.cuda.synchronize()`` (on the card).
 """
 from __future__ import annotations
 
@@ -22,11 +28,15 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as C
 from repro_torch.device import resolve_device
+from repro_torch.distributed.serving import jit_decode_step, jit_prefill_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.multihost import bootstrap, is_coordinator
 from repro_torch.models import frontends
-from repro_torch.models.model import decode_step, init_params, prefill
+from repro_torch.models.model import init_params
 
 
 def _sync(device: torch.device) -> None:
@@ -52,7 +62,11 @@ def generate(cfg, params, prompts, n_tokens: int, *,
              temperature: float = 0.0, generator=None,
              positions=None) -> dict:
     """Prefill ``prompts`` at a cache width of S + n_tokens, then
-    ``n_tokens`` lock-step decode steps. ``prompts`` are token ids (B, S),
+    ``n_tokens`` lock-step decode steps, through the serving builders on
+    ``make_host_mesh()`` (its model axis is 1: ``params`` whole on every
+    rank; under a process group each rank runs its rows of the batch and
+    gets the whole logits and tokens back, the cache its rows).
+    ``prompts`` are token ids (B, S),
     or embeddings (B, S, d) for an embedding-input config, which then gets
     zero embeddings (B, 1, d) at each step, as in the reference;
     ``positions`` (optional) shape the prefill's rotary tables. As in the
@@ -65,10 +79,16 @@ def generate(cfg, params, prompts, n_tokens: int, *,
     """
     device = prompts.device
     b, s = prompts.shape[:2]
+    mesh = make_host_mesh()
     inputs, step_input = serving_inputs(cfg, prompts, positions)
+    inputs = {k: v for k, v in inputs.items() if v is not None}
+    prefill = jit_prefill_step(cfg, mesh, {
+        k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+        for k, v in inputs.items()}, max_seq=s + n_tokens)
+    decode, _, _ = jit_decode_step(cfg, mesh, b, s + n_tokens)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, max_seq=s + n_tokens, **inputs)
+    logits, cache = prefill(params, inputs)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits
@@ -79,8 +99,7 @@ def generate(cfg, params, prompts, n_tokens: int, *,
         if temperature > 0:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        logits, cache = decode_step(cfg, params, cache,
-                                    **step_input(next_tok))
+        logits, cache = decode(params, cache, step_input(next_tok))
         next_tok = torch.argmax(logits, dim=-1)
         out.append(next_tok)
     _sync(device)
@@ -124,6 +143,9 @@ def main(argv=None) -> dict:
     cfg = (C.get_smoke_config(args.arch) if args.smoke
            else C.get_config(args.arch))
     device = resolve_device(args.device)
+    joined = not dist.is_initialized() and bootstrap(device=device)
+    if joined and device.type == "cuda":   # the card bootstrap selected
+        device = resolve_device(None)
     b, s = args.batch, args.prompt_len
     params = init_params(cfg, args.seed, device)
     prompts = random_prompts(cfg, b, s, args.seed + 1, device)
@@ -137,13 +159,16 @@ def main(argv=None) -> dict:
     out = generate(cfg, params, prompts, args.tokens,
                    temperature=args.temperature, generator=sampler,
                    positions=positions)
-    print(f"prefill({b}x{s}) on {device}: {out['prefill_s']:.3f}s logits "
-          f"{tuple(out['prefill_logits'].shape)}")
-    dt = out["decode_s"]
-    rate = args.tokens * b / dt if dt > 0 else float("inf")
-    print(f"decoded {args.tokens} tokens x {b} seqs in {dt:.3f}s "
-          f"({rate:.1f} tok/s)")
-    print("sample token ids:", out["tokens"][0][:16].tolist())
+    if is_coordinator():
+        print(f"prefill({b}x{s}) on {device}: {out['prefill_s']:.3f}s "
+              f"logits {tuple(out['prefill_logits'].shape)}")
+        dt = out["decode_s"]
+        rate = args.tokens * b / dt if dt > 0 else float("inf")
+        print(f"decoded {args.tokens} tokens x {b} seqs in {dt:.3f}s "
+              f"({rate:.1f} tok/s)")
+        print("sample token ids:", out["tokens"][0][:16].tolist())
+    if joined:
+        dist.destroy_process_group()
     return out
 
 

@@ -86,17 +86,41 @@ def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
 # ------------------------------------------------------------- projections
 
 def qkv(params, cfg: ModelConfig, x):
-    """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+    """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd); the head counts are
+    the weights' (a rank's heads where they are sharded)."""
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q = (x @ params["wq"]).reshape(b, s, -1, cfg.hd)
+    k = (x @ params["wk"]).reshape(b, s, -1, cfg.hd)
+    v = (x @ params["wv"]).reshape(b, s, -1, cfg.hd)
     return q, k, v
 
 
-def out_proj(params, x):
+def out_proj(params, x, tp=None):
+    """The heads' outputs through ``wo``. With ``tp`` the rank holds a
+    block of the heads (``wo`` row-parallel): the partial product is
+    all-reduced over the model axis."""
     b, s = x.shape[:2]
-    return x.reshape(b, s, -1) @ params["wo"]
+    y = x.reshape(b, s, -1) @ params["wo"]
+    return y if tp is None else tp.all_reduce(y)
+
+
+def local_kv(k, v, cfg: ModelConfig, hq: int, tp):
+    """K/V (..., Hkv, hd) for the rank's ``hq`` query heads. Where ``wq`` is
+    sharded over the model axis and ``wk``/``wv`` are not (the KV heads do
+    not divide it), the rank keeps the KV heads its query heads read by
+    the GQA grouping of :func:`_grouped_scores` (query head j reads KV head
+    j // (Hq / Hkv)): a block of them where the grouping stays uniform,
+    else one per query head. Otherwise K/V are the rank's already."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if k.shape[-2] * g == hq:
+        return k, v
+    lo = tp.index * hq
+    idx = [(lo + j) // g for j in range(hq)]
+    block = sorted(set(idx))
+    if idx == [u for u in block for _ in range(hq // len(block))]:
+        idx = block
+    idx = torch.tensor(idx, device=k.device)
+    return k.index_select(-2, idx), v.index_select(-2, idx)
 
 
 # ------------------------------------------------------------ core attention
@@ -225,13 +249,31 @@ def causal_attention(q, k, v, positions_q=None, positions_k=None,
     return naive_attention(q, k, v, positions_q, positions_k, window, dtype)
 
 
-def decode_attention(q, k_cache, v_cache, valid, dtype=torch.bfloat16):
+def decode_attention(q, k_cache, v_cache, valid, dtype=torch.bfloat16,
+                     tp=None):
     """One-token attention over a (possibly ring-buffered) cache, plain
     PyTorch on every device, as the reference's is plain jnp.
 
     q (B,1,Hq,hd); k/v_cache (B,W,Hkv,hd); valid (B,W) bool.
+
+    With ``tp`` the ring is sharded over W (``cache_pspecs`` when the KV
+    heads do not divide the model axis): the rank holds W/m of the slots
+    of every KV head, ``valid`` its slots' flags, and q every query head.
+    The softmax completes as flash decoding does: the fp32 max of the
+    scores all-reduced (MAX), then the sum of exp and the exp-weighted
+    values all-reduced (SUM, one fp32 buffer), then divided. A rank with
+    no valid slot adds zeros (exp(-1e30 - max)).
     """
     scores = _grouped_scores(q, k_cache)                     # (B,Hq,1,W)
     scores = torch.where(valid[:, None, None, :], scores, _NEG)
-    probs = torch.softmax(scores, dim=-1)
-    return _grouped_values(probs, v_cache).to(dtype)
+    if tp is None:
+        probs = torch.softmax(scores, dim=-1)
+        return _grouped_values(probs, v_cache).to(dtype)
+    top = tp.all_reduce(scores.amax(dim=-1, keepdim=True), op="max")
+    p = torch.exp(scores - top)
+    out = _grouped_values(p, v_cache)                        # (B,1,Hq,hd)
+    denom = p.sum(dim=-1).transpose(1, 2)[..., None]         # (B,1,Hq,1)
+    packed = tp.all_reduce(torch.cat([out.flatten(), denom.flatten()]))
+    out, denom = packed.split([out.numel(), denom.numel()])
+    return (out.reshape(q.shape) / denom.reshape(
+        *q.shape[:3], 1)).to(dtype)

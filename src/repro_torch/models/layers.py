@@ -10,11 +10,17 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 
 
-def rmsnorm(x, w, eps: float = 1e-5):
+def rmsnorm(x, w, eps: float = 1e-5, tp=None):
     """fp32 statistics, the normalised value rounded to x's dtype before
-    the weight multiplies it."""
+    the weight multiplies it. With ``tp`` (a ``TPContext``) x's last dim is
+    this rank's block of a dim sharded over the model axis: Σx² is
+    all-reduced in fp32 and divided by the whole dim."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = tp.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) \
+            / (x.shape[-1] * tp.size)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -26,15 +32,20 @@ def _gelu(x):
 _GATE_ACT = {"swiglu": F.silu, "geglu": _gelu}
 
 
-def ffn(params, cfg: ModelConfig, x):
+def ffn(params, cfg: ModelConfig, x, tp=None):
     """Dense FFN: gated (swiglu/geglu: w_gate, w_up, w_down) or plain
-    gelu."""
+    gelu. Where the rank holds a block of d_ff (w_gate/w_up column-,
+    w_down row-parallel), its partial output is all-reduced over ``tp``'s
+    model axis; a replicated FFN runs whole."""
     act = _GATE_ACT.get(cfg.mlp_act)
     if act is not None:
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = _gelu(x @ params["w_up"])
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    if tp is not None and params["w_down"].shape[-2] != cfg.d_ff:
+        y = tp.all_reduce(y)
+    return y
 
 
 def ffn_stacked(params, cfg: ModelConfig, x):

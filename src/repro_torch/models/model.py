@@ -25,6 +25,17 @@ Decode caches
   states into the cache's tensors in place (the reference returns new
   arrays), so a decode step moves no more than its own entries.
 
+Tensor parallelism (serving): ``prefill``, ``decode_step`` and
+``init_cache`` take ``tp``, a ``distributed.sharding.TPContext`` (None:
+one process, no collective). The params and the cache are then the rank's
+shards over the ``model`` axis (``shard_params``), every count is read
+from the local shapes, and each sharded dim is completed by the
+collective GSPMD inserts in the reference: an all-reduce after each
+row-parallel product (``wo``, ``w_down``, the MoE layer, Mamba's
+``out_proj`` and mamba1's ``xp_*``) and of the fp32 Σx² of mamba2's
+norm over a sharded d_inner, the vocab-parallel lookup's all-reduce and
+the logits' all-gather; a replicated tensor takes none.
+
 Every block of the reference is ported: dense, MoE (``models/moe.py``;
 the Switch auxiliary loss of each layer is summed into the aux term),
 pure-SSM (mamba1, mamba2) and hybrid (mamba2 + one shared attention
@@ -182,27 +193,35 @@ def layer(blocks: dict, i: int) -> dict:
 
 # ================================================================ forward
 
-def _mlp(lp, cfg: ModelConfig, h):
+def _mlp(lp, cfg: ModelConfig, h, tp=None):
     """The block's MLP: (y, aux), the MoE FFN with its auxiliary loss in a
     MoE block, else the dense FFN and a zero aux."""
     if cfg.block == "moe" and "router" in lp["mlp"]:
-        return moe_ffn(lp["mlp"], cfg, h)
-    return ffn(lp["mlp"], cfg, h), torch.zeros((), dtype=torch.float32,
-                                               device=h.device)
+        return moe_ffn(lp["mlp"], cfg, h, tp)
+    return ffn(lp["mlp"], cfg, h, tp), torch.zeros((), dtype=torch.float32,
+                                                   device=h.device)
+
+
+def _heads_tp(cfg: ModelConfig, q, tp):
+    """``tp`` where the rank holds a block of the query heads (``wq``
+    column-, ``wo`` row-parallel), else None."""
+    return tp if tp is not None and q.shape[-2] != cfg.n_heads else None
 
 
 def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
-                    train=False):
+                    train=False, tp=None):
     """Pre-norm attention + MLP over the full sequence; also returns the
-    roped K and V (the decode cache's entries) and the MLP's aux loss."""
+    roped K and V (the decode cache's entries: the rank's KV heads, or all
+    of them where ``wk``/``wv`` are replicated) and the MLP's aux loss."""
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv(params["attn"], cfg, h)
     q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
     k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
-    a = attn.causal_attention(q, k, v, window=cfg.sliding_window,
+    kq, vq = attn.local_kv(k, v, cfg, q.shape[-2], tp)
+    a = attn.causal_attention(q, kq, vq, window=cfg.sliding_window,
                               dtype=x.dtype, impl=impl, train=train)
-    x = x + attn.out_proj(params["attn"], a)
-    y, aux = _mlp(params, cfg, rmsnorm(x, params["ln2"], cfg.norm_eps))
+    x = x + attn.out_proj(params["attn"], a, _heads_tp(cfg, q, tp))
+    y, aux = _mlp(params, cfg, rmsnorm(x, params["ln2"], cfg.norm_eps), tp)
     return x + y, k, v, aux
 
 
@@ -224,15 +243,24 @@ def _rope_tables(cfg: ModelConfig, positions, batch: int, seq: int, device):
                             cfg.rope_theta)
 
 
-def _embed(cfg: ModelConfig, params, tokens, embeds):
+def _embed(cfg: ModelConfig, params, tokens, embeds, tp=None):
     """The input stream: token embeddings, or ``embeds`` in the model
-    dtype."""
-    if embeds is None:
-        return params["embed"][tokens]
-    return embeds.to(cfg.torch_dtype)
+    dtype. Where the rank holds a block of the vocab (``embed`` sharded
+    over the model axis), it looks up the ids in its range, zeros the
+    rest, and an all-reduce completes the rows: exact, as each token has
+    one non-zero term."""
+    if embeds is not None:
+        return embeds.to(cfg.torch_dtype)
+    table = params["embed"]
+    if tp is None or table.shape[0] == cfg.vocab:
+        return table[tokens]
+    ids = tokens - tp.index * table.shape[0]
+    own = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    return tp.all_reduce(torch.where(own[..., None], rows, 0))
 
 
-def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None):
+def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None, tp=None):
     """Run an SSM block over the full sequence and emit its decode state:
     (x + block(x), conv tail (B, K-1, di), final SSM state)."""
     xn = rmsnorm(x, lp["ln"], cfg.norm_eps)
@@ -242,25 +270,26 @@ def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None):
         xc = torch.nn.functional.silu(
             causal_conv1d(xi, lp["conv_w"], lp["conv_b"]))
         out, h_final = ssm.mamba1_inner(lp, cfg, xc, z, return_state=True,
-                                        impl=impl)
+                                        impl=impl, tp=tp)
     else:  # mamba2
         z, xi, b_ssm, c_ssm, dt_raw = ssm._mamba2_split(lp, cfg, xn)
         xc = torch.nn.functional.silu(
             causal_conv1d(xi, lp["conv_w"], lp["conv_b"]))
         out, h_final = ssm.mamba2_inner(lp, cfg, xc, z, b_ssm, c_ssm,
-                                        dt_raw, return_state=True, impl=impl)
+                                        dt_raw, return_state=True, impl=impl,
+                                        tp=tp)
     return x + out, xi[:, -(cfg.ssm_conv - 1):, :], h_final
 
 
 def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
-                positions=None):
+                positions=None, tp=None):
     """Every layer over the full sequence, in the reference's order (a
     hybrid's shared block after each stage of ``attn_every`` SSM layers).
     Returns x, the per-layer cache entries: lists of (K, V) for the
     attention layers and, where ``cached`` (prefill), of (conv tail, SSM
     state) for the SSM layers (the forward pass runs the plain
     ``mamba*_block`` instead, as the reference's does), and the aux loss
-    summed over the layers."""
+    summed over the layers. ``tp``: the rank's shards (``TPContext``)."""
     cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
                             x.device)
     kv, states = [], []
@@ -268,7 +297,7 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
     if cfg.block in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x, k, v, a = _attn_mlp_block(layer(params["blocks"], i), cfg, x,
-                                         cos, sin, impl)
+                                         cos, sin, impl, tp=tp)
             kv.append((k, v))
             aux = aux + a
         return x, kv, states, aux
@@ -277,13 +306,13 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
     for i in range(cfg.n_layers):
         lp = layer(params["blocks"], i)
         if cached:
-            x, conv_tail, h_final = _ssm_block_cached(lp, cfg, x, impl)
+            x, conv_tail, h_final = _ssm_block_cached(lp, cfg, x, impl, tp)
             states.append((conv_tail, h_final))
         else:
             x = ssm_block(lp, cfg, x, impl)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             x, k, v, a = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
-                                         impl)
+                                         impl, tp=tp)
             kv.append((k, v))
             aux = aux + a
     return x, kv, states, aux
@@ -345,10 +374,16 @@ def hidden_states(cfg: ModelConfig, params, tokens=None, impl=None,
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def logits_fn(cfg: ModelConfig, params, hidden):
+def logits_fn(cfg: ModelConfig, params, hidden, tp=None):
+    """hidden @ the output head (``embed.T`` where tied); where the rank
+    holds a block of the vocab, the logits of the ranks' blocks are
+    all-gathered over the model axis."""
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
-    return hidden @ head
+    logits = hidden @ head
+    if tp is not None and logits.shape[-1] != cfg.vocab:
+        logits = tp.all_gather(logits, dim=-1)
+    return logits
 
 
 def forward(cfg: ModelConfig, params, tokens=None, impl=None, train=False,
@@ -408,56 +443,86 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
-               device=None) -> DecodeCache:
+               device=None, tp=None) -> DecodeCache:
+    """An empty cache for ``batch_size`` sequences. With ``tp`` its fields
+    take the rank's shapes on the model axis (``cache_pspecs``: the KV
+    heads, or the ring's W where they do not divide; d_inner; the SSM
+    heads); ``slot_pos`` stays whole."""
     device = resolve_device(device)
-    dtype = cfg.torch_dtype
     w = cache_width(cfg, max_seq)
-    la = _n_attn_layers(cfg)
-    k = v = conv = state = None
-    if la:
-        shape = (la, batch_size, w, cfg.n_kv_heads, cfg.hd)
-        k = torch.zeros(shape, dtype=dtype, device=device)
-        v = torch.zeros(shape, dtype=dtype, device=device)
+    shapes, dtypes = {}, {}
+    if _n_attn_layers(cfg):
+        shapes["k"] = shapes["v"] = (_n_attn_layers(cfg), batch_size, w,
+                                     cfg.n_kv_heads, cfg.hd)
     if cfg.block in ("mamba1", "mamba2"):
-        conv = torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
-                            cfg.d_inner), dtype=dtype, device=device)
+        shapes["conv"] = (cfg.n_layers, batch_size, cfg.ssm_conv - 1,
+                          cfg.d_inner)
         if cfg.block == "mamba1":
-            sshape = (cfg.n_layers, batch_size, cfg.d_inner, cfg.ssm_state)
+            shapes["ssm"] = (cfg.n_layers, batch_size, cfg.d_inner,
+                             cfg.ssm_state)
         else:
-            sshape = (cfg.n_layers, batch_size, cfg.ssm_heads,
-                      cfg.mamba_headdim, cfg.ssm_state)
-        state = torch.zeros(sshape, dtype=torch.float32, device=device)
+            shapes["ssm"] = (cfg.n_layers, batch_size, cfg.ssm_heads,
+                             cfg.mamba_headdim, cfg.ssm_state)
+        dtypes["ssm"] = torch.float32
+    if tp is not None:
+        shapes = tp.local_cache_shapes(cfg, shapes)
     return DecodeCache(
         index=0,
         slot_pos=torch.full((max(w, 1),), -1, dtype=torch.int32,
                             device=device),
-        k=k, v=v, conv=conv, ssm=state)
+        **{name: torch.zeros(shape, dtype=dtypes.get(name, cfg.torch_dtype),
+                             device=device)
+           for name, shape in shapes.items()})
 
 
 def _attn_decode_layer(lp, cfg: ModelConfig, x, k_c, v_c, slot, slot_pos,
-                       cos, sin):
-    """x (B,1,d); k_c/v_c (B,W,Hkv,hd), written in place at ``slot``."""
+                       cos, sin, tp=None):
+    """x (B,1,d); k_c/v_c (B,W,Hkv,hd), written in place at ``slot``.
+
+    Under ``tp`` with a ring sharded over W (the rank holds slots
+    ``[lo, lo + W/m)`` of every KV head), the slot's owner writes it, the
+    query heads are all-gathered, and :func:`attn.decode_attention`
+    completes the softmax over the ranks; the rank then keeps its own
+    heads' outputs for ``wo``."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv(lp["attn"], cfg, h)
     q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
     k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
-    k_c[:, slot] = k[:, 0].to(k_c.dtype)
-    v_c[:, slot] = v[:, 0].to(v_c.dtype)
+    heads_tp = _heads_tp(cfg, q, tp)
+    w_own = k_c.shape[1]
     valid = (slot_pos >= 0)[None]                              # (1, W)
-    a = attn.decode_attention(q, k_c, v_c, valid, dtype=x.dtype)
-    x = x + attn.out_proj(lp["attn"], a)
-    y, _ = _mlp(lp, cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    if w_own == slot_pos.shape[0]:
+        k_c[:, slot] = k[:, 0].to(k_c.dtype)
+        v_c[:, slot] = v[:, 0].to(v_c.dtype)
+        kq, vq = attn.local_kv(k_c, v_c, cfg, q.shape[-2], tp)
+        a = attn.decode_attention(q, kq, vq, valid, dtype=x.dtype)
+    else:
+        lo = tp.index * w_own
+        if lo <= slot < lo + w_own:
+            k_c[:, slot - lo] = k[:, 0].to(k_c.dtype)
+            v_c[:, slot - lo] = v[:, 0].to(v_c.dtype)
+        hq = q.shape[-2]
+        if heads_tp is not None:
+            q = tp.all_gather(q, dim=2)
+        a = attn.decode_attention(q, k_c, v_c, valid[:, lo:lo + w_own],
+                                  dtype=x.dtype, tp=tp)
+        if heads_tp is not None:
+            a = a[:, :, tp.index * hq:(tp.index + 1) * hq]
+    x = x + attn.out_proj(lp["attn"], a, heads_tp)
+    y, _ = _mlp(lp, cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps), tp)
     return x + y
 
 
 def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
-                *, embeds=None):
+                *, embeds=None, tp=None):
     """One decode step for the whole batch. tokens (B,) or ``embeds``
     (B, 1, d). Returns (logits (B, V), the cache at index + 1). The cache's
     tensors are updated in place (see the module docstring). Every axis of
-    an M-RoPE position is the step's index, as in the reference."""
+    an M-RoPE position is the step's index, as in the reference. With
+    ``tp`` the params and cache are the rank's shards
+    (``distributed/serving.py``) and the logits come back whole."""
     x = _embed(cfg, params, None if tokens is None else tokens[:, None],
-               embeds)                                      # (B,1,d)
+               embeds, tp)                                  # (B,1,d)
     idx = cache.index
     w = cache.slot_pos.shape[0]
     slot = idx % w
@@ -475,13 +540,13 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
         for i in range(cfg.n_layers):
             x = _attn_decode_layer(layer(params["blocks"], i), cfg, x,
                                    cache.k[i], cache.v[i], slot,
-                                   cache.slot_pos, cos, sin)
+                                   cache.slot_pos, cos, sin, tp)
     else:
         dec = ssm.mamba2_decode if cfg.block == "mamba2" else \
             ssm.mamba1_decode
         for i in range(cfg.n_layers):
             y, conv_i, ssm_i = dec(layer(params["blocks"], i), cfg, x[:, 0],
-                                   cache.conv[i], cache.ssm[i])
+                                   cache.conv[i], cache.ssm[i], tp)
             cache.conv[i] = conv_i
             cache.ssm[i] = ssm_i
             x = y[:, None]
@@ -489,10 +554,10 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
                 j = i // cfg.attn_every
                 x = _attn_decode_layer(params["shared"], cfg, x, cache.k[j],
                                        cache.v[j], slot, cache.slot_pos,
-                                       cos, sin)
+                                       cos, sin, tp)
 
     hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, hidden)[:, 0]
+    logits = logits_fn(cfg, params, hidden, tp)[:, 0]
     return logits, cache._replace(index=idx + 1)
 
 
@@ -500,28 +565,36 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
 
 def prefill(cfg: ModelConfig, params, tokens=None,
             max_seq: int | None = None, impl=None, *, embeds=None,
-            positions=None):
+            positions=None, tp=None):
     """Full-sequence forward that also builds the decode cache, from
     tokens (B, S) or ``embeds`` (B, S, d); ``positions`` shape the rotary
-    tables.
+    tables. With ``tp`` the params are the rank's shards, the cache is
+    built in the rank's shapes (:func:`init_cache`) and the logits come
+    back whole.
 
     Returns (last-token logits (B, V), DecodeCache primed at index = S).
     """
-    x = _embed(cfg, params, tokens, embeds)
+    x = _embed(cfg, params, tokens, embeds, tp)
     b, s = x.shape[:2]
     device = x.device
     max_seq = max_seq or s
-    cache = init_cache(cfg, b, max_seq, device=device)
+    cache = init_cache(cfg, b, max_seq, device=device, tp=tp)
     w = cache.slot_pos.shape[0]
+    # the rank's slots where the ring is sharded over W
+    lo, w_own = 0, w if cache.k is None else cache.k.shape[2]
+    if w_own != w:
+        lo = tp.index * w_own
 
     def to_ring(t):  # (B, S, Hkv, hd) -> the last W entries in ring order
         tail = t[:, -w:]
         if s >= w:
-            return torch.roll(tail, s % w, dims=1)
-        return torch.nn.functional.pad(tail, (0, 0, 0, 0, 0, w - s))
+            ring = torch.roll(tail, s % w, dims=1)
+        else:
+            ring = torch.nn.functional.pad(tail, (0, 0, 0, 0, 0, w - s))
+        return ring[:, lo:lo + w_own]
 
     x, kv, states, _ = _run_layers(cfg, params, x, impl,
-                                   positions=positions)
+                                   positions=positions, tp=tp)
     for j, (k, v) in enumerate(kv):
         cache.k[j] = to_ring(k)
         cache.v[j] = to_ring(v)
@@ -533,6 +606,6 @@ def prefill(cfg: ModelConfig, params, tokens=None,
     cache.slot_pos[slots] = filled.to(torch.int32)
 
     hidden = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, hidden)[:, 0]
+    logits = logits_fn(cfg, params, hidden, tp)[:, 0]
     return logits, cache._replace(index=s)
 

@@ -45,19 +45,46 @@ def _fp32_matmul(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = True
 
 
-def moe_ffn(params, cfg: ModelConfig, x):
+def moe_ffn(params, cfg: ModelConfig, x, tp=None):
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar).
 
     Global dispatch routes all B·S tokens together. With
     ``cfg.moe_local_dispatch`` routing happens per batch row (the
     reference's vmap over B, here a loop): capacity is enforced per
     sequence, and the aux loss is the mean of the rows'.
+
+    Under tensor parallelism (``tp``) the replicated fp32 router routes
+    every token on every rank. Where the rank holds E/m whole experts
+    (expert-parallel) it runs its own experts over their capacity
+    dispatch, in expert order, into a zero y; where it holds a block of
+    every expert's d_ff (TP inside each expert) it runs every expert on
+    that block. Either way one all-reduce over the model axis completes
+    y. Global dispatch over a batch cut over the data axes routes the
+    whole batch, gathered (the reference's capacity is over all B·S
+    tokens), and keeps the rank's rows.
     """
+    split = tp is not None and (params["w_up"].shape[-3] != cfg.n_experts
+                                or params["w_down"].shape[-2] != cfg.d_ff)
     if cfg.moe_local_dispatch:
-        rows = [_dispatch(params, cfg, x[i:i + 1]) for i in range(x.shape[0])]
-        return (torch.cat([y for y, _ in rows]),
-                torch.stack([a for _, a in rows]).mean())
-    return _dispatch(params, cfg, x)
+        rows = [_dispatch(params, cfg, x[i:i + 1], tp)
+                for i in range(x.shape[0])]
+        y, aux = (torch.cat([y for y, _ in rows]),
+                  torch.stack([a for _, a in rows]).mean())
+    elif tp is not None and tp.batch_group is not None:
+        y, aux = _dispatch(params, cfg, tp.gather_batch(x), tp)
+        y = tp.batch_rows(y)
+    else:
+        y, aux = _dispatch(params, cfg, x, tp)
+    return (tp.all_reduce(y) if split else y), aux
+
+
+def _top_k(x, k: int):
+    """(values, indices) of the k largest along the last dim, equal values
+    in index order, as ``jax.lax.top_k`` breaks ties (``torch.topk`` breaks
+    them in no stated order: identical tokens tie for an expert's
+    capacity)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def _route(params, cfg: ModelConfig, xf):
@@ -67,29 +94,33 @@ def _route(params, cfg: ModelConfig, xf):
     with _fp32_matmul(xf.device):
         logits = xf.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)                       # (N, E)
-    gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (N, k)
+    gate_vals, gate_idx = _top_k(probs, cfg.top_k)              # (N, k)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
     # (N, E) combine weights: the renormalised gate if selected, else 0
     combine = torch.zeros_like(probs).scatter(1, gate_idx, gate_vals)
     # capacity dispatch: each expert picks its top-C tokens by gate weight
-    top_gate, top_tok = torch.topk(combine.T, _capacity(xf.shape[0], cfg),
-                                   dim=-1)                      # (E, C)
+    top_gate, top_tok = _top_k(combine.T, _capacity(xf.shape[0], cfg))
     return probs, gate_idx, combine, top_gate, top_tok
 
 
-def _dispatch(params, cfg: ModelConfig, x):
+def _dispatch(params, cfg: ModelConfig, x, tp=None):
+    """The layer over one routing group: (this rank's y, aux); its own
+    experts only where they are a block of E (``tp``, expert-parallel)."""
     b, s, d = x.shape
     n, e = b * s, cfg.n_experts
     xf = x.reshape(n, d)
     probs, gate_idx, _, top_gate, top_tok = _route(params, cfg, xf)
+    n_own = params["w_up"].shape[-3]
+    lo = 0 if n_own == e else tp.index * n_own
+    top_gate, top_tok = top_gate[lo:lo + n_own], top_tok[lo:lo + n_own]
 
-    xe = torch.stack([xf.index_select(0, top_tok[j]) for j in range(e)])
+    xe = torch.stack([xf.index_select(0, top_tok[j]) for j in range(n_own)])
     ye = ffn_stacked(params, cfg, xe)                           # (E, C, d)
     ye = (ye * top_gate[..., None].to(ye.dtype)).to(xf.dtype)
 
     out = torch.zeros_like(xf)
-    for j in range(e):   # expert order; no index repeats within a call
+    for j in range(n_own):   # expert order; no index repeats within a call
         out.index_add_(0, top_tok[j], ye[j])
 
     # Switch-style load-balance loss

@@ -90,11 +90,33 @@ def _scan(dt, x, a, b, c, h0, impl=None, train=False):
 
 # =================================================================== mamba1
 
-def _mamba1_scan_inputs(params, xc):
-    """Post-conv activations -> (dt, a, b, c) of the generic scan."""
+def _mamba1_xproj(params, cfg: ModelConfig, xc, tp=None):
+    """Post-conv activations -> (dt_raw (.., r), B (.., N), C (.., N)).
+    Where the rank holds a block of d_inner, ``xp_*`` are row-parallel:
+    the three partial products are all-reduced as one (.., r + 2N)
+    tensor over ``tp``'s model axis."""
     dt_raw = xc @ params["xp_dt"]                              # (B,S,r)
     b_ssm = xc @ params["xp_b"]                                # (B,S,N)
     c_ssm = xc @ params["xp_c"]                                # (B,S,N)
+    if tp is not None and params["xp_dt"].shape[-2] != cfg.d_inner:
+        r, n = dt_raw.shape[-1], b_ssm.shape[-1]
+        dt_raw, b_ssm, c_ssm = tp.all_reduce(torch.cat(
+            [dt_raw, b_ssm, c_ssm], dim=-1)).split([r, n, n], dim=-1)
+    return dt_raw, b_ssm, c_ssm
+
+
+def _out_proj(params, cfg: ModelConfig, y, tp=None):
+    """y (.., di) through ``out_proj``; row-parallel where the rank holds a
+    block of d_inner (the partial product all-reduced)."""
+    out = y @ params["out_proj"]
+    if tp is not None and params["out_proj"].shape[-2] != cfg.d_inner:
+        out = tp.all_reduce(out)
+    return out
+
+
+def _mamba1_scan_inputs(params, cfg: ModelConfig, xc, tp=None):
+    """Post-conv activations -> (dt, a, b, c) of the generic scan."""
+    dt_raw, b_ssm, c_ssm = _mamba1_xproj(params, cfg, xc, tp)
     dt = F.softplus((dt_raw.float() @ params["dt_proj"]
                      + params["dt_bias"]).float())
     a = -torch.exp(params["A_log"].float())                    # (di, N)
@@ -102,13 +124,15 @@ def _mamba1_scan_inputs(params, xc):
 
 
 def mamba1_inner(params, cfg: ModelConfig, xc, z, h0=None,
-                 return_state: bool = False, impl=None, train=False):
-    """Selective scan after the conv. xc (B,S,di) post-conv+silu, z gate."""
-    dt, a, b_ssm, c_ssm = _mamba1_scan_inputs(params, xc)
+                 return_state: bool = False, impl=None, train=False,
+                 tp=None):
+    """Selective scan after the conv. xc (B,S,di) post-conv+silu, z gate
+    (the rank's d_inner block under ``tp``)."""
+    dt, a, b_ssm, c_ssm = _mamba1_scan_inputs(params, cfg, xc, tp)
     y, h_final = _scan(dt, xc, a, b_ssm, c_ssm, h0, impl, train)
     y = y + params["D"].float() * xc.float()
     y = (y * F.silu(z.float())).to(xc.dtype)
-    out = y @ params["out_proj"]
+    out = _out_proj(params, cfg, y, tp)
     return (out, h_final) if return_state else (out, None)
 
 
@@ -122,17 +146,17 @@ def mamba1_block(params, cfg: ModelConfig, x, impl=None, train=False):
     return x + out
 
 
-def mamba1_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state):
-    """One-token recurrent step. x_t (B, d). Returns (y, conv', ssm')."""
+def mamba1_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state,
+                  tp=None):
+    """One-token recurrent step. x_t (B, d). Returns (y, conv', ssm');
+    the states are the rank's d_inner block under ``tp``."""
     xn = rmsnorm(x_t, params["ln"], cfg.norm_eps)
     xi = xn @ params["in_x"]
     z = xn @ params["in_z"]
     conv_state, xc = conv1d_step(conv_state, xi, params["conv_w"],
                                  params["conv_b"])
     xc = F.silu(xc)
-    dt_raw = xc @ params["xp_dt"]
-    b_ssm = xc @ params["xp_b"]
-    c_ssm = xc @ params["xp_c"]
+    dt_raw, b_ssm, c_ssm = _mamba1_xproj(params, cfg, xc, tp)
     dt = F.softplus(dt_raw.float() @ params["dt_proj"]
                     + params["dt_bias"]).float()               # (B,di)
     a = -torch.exp(params["A_log"].float())
@@ -142,7 +166,7 @@ def mamba1_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state):
     y = torch.einsum("bdn,bn->bd", ssm_state, c_ssm.float())
     y = y + params["D"].float() * xc.float()
     y = (y * F.silu(z.float())).to(x_t.dtype)
-    return x_t + y @ params["out_proj"], conv_state, ssm_state
+    return x_t + _out_proj(params, cfg, y, tp), conv_state, ssm_state
 
 
 # =================================================================== mamba2
@@ -152,6 +176,16 @@ def _mamba2_split(params, cfg: ModelConfig, xn):
     return (xn @ params["in_z"], xn @ params["in_x"],
             xn @ params["in_b"], xn @ params["in_c"],
             xn @ params["in_dt"])
+
+
+def _own_heads(params, dt_raw, tp):
+    """dt_raw (.., H) -> the rank's heads: ``in_dt`` is replicated, while
+    ``dt_bias``, ``A_log`` and ``D`` are sharded over the heads where
+    d_inner is (``TPContext`` refuses a split of one without the other)."""
+    h = params["dt_bias"].shape[-1]
+    if tp is None or h == dt_raw.shape[-1]:
+        return dt_raw
+    return dt_raw[..., tp.index * h:(tp.index + 1) * h]
 
 
 def _mamba2_scan_inputs(params, cfg: ModelConfig, dt_raw):
@@ -168,19 +202,23 @@ def _mamba2_scan_inputs(params, cfg: ModelConfig, dt_raw):
 
 def mamba2_inner(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
                  h0=None, return_state: bool = False, impl=None,
-                 train=False):
-    """xc (B,S,di) post-conv+silu. h0/h_final: (B, H, hd, N)."""
+                 train=False, tp=None):
+    """xc (B,S,di) post-conv+silu. h0/h_final: (B, H, hd, N). Under ``tp``
+    xc, z and the state are the rank's block of d_inner and of the heads;
+    the gated norm and ``out_proj`` complete over the model axis."""
     bsz, s, di = xc.shape
-    hn, hd, n = cfg.ssm_heads, cfg.mamba_headdim, cfg.ssm_state
-    dt_e, a_e = _mamba2_scan_inputs(params, cfg, dt_raw)
+    hd, n = cfg.mamba_headdim, cfg.ssm_state
+    split = tp is not None and di != cfg.d_inner
+    dt_e, a_e = _mamba2_scan_inputs(params, cfg, _own_heads(params, dt_raw,
+                                                            tp))
     h0_flat = None if h0 is None else h0.reshape(bsz, di, n)
     y, h_final = _scan(dt_e, xc, a_e, b_ssm, c_ssm, h0_flat, impl, train)
     y = y + torch.repeat_interleave(params["D"].float(), hd) * xc.float()
     y = (y * F.silu(z.float())).to(xc.dtype)
-    y = rmsnorm(y, params["out_norm"], cfg.norm_eps)
-    out = y @ params["out_proj"]
+    y = rmsnorm(y, params["out_norm"], cfg.norm_eps, tp if split else None)
+    out = _out_proj(params, cfg, y, tp)
     if return_state:
-        return out, h_final.reshape(bsz, hn, hd, n)
+        return out, h_final.reshape(bsz, -1, hd, n)
     return out, None
 
 
@@ -193,18 +231,22 @@ def mamba2_block(params, cfg: ModelConfig, x, impl=None, train=False):
     return x + out
 
 
-def mamba2_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state):
-    """x_t (B, d); ssm_state (B, H, hd, N)."""
+def mamba2_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state,
+                  tp=None):
+    """x_t (B, d); ssm_state (B, H, hd, N) (the rank's heads under
+    ``tp``)."""
     bsz = x_t.shape[0]
-    hn, hd = cfg.ssm_heads, cfg.mamba_headdim
+    hd = cfg.mamba_headdim
     xn = rmsnorm(x_t, params["ln"], cfg.norm_eps)
     z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn)
+    split = tp is not None and xi.shape[-1] != cfg.d_inner
     conv_state, xc = conv1d_step(conv_state, xi, params["conv_w"],
                                  params["conv_b"])
     xc = F.silu(xc)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    dt = F.softplus(_own_heads(params, dt_raw, tp).float()
+                    + params["dt_bias"])
     a = -torch.exp(params["A_log"].float())
-    xh = xc.reshape(bsz, hn, hd).float()
+    xh = xc.reshape(bsz, -1, hd).float()
     decay = torch.exp(dt * a)[..., None, None]                 # (B,H,1,1)
     drive = (dt[..., None] * xh)[..., None] \
         * b_ssm.float()[:, None, None, :]
@@ -213,5 +255,5 @@ def mamba2_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state):
     y = y + params["D"].float()[:, None] * xh
     y = y.reshape(bsz, -1)
     y = (y * F.silu(z.float())).to(x_t.dtype)
-    y = rmsnorm(y, params["out_norm"], cfg.norm_eps)
-    return x_t + y @ params["out_proj"], conv_state, ssm_state
+    y = rmsnorm(y, params["out_norm"], cfg.norm_eps, tp if split else None)
+    return x_t + _out_proj(params, cfg, y, tp), conv_state, ssm_state

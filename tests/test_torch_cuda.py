@@ -1077,3 +1077,57 @@ def test_mesh_nccl_one_card_per_rank(gen, tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices (one per rank)")
     _mesh_on_card(tmp_path, "nccl")
+
+
+# ------------------------------------------------- tensor-parallel serving
+
+TP_BAND = 0.05   # of each array's scale: chip_smoke.py's TP_BAND (bf16)
+
+
+def test_tp_serving_two_ranks_on_one_card_equal_one_process(gen, tmp_path):
+    """zamba2's smoke config in bf16 served by ``distributed/serving.py``
+    on 2 ranks sharing the card over gloo, a (data=1, model=2) mesh,
+    against the one-process run on the card: the prefill's logits and
+    cache and 8 decode steps teacher-forced on the one-process tokens
+    within TP_BAND of scale (each row-parallel product's two bf16
+    partials summed in fp32); per rank 2 scans and 1 flash launch per
+    prefill, none per decode step, at the rank's shapes."""
+    import mesh_ranks
+    cfg = TC.get_smoke_config("zamba2-2.7b").with_(dtype="bfloat16")
+    params = TM.init_params(cfg, 0, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                           device="cuda")
+    logits, cache = TM.prefill(cfg, params, tokens)
+    want = {"prefill": logits.cpu(), "cache": {
+        f: getattr(cache, f).cpu() for f in ("k", "v", "conv", "ssm")},
+        "steps": []}
+    steps = []
+    for _ in range(8):
+        tok = torch.argmax(logits, dim=-1)
+        steps.append({"tokens": tok.cpu()})
+        logits, cache = TM.decode_step(cfg, params, cache, tok)
+        want["steps"].append(logits.cpu())
+    ranks = mesh_ranks.spawn(mesh_ranks.run_serving, 2, tmp_path, {
+        "device": "cuda", "round_trip": [], "round_trip_sizes": (1, 2),
+        "cases": [("zamba2", (1, 2), cfg, mesh_ranks._to(
+            params, torch.device("cpu")), {"tokens": tokens.cpu()},
+            steps)]})
+
+    def share(got, ref):
+        got, ref = got.double(), ref.double()
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    for r in ranks:
+        got = r["zamba2"]
+        assert got["launches"] == ({"flash_attention": 1,
+                                    "selective_scan": 2},
+                                   {"flash_attention": 0,
+                                    "selective_scan": 0})
+        assert got["param_shapes"]["blocks/in_x"] == (2, 128, 128)
+        assert share(got["prefill_logits"], want["prefill"]) <= TP_BAND
+        for f, ref in want["cache"].items():
+            assert share(getattr(got["prefill_cache"], f), ref) <= TP_BAND
+        for a, b in zip(got["decode_logits"], want["steps"]):
+            assert share(a, b) <= TP_BAND
+        assert torch.equal(got["prefill_logits"],
+                           ranks[0]["zamba2"]["prefill_logits"])

@@ -186,6 +186,22 @@ def test_the_mesh_runtime_slice_is_covered():
     assert not tops & {"jax", "jaxlib", "repro"}, tops
 
 
+def test_the_tp_serving_slice_is_covered():
+    """... and so is tensor-parallel serving: ``distributed/serving.py``
+    has the reference's builders with its positional parameters (the
+    port's prefill builder adds a keyword-only ``max_seq``)."""
+    import inspect
+    from repro.distributed import serving as ref
+    from repro_torch.distributed import serving as port
+    assert "repro_torch.distributed.serving" in set(_modules())
+    for name in ("jit_prefill_step", "jit_decode_step",
+                 "_serving_param_pspecs"):
+        want = inspect.signature(getattr(ref, name)).parameters
+        got = inspect.signature(getattr(port, name)).parameters
+        assert [p for p in got if got[p].kind != got[p].KEYWORD_ONLY] \
+            == list(want), name
+
+
 def test_chip_smoke_prints_no_result_without_a_card_or_the_checkout(
         tmp_path):
     """chip_smoke.py exits non-zero with no result line when it finds no
