@@ -249,6 +249,28 @@ Phases, each of which raises on failure (the exit code is then not 0):
      collective's count and median/max ms; flash and scan against their
      plain versions at the rank's shapes, timed. A rank that fails fails
      the phase.
+ 15. the mesh trainer with a model axis and parameter FSDP
+     (``trainer.jit_train_step``): 4 ranks spawned on the one card over
+     gloo, a (data=2, model=2) mesh, M = 2, each rank on its parameter
+     shards (``param_pspecs``) with autograd through the collectives.
+     15a stablelm-1.6b at full width with TPT_LAYERS of its 24 layers,
+     cada2 at a skipping c, the flat state over ("model", "data"); 15b
+     falcon-mamba-7b at full width with 2 of its 64 layers under its
+     ``train_policy`` hyper-parameters (``fsdp=True``, 8 microbatches),
+     TPT_STEPS steps of 4 × 2048 (15a) or 4 × 1024 (15b) tokens. The
+     one-process trainer runs first in this process from the same init
+     and batches, in fp32 (and, for 15a, in bf16). The driven run is
+     fp32 (counts set to 0 just before and read just after: per rank
+     one shard-local AMSGrad and one shard-local row-norm launch per
+     step, no row-mean kernel: the mesh's eq. (3) is an all-reduce):
+     masks equal to one process's, losses and ‖Δθ‖² within TPT_RTOL_F32,
+     θ's update and h within TPT_BAND_F32 of scale; then 15a in bf16
+     within TPT_BF16_FLOORS times bf16's own distance from fp32, or from
+     the fp32 band where that is larger. Per rank: step ms, peak memory,
+     parameter bytes, each collective's count, bytes and median ms; the
+     AMSGrad, row-norm and row-mean kernels on the step's own shard-local
+     operands against their plain versions, timed. A rank that fails
+     fails the phase.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -582,6 +604,55 @@ TP_BAND_F32 = 1e-3
 TP_BAND_MOE = DECODE_RTOL
 TP_BF16_FLOORS = 2.0
 TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+# phase 15: the mesh trainer with a model axis and parameter FSDP on
+# TPT_RANKS ranks sharing the one card over gloo, a (data=2, model=2) mesh,
+# M = 2 (a worker a data rank, its two model ranks holding halves of the
+# sharded leaves); label -> (arch, layers kept, sequence length), each at
+# its published width, TPT_STEPS steps of 4 sequences from
+# make_token_batches, cada2 at TPT_C (12d's and 13's c = 1000 uploaded at
+# all three steps of 15a in fp32 on the H100, PERF.md §6), so that the
+# gate both uploads and skips. 15a stablelm-1.6b at TPT_LAYERS
+# of 24 layers (the cut: four ranks' states, each with a whole fp32 plane
+# of its worker's gradient and the step's whole packed θ, share the 80 GB;
+# tools/mesh_state_bytes.py reckons 6.68 GB a rank at rest in fp32 against
+# 18.5 GB for one process), the flat state over ("model", "data") (the
+# worker planes' columns over "model"); 15b falcon-mamba-7b at 2 of 64
+# layers under train_policy's hyper-parameters (fsdp=True, 8 microbatches,
+# lr 1e-4; the rule's c set to skip, as 15a's; the flat state over
+# ("model", "data") as 15a's, where the policy's would shard it over the
+# FSDP axis alone: with whole worker rows a rank needs more than 18 GB,
+# the fourth of the card that is its share), so the FSDP leaves are
+# gathered per layer inside the remat region and mamba1 runs its TP
+# backward; 4 x 1024 tokens a step, as the chunked scan's loop over time
+# runs one small kernel per step and channel block (launch-bound). The
+# one-process trainer from the same init and batches runs first in this
+# process (fp32, and bf16 for 15a) and is freed before the spawn. Bands
+# of the fp32 run: masks exact; losses and ‖Δθ‖² within TPT_RTOL_F32;
+# θ's update and h within TPT_BAND_F32 of their scale. The ranks add
+# partial products of their blocks where one GEMM sums a whole row, and
+# AMSGrad's normalised step carries a gradient's rounding gap
+# about five times over into θ's update (the CPU test's 1.0e-5 of scale
+# at smoke width); TPT_BAND_F32 is TP_BAND_F32, phase 14's fp32 band. The
+# bf16 run (15a) within TPT_BF16_FLOORS times the one-process bf16 run's
+# own distance from its fp32 run, as phase 14 holds bf16, where that
+# distance is not below the fp32 run's band: a bf16 check is never held
+# tighter than the fp32 one on the same quantity. ‖Δθ‖² is the case:
+# a sum dominated by AMSGrad's saturated steps, which bf16 barely moves
+# (5.65e-5 apart from fp32 in one process, while the ranks' fp32 sums of
+# partial products leave 3.3e-6 and their bf16 run 1.3e-4 on the H100,
+# PERF.md §6: held to the bare floor, it failed at 2.3 floors)
+TPT_RANKS, TPT_STEPS, TPT_LAYERS, TPT_C = 4, 3, 2, 1e4
+TPT_MESH = (2, 2)                      # (data, model)
+TPT_TRAIN = {"15a": ("stablelm-1.6b", TPT_LAYERS, TRAIN_SEQ),
+             "15b": ("falcon-mamba-7b", 2, 1024)}
+TPT_RTOL_F32, TPT_BAND_F32, TPT_BF16_FLOORS = 1e-4, TP_BAND_F32, 2.0
+# a rank's cap on its cached memory (GiB) while the ranks step (the whole
+# state is drawn one rank at a time, uncapped): four ranks, the parent's
+# ~1 GiB and four CUDA contexts then leave ~4 GiB of the card free. 15a's
+# fp32 ranks peaked at 16.333 GiB allocated, 18.932 reserved on the H100
+# (PERF.md §6); uncapped, four such caches filled the card once
+TPT_RANK_GIB = 18.0
+TPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tpt"
 # kinds of device kernel in a trainer step's profile: a kernel goes to the
 # first group whose key its name holds (fp32 GEMMs before the rest), and
 # to the last group, PyTorch's other eager kernels, when none does
@@ -712,7 +783,11 @@ def one_launch(fn, kernel: str, label: str, calls: int = 5) -> None:
     miss a launch at the profiler's start but never add one): no second
     pass, no per-call zeroing of the workspace."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):    # a window that recorded nothing says nothing
+    # a window that recorded nothing says nothing: CUPTI has been seen to
+    # return three empty windows in a row on a call that launched each time
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -4465,14 +4540,17 @@ def phase_slice11(card: str, rates, params, batches, skipping_c: dict
 # ------------------------------------------------------- the mesh runtime
 
 @contextlib.contextmanager
-def _first_operands(rec: dict):
+def _first_operands(rec: dict, row_mean: bool = False):
     """Records the operands the step's first call of the AMSGrad and the
     two-operand norm dispatch (``kernels/ops.py``, shard-local: the rank's
     slices) hands its kernel, as host copies (the card keeps only the
     run's own memory): the tensors and the step's hyper-parameters, not
-    the dispatch options."""
+    the dispatch options. ``row_mean``: eq. (3)'s too (the rank's rows of
+    the wire)."""
     names = {"amsgrad": "fused_amsgrad_flat",
              "batched_diff_sq": "batched_diff_sq_norm"}
+    if row_mean:
+        names["eq3_row_mean"] = "eq3_row_mean"
     saved = {name: getattr(kops, attr) for name, attr in names.items()}
 
     def recording(name, f):
@@ -5181,6 +5259,381 @@ def phase_tp(card: str) -> tuple[dict, dict]:
     return totals, kernels
 
 
+# ------------------------------------- the mesh trainer's model axis, FSDP
+
+def _tpt_stub():
+    """TPT_MESH as the sharding tables read a mesh: its ``.shape``."""
+    return type("MeshShape", (), {"shape": dict(zip((DATA, MODEL),
+                                                    TPT_MESH))})()
+
+
+def _tpt_setup(label: str):
+    """(cfg at the phase's depth, hyper-parameters, token batches) of 15a
+    or 15b, on any mesh of TPT_MESH's shape."""
+    from dataclasses import replace
+    from repro_torch.launch.policy import train_policy
+    arch, layers, seq = TPT_TRAIN[label]
+    cfg = lm_configs.get_config(arch).with_(n_layers=layers)
+    rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": TPT_C})
+    stub = _tpt_stub()
+    if label == "15a":
+        hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR,
+                                  state_fsdp_axes=(MODEL, DATA))
+    else:   # the policy of the whole model, not of its depth cut
+        hp = replace(train_policy(lm_configs.get_config(arch), stub),
+                     rule=rule, state_fsdp_axes=(MODEL, DATA))
+    tokens = make_token_batches(cfg, global_batch=TRAIN_BATCH, seq=seq,
+                                steps=TPT_STEPS)
+    return cfg, hp, tokens, trainer.flat_state_shards(cfg, stub, hp)
+
+
+def _tpt_dtypes(label: str) -> tuple:
+    return ("float32", "bfloat16") if label == "15a" else ("float32",)
+
+
+def _tpt_reference(label: str) -> dict:
+    """The one-process trainer of 15a or 15b in this process, before the
+    spawn: TPT_STEPS steps from seed 0 in each dtype of the phase. Saves
+    for rank 0 each run's masks, losses, ‖Δθ‖², θ's update and h (host
+    copies, ``<label>.pt``); returns the step ms and, for bf16, its
+    distance from the fp32 run (the floors of the ranks' bf16 run)."""
+    cfg, hp, tokens, shards = _tpt_setup(label)
+    runs, ms = {}, {}
+    for dt in _tpt_dtypes(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = cfg.with_(dtype=dt)
+        state = trainer.init_train_state(c, hp, TRAIN_M, 0, shards=shards)
+        layout = flat.layout_of(state.params, shards=shards)
+        theta0 = layout.pack(state.params)
+        step = trainer.make_train_step(c, hp, TRAIN_M, shards=shards)
+        run = {"masks": [], "losses": [], "dsq": []}
+        ms[dt] = []
+        for i in range(TPT_STEPS):
+            t0 = time.perf_counter()
+            state, mets = step(state, _batch_on_card(tokens[i]))
+            torch.cuda.synchronize()
+            ms[dt].append((time.perf_counter() - t0) * 1e3)
+            run["masks"].append(mets["upload_mask"].tolist())
+            run["losses"].append(float(mets["loss"]))
+            run["dsq"].append(float(mets["dtheta_sq"]))
+        run["update"] = (layout.pack(state.params) - theta0).cpu()
+        run["h"] = state.h.float().cpu()
+        runs[dt] = run
+        del state, step, theta0
+    floors = {}
+    if "bfloat16" in runs:
+        floors = _tpt_gaps(runs["bfloat16"], runs["float32"])
+    torch.save(runs, TPT_DIR / f"{label}.pt")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "floors": floors}
+
+
+def _tpt_gaps(got: dict, want: dict) -> dict:
+    """The gaps of a run from another: losses and ‖Δθ‖² relative, θ's
+    update and h as a share of ``want``'s scale."""
+    out = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key],
+                                                        want[key]))
+           for key in ("losses", "dsq")}
+    for key in ("update", "h"):
+        a, b = got[key].to(want[key].device), want[key]
+        out[key] = float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max().clamp_min(1e-30))
+    return out
+
+
+def _tpt_rank(rank: int, workdir: str) -> None:
+    """One rank of phase 15 (spawned): the gloo process group on the one
+    card, both configs, the results as ``rank<r>.json``. The allocator
+    grows its segments in place (four ranks share the card's memory, and
+    a rank's plane-sized buffers change size from step to step)."""
+    import torch.distributed as dist
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load("cada_update")       # built by the parent: loaded, not built
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "rdv"),
+        rank=rank, world_size=TPT_RANKS)
+    mesh = Mesh(TPT_MESH, (DATA, MODEL))
+    out = {label: tpt_rank_run(rank, label, mesh) for label in TPT_TRAIN}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tpt_drive(rank: int, cfg, hp, mesh, tokens, rec=None) -> dict:
+    """TPT_STEPS steps of the mesh trainer on this rank: the whole state
+    drawn from seed 0 one rank at a time (the card holds one whole state
+    beside the ranks' shards) and cut to the rank's; each collective timed
+    and, with ``rec``, the shard-local kernels' first operands recorded.
+    Returns the run (θ's update and h gathered whole, on the host of rank
+    0 only) and the launches counted from just before to just after."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import uncut_tree
+    fs = trainer.flat_sharding(cfg, mesh, hp)
+    make, _, m = trainer.jit_train_step(cfg, mesh, hp)
+    for r in range(TPT_RANKS):
+        if r == rank:
+            whole = trainer.init_train_state(cfg, hp, m, 0, shards=fs.shards)
+            layout = flat.layout_of(whole.params, shards=fs.shards)
+            theta0 = layout.pack(whole.params).cpu() if rank == 0 else None
+            state = trainer.shard_train_state(whole, fs, hp)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    # while the four ranks step, each one's cache is capped (it releases
+    # its free blocks before it grows past the cap), so that their caches
+    # cannot fill the card together; a whole state drawn above needs more
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(TPT_RANK_GIB * 2**30 / total)
+    step = make(_batch_on_card(tokens[0]))
+    torch.cuda.reset_peak_memory_stats()
+    coll: list = []
+    run = {"masks": [], "losses": [], "dsq": [], "step_ms": []}
+    with (_first_operands(rec, row_mean=True) if rec is not None
+          else contextlib.nullcontext()), _timed_collectives(coll):
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        for i in range(TPT_STEPS):
+            t0 = time.perf_counter()
+            state, mets = step(state, _batch_on_card(tokens[i]))
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["masks"].append(mets["upload_mask"].tolist())
+            run["losses"].append(float(mets["loss"]))
+            run["dsq"].append(float(mets["dtheta_sq"]))
+            run.setdefault("lhs_rhs", []).append(
+                (mets["lhs"] / mets["rhs"]).tolist())
+        launches = _train_counts()
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    if not _all_cuda(state):
+        raise RuntimeError(f"15 rank {rank}: the state left the card")
+    run["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state.params))
+    run["local_h"] = state.h.numel()
+    by_op: dict = {}
+    for op, nbytes, ms in coll:
+        by_op.setdefault(f"{op} {nbytes} B", []).append(ms)
+    run["collectives"] = {k: [len(v), statistics.median(v), max(v)]
+                          for k, v in by_op.items()}
+    run["collective_ms"] = sum(ms for _, _, ms in coll)
+    params = uncut_tree(state.params, fs.pspecs, mesh)
+    h = fs.gather_server(state.h)
+    if rank == 0:
+        run["update"] = layout.pack(params).cpu() - theta0
+        run["h"] = h.float().cpu()
+    del state, params, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    return run, launches
+
+
+def tpt_rank_run(rank: int, label: str, mesh) -> dict:
+    """15a or 15b on one rank: the driven fp32 run (the shard-local
+    kernels' operands recorded), then 15a's bf16 run; rank 0 holds each
+    against the one-process runs. Then, one rank after the other (the card
+    to itself), the AMSGrad, row-norm and row-mean kernels on the fp32
+    run's first shard-local operands against their plain versions."""
+    import torch.distributed as dist
+    cfg, hp, tokens, _ = _tpt_setup(label)
+    rec: dict = {}
+    out = {"rank": rank}
+    for dt in _tpt_dtypes(label):
+        run, launches = _tpt_drive(rank, cfg.with_(dtype=dt), hp, mesh,
+                                   tokens, rec if dt == "float32" else None)
+        print(f"    {label} rank {rank} {dt}: step ms "
+              f"{[round(x, 1) for x in run['step_ms']]}, masks "
+              f"{run['masks']}, peak {run['peak_gib']:.3f} GiB (reserved "
+              f"{run['peak_reserved_gib']:.3f})", flush=True)
+        if dt == "float32":
+            out["launches"] = launches
+        out[dt] = {k: v for k, v in run.items() if k not in ("update", "h")}
+        if rank == 0:
+            ref = torch.load(TPT_DIR / f"{label}.pt")[dt]
+            out[dt]["gaps"] = _tpt_gaps(run, ref)
+            out[dt]["ref_masks"] = ref["masks"]
+            del ref
+        del run
+        gc.collect()
+    for r in range(TPT_RANKS):
+        if r == rank:
+            out.update(_tpt_kernels(rank, rec))
+        dist.barrier()
+    return out
+
+
+def _tpt_kernels(rank: int, rec: dict) -> dict:
+    """The first step's shard-local operands back on the card: AMSGrad
+    (bit-equal to plain), the two-operand row norm and the row mean of the
+    rank's wire rows, each against its plain version and timed (device
+    ms)."""
+    out = {}
+    (t, h, v, g, lr), kw = rec.pop("amsgrad")
+    t, h, v, g = (x.cuda() for x in (t, h, v, g))
+    k_out = cada_update.fused_amsgrad_flat(t, h, v, g, lr, **kw)
+    p_out = ref.amsgrad_ref(t, h, v, g, lr, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(k_out[:3], p_out[:3])):
+        raise RuntimeError(f"15 rank {rank}: the shard-local AMSGrad step "
+                           "is not bit-equal to its plain version")
+    err = abs(float(k_out[3]) - float(p_out[3]))
+    if err > SUM_RTOL * float(p_out[3]):
+        raise RuntimeError(f"15 rank {rank}: sum upd^2 {float(k_out[3])} "
+                           f"vs plain {float(p_out[3])}")
+    out["amsgrad"] = {"n": t.numel(), "max_abs_err": err,
+                      "device_ms": device_ms(
+                          lambda: cada_update.fused_amsgrad_flat(
+                              t, h, v, g, lr, **kw), ("amsgrad_kernel",),
+                          calls=5)}
+    del k_out, p_out, t, h, v, g
+    torch.cuda.empty_cache()
+    a, b = (x.cuda() for x in rec.pop("batched_diff_sq")[0])
+    k_n = cada_update.batched_diff_sq_norm_flat(a, b)
+    p_n = ref.batched_diff_sq_norm_ref(a, b)
+    if _max_rel(k_n, p_n) > SUM_RTOL:
+        raise RuntimeError(f"15 rank {rank}: the row norm's rel err "
+                           f"{_max_rel(k_n, p_n)}")
+    out["batched_diff_sq"] = {
+        "shape": list(a.shape), "max_abs_err": float((k_n - p_n).abs().max()),
+        "device_ms": device_ms(lambda: cada_update.batched_diff_sq_norm_flat(
+            a, b), ("row_sq_kernel",), calls=5)}
+    del a, b
+    (plane, m_total), _ = rec.pop("eq3_row_mean")
+    plane = plane.cuda()
+    k_m = cada_update.eq3_row_mean_flat(plane, m_total)
+    p_m = ref.eq3_row_mean_ref(plane, m_total)
+    if not torch.equal(k_m, p_m):
+        raise RuntimeError(f"15 rank {rank}: the row mean of the rank's "
+                           "wire is not bit-equal to its plain version")
+    out["eq3_row_mean"] = {
+        "shape": list(plane.shape), "max_abs_err": 0.0,
+        "device_ms": device_ms(lambda: cada_update.eq3_row_mean_flat(
+            plane, m_total), ("row_mean_kernel",), calls=5)}
+    del plane, k_m, p_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tpt(card: str) -> dict:
+    """Phase 15: the one-process runs here, then TPT_RANKS ranks spawned
+    (the ``spawn`` start method, the kernels built by this process
+    before), each failing the phase if it fails. Prints each rank's run;
+    returns the launches of the driven runs summed over the ranks."""
+    import torch.multiprocessing as mp
+    shutil.rmtree(TPT_DIR, ignore_errors=True)
+    TPT_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    one = {}
+    for label in TPT_TRAIN:
+        one[label] = _tpt_reference(label)
+        print(f"  {label} one process: step ms " + ", ".join(
+            f"{dt} {[round(x, 1) for x in v]}"
+            for dt, v in one[label]["ms"].items()), flush=True)
+    print(f"  the one-process runs in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    free, total = torch.cuda.mem_get_info()
+    print(f"  before the spawn: {(total - free) / 2**30:.3f} of "
+          f"{total / 2**30:.3f} GiB of the card in use, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved by this "
+          "process", flush=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_tpt_rank, args=(str(TPT_DIR),), nprocs=TPT_RANKS,
+                       join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    results = []
+    for r in range(TPT_RANKS):
+        with open(TPT_DIR / f"rank{r}.json") as f:
+            results.append(json.load(f))
+    shutil.rmtree(TPT_DIR, ignore_errors=True)
+    want = {**dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0),
+            "amsgrad": TPT_STEPS, "batched_diff_sq": TPT_STEPS}
+    totals = dict.fromkeys(want, 0)
+    print(f"  {TPT_RANKS} ranks on one card over gloo (through the host, "
+          f"not NCCL), mesh (data={TPT_MESH[0]}, model={TPT_MESH[1]}), "
+          f"M = {TPT_MESH[0]}, spawned and joined in {wall:.1f} s, on "
+          f"{card}")
+    for label, (arch, layers, seq) in TPT_TRAIN.items():
+        cfg, hp, _, shards = _tpt_setup(label)
+        first = results[0][label]
+        f32 = first["float32"]
+        print(f"  {label} {arch} at full width, {layers} of "
+              f"{lm_configs.get_config(arch).n_layers} layers "
+              f"({param_count(cfg):,} parameters), cada2 c = "
+              f"{hp.rule.c}, fsdp {hp.fsdp}, microbatches "
+              f"{hp.microbatches}, state axes "
+              f"{trainer.flat_state_axes(cfg, _tpt_stub(), hp)}"
+              f", {TPT_STEPS} steps of {TRAIN_BATCH} x {seq} tokens")
+        for res in (r[label] for r in results):
+            if res["launches"] != want:
+                raise RuntimeError(f"15 {label} rank {res['rank']}: "
+                                   f"launches {res['launches']}, expected "
+                                   f"{want}")
+            for dt in _tpt_dtypes(label):
+                if (res[dt]["masks"] != first[dt]["masks"]
+                        or res[dt]["losses"] != first[dt]["losses"]):
+                    raise RuntimeError(f"15 {label}: the ranks' {dt} "
+                                       "metrics differ")
+            for k, v in res["launches"].items():
+                totals[k] += v
+            run = res["float32"]
+            print(f"    rank {res['rank']}: {run['param_bytes']:,} "
+                  f"parameter bytes, server slice {run['local_h']:,}; fp32 "
+                  f"step ms {[round(x, 1) for x in run['step_ms']]} (host "
+                  f"clock; {run['collective_ms']:.1f} ms in collectives); "
+                  f"peak memory {run['peak_gib']:.3f} GiB (reserved "
+                  f"{run['peak_reserved_gib']:.3f}); launches "
+                  f"amsgrad {res['launches']['amsgrad']}, batched_diff_sq "
+                  f"{res['launches']['batched_diff_sq']}, eq3_row_mean "
+                  f"{res['launches']['eq3_row_mean']} (an all-reduce on "
+                  f"the mesh)")
+            am, nm, rm = (res[k] for k in ("amsgrad", "batched_diff_sq",
+                                           "eq3_row_mean"))
+            print(f"      shard-local kernels vs plain: AMSGrad n = "
+                  f"{am['n']:,} bit-equal (sum upd^2 |err| "
+                  f"{am['max_abs_err']:.3g}), device {_ms(am['device_ms'])};"
+                  f" row norm {nm['shape']} |err| {nm['max_abs_err']:.3g}, "
+                  f"device {_ms(nm['device_ms'])}; row mean {rm['shape']} "
+                  f"bit-equal, device {_ms(rm['device_ms'])}")
+            print("      collectives (count, median ms, max ms): "
+                  + "; ".join(f"{k} x{c} {med:.2f} / {mx:.2f}"
+                              for k, (c, med, mx)
+                              in run["collectives"].items()))
+        for dt in _tpt_dtypes(label):
+            run = first[dt]
+            gaps = run["gaps"]
+            if run["masks"] != run["ref_masks"]:
+                raise RuntimeError(f"15 {label} {dt}: masks {run['masks']} "
+                                   f"on the mesh, {run['ref_masks']} in one "
+                                   "process")
+            f32 = {"losses": TPT_RTOL_F32, "dsq": TPT_RTOL_F32,
+                   "update": TPT_BAND_F32, "h": TPT_BAND_F32}
+            bands = f32 if dt == "float32" else {
+                k: TPT_BF16_FLOORS * max(v, f32[k])
+                for k, v in one[label]["floors"].items()}
+            ratios = [[round(x, 3) for x in r] for r in run["lhs_rhs"]]
+            print(f"    {dt}: masks {run['masks']} equal to one process's "
+                  f"(LHS/RHS {ratios}); losses {run['losses']}; gaps to "
+                  "one process "
+                  + ", ".join(f"{k} {gaps[k]:.3g} (band {bands[k]:.3g})"
+                              for k in bands))
+            outside = {k: gaps[k] for k in bands if gaps[k] > bands[k]}
+            if outside:
+                raise RuntimeError(f"15 {label} {dt}: outside the bands: "
+                                   f"{outside}")
+        masks = first["float32"]["masks"]
+        if all(all(row) for row in masks) or not any(any(r) for r in masks):
+            raise RuntimeError(f"15 {label}: masks {masks}: no step "
+                               "skipped, or none uploaded")
+    return totals
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print("[1] card")
@@ -5278,6 +5731,13 @@ def main() -> None:
     for name, entry in tp_kernels.items():
         main_shape[name]["tp_rank_shape"] = entry
     print(f"    phase 14 took {time.perf_counter() - t14:.1f} s")
+    print("[15] the mesh trainer: the model axis and parameter FSDP")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    for name, v in phase_tpt(card).items():
+        launches[name] += v
+    print(f"    phase 15 took {time.perf_counter() - t15:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"amsgrad": "cada_update.cu", "batched_diff_sq": "cada_update.cu",
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",

@@ -33,7 +33,6 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.quantize import (keep_where, round_trip, topk_count,
                                        topk_indices, topk_threshold_mask)
@@ -89,15 +88,19 @@ class FlatLayout:
 
     def pack(self, tree, dtype=torch.float32) -> torch.Tensor:
         """Dict -> (n_flat,) buffer in ``dtype`` (zero-padded tail)."""
-        flat = torch.cat([l.reshape(-1).to(dtype) for l in tree_leaves(tree)])
-        return F.pad(flat, (0, self.n_flat - self.n))
+        return self.pack_worker(tree_map(lambda l: l[None], tree), dtype)[0]
 
     def pack_worker(self, tree, dtype=torch.float32) -> torch.Tensor:
-        """M-leading dict -> (M, n_flat) plane in ``dtype``."""
+        """M-leading dict -> (M, n_flat) plane in ``dtype`` (each leaf
+        copied into its columns of one zeroed plane: at an LM's width the
+        plane is gigabytes, so it is the only one made)."""
         leaves = tree_leaves(tree)
         m = leaves[0].shape[0]
-        flat = torch.cat([l.reshape(m, -1).to(dtype) for l in leaves], dim=1)
-        return F.pad(flat, (0, self.n_flat - self.n))
+        out = torch.zeros((m, self.n_flat), dtype=dtype,
+                          device=leaves[0].device)
+        for l, o, s in zip(leaves, self.offsets, self.sizes):
+            out[:, o:o + s].copy_(l.reshape(m, s))
+        return out
 
     def unpack_worker(self, buf, dtypes=None) -> dict:
         """(M, n_flat) plane -> M-leading dict (leaves cast to the layout
@@ -455,7 +458,7 @@ def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
 def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
                    batch, m: int, *, vgrad, vgrad_per=None,
                    fuse_evals: bool = False, group_evals: bool = False,
-                   cohort=None):
+                   cohort=None, shard=None):
     """The two-point eval dispatch, shared by :func:`flat_comm_round`,
     :func:`flat_cohort_round` and the async sim's gate
     (``repro_torch.sim.runtime``). Returns ``(losses, fresh, second)``
@@ -476,33 +479,47 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     ``group_evals`` it gathers nothing and evaluates once per occupied
     ring row (:func:`grouped_second_plane`; opt-in, as the broadcast-point
     evaluation may differ from the per-row one in the last bits).
+
+    ``shard`` (the mesh runtime's ``FlatSharding``): each plane is cut to
+    the rank's column slice as soon as it is packed.
     """
+    def _packed_eval(f, point):
+        """(losses, the packed fp32 plane of one evaluation, cut to the
+        rank's columns on the mesh)."""
+        losses, tree = f(point, batch)
+        plane = layout.pack_worker(tree)
+        del tree
+        return losses, (plane if shard is None
+                        else shard.cut_cols(plane, layout))
+
     indexed = strategy.second_eval_indexed(extras)
     if indexed is None:
-        losses, fresh_tree = vgrad(params, batch)
-        return losses, layout.pack_worker(fresh_tree), None
+        return (*_packed_eval(vgrad, params), None)
     ring, slot = indexed
     if cohort is not None and slot is not None:
         slot = slot[cohort]
+    # each gradient tree is packed (and freed) before the next evaluation:
+    # at an LM's width a tree and its plane are gigabytes each
     if slot is None:
         shared_pt = tree_map(lambda x: x[0], ring)
-        losses, fresh_tree = vgrad(params, batch)
-        _, second_tree = vgrad(shared_pt, batch)
-        return (losses, layout.pack_worker(fresh_tree),
-                layout.pack_worker(second_tree))
+        losses, fresh = _packed_eval(vgrad, params)
+        return losses, fresh, _packed_eval(vgrad, shared_pt)[1]
     if group_evals:
-        losses, fresh_tree = vgrad(params, batch)
-        return (losses, layout.pack_worker(fresh_tree),
-                grouped_second_plane(layout, ring, slot, batch, m, vgrad))
+        losses, fresh = _packed_eval(vgrad, params)
+        second = grouped_second_plane(layout, ring, slot, batch, m, vgrad)
+        return (losses, fresh, second if shard is None
+                else shard.cut_cols(second, layout))
     idx = slot.long()
     pts = tree_map(lambda x: x.index_select(0, idx), ring)
     if fuse_evals:
-        return stacked_two_point_eval(layout, params, pts, batch, m,
-                                      vgrad_per)
-    losses, fresh_tree = vgrad(params, batch)
-    _, second_tree = vgrad_per(pts, batch)
-    return (losses, layout.pack_worker(fresh_tree),
-            layout.pack_worker(second_tree))
+        losses, fresh, second = stacked_two_point_eval(
+            layout, params, pts, batch, m, vgrad_per)
+        if shard is not None:
+            fresh, second = (shard.cut_cols(p, layout)
+                             for p in (fresh, second))
+        return losses, fresh, second
+    losses, fresh = _packed_eval(vgrad, params)
+    return losses, fresh, _packed_eval(vgrad_per, pts)[1]
 
 
 # ------------------------------------------------------------- shared round
@@ -517,6 +534,9 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
 
     ``fuse_evals`` and ``group_evals`` pick the form of the rule's second
     evaluation (:func:`eval_two_point`).
+
+    ``params_flat`` is θ^k packed (n_flat,); only a delta-payload rule's
+    local steps read it, and another rule's round may be given None.
 
     ``shard`` (a ``distributed.sharding.FlatSharding`` on the mesh
     runtime, or None) runs the round on one rank: ``comm``'s (M, n_flat)
@@ -573,11 +593,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         losses, fresh, second = eval_two_point(
             strategy, layout, extras, params, batch, m_rows, vgrad=vgrad,
             vgrad_per=vgrad_per, fuse_evals=fuse_evals,
-            group_evals=group_evals, cohort=rows)
-        if shard is not None:
-            fresh = shard.cut_cols(fresh, layout)
-            second = None if second is None else shard.cut_cols(second,
-                                                                layout)
+            group_evals=group_evals, cohort=rows, shard=shard)
     if shard is not None:
         losses = shard.rows_sum(losses, (shard.waxis,), m)
     ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
@@ -599,11 +615,17 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         upload = upload & participation
 
     # Eq. (3): innovation delta, wire format, masked aggregation, whole
-    # planes.
+    # planes. At an LM's width each plane is gigabytes, so each goes as
+    # soon as it is dead, as in the cohort round (no hook reads ctx.second
+    # after the LHS or ctx.fresh after the wire).
+    ctx = ctx._replace(second=None)
+    del second
     up_rows = ctx.plane_rows(upload)
     wg32 = comm.worker_grads.float()
     delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
     sparse = strategy.flat_sparse_wire(ctx, extras, cache, delta)
+    ctx = ctx._replace(fresh=None)
+    del fresh
     if sparse is not None:
         # True sparse wire: the (M, K) value/index pair is the payload; the
         # dense plane is rebuilt server-side. Values are masked and cast as
@@ -615,6 +637,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     else:
         wire = torch.where(up_rows[:, None], delta, 0.0).to(
             comm.worker_grads.dtype)
+    del delta, sparse
     # Order-fixed row accumulation: masked zero rows are exact no-ops. On
     # the mesh a round in which no worker uploads adds the same +0.0
     # without the collective.
@@ -628,6 +651,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                           device=comm.nabla.device)
     nabla = (comm.nabla.float() + inc).to(comm.nabla.dtype)
     worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
+    del wire, wg32
 
     staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)
     extras = strategy.flat_post_upload(extras, cache, upload, ctx)

@@ -17,14 +17,17 @@ and mesh shape (a mesh is read through its ``.shape`` dict only):
   * the "pod" axis never shards parameters: pods replicate the model and
     are CADA's workers.
 
-Of these, the mesh runtime executes the worker axis and the flat state's
-axes (:class:`FlatSharding`), and serving (``distributed/serving.py``)
-the model axis and the batch over the data axes: :func:`shard_params`,
+The mesh runtime executes all of them on the flat plane: the worker axis
+and the flat state's axes (:class:`FlatSharding`), the model axis and
+parameter FSDP in training (``trainer.jit_train_step``), and the model
+axis and the batch over the data axes in serving
+(``distributed/serving.py``): :func:`cut_tree`, :func:`shard_params`,
 :func:`shard_cache` and :func:`shard_batch` cut the rank's blocks by the
 tables, and a :class:`TPContext` carries the collectives the model code
-completes a sharded dim with. Training on the model axis, parameter FSDP
-and the pytree plane's per-leaf sharded state are tables only, and the
-trainer refuses them by name.
+completes a sharded dim with, each with its backward, and the per-layer
+gathers of the FSDP dims (:class:`FSDPLeaf`). The pytree plane's
+per-leaf sharded state is a table only, and the trainer refuses it by
+name.
 
 :class:`FlatSharding` is both the reference's static description (the
 mesh, the worker axis, the state axes) and, on a mesh of ranks
@@ -37,7 +40,7 @@ kernel forms complete their scalars with.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -47,7 +50,8 @@ from repro_torch.core.flat import FlatLayout, spec_dim
 from repro_torch.models.config import ModelConfig, param_count
 from repro_torch.models.model import (DecodeCache, abstract_params,
                                       init_cache)
-from repro_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
+                                     tree_unflatten)
 
 FSDP_THRESHOLD = 6e9  # bytes of bf16 params per model shard before FSDP
 
@@ -85,6 +89,9 @@ class FlatSharding:
     mesh: Any
     waxis: str
     axes: tuple
+    # the parameter tree's specs (``param_pspecs``), by which the trainer
+    # cuts and gathers the parameters and their copies
+    pspecs: Any = field(compare=False)
 
     # ---- the reference's table
     @property
@@ -453,18 +460,12 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> dict:
     """A whole parameter tree -> this rank's shards by
     ``param_pspecs(cfg, mesh, fsdp=False)`` (the counterpart of the
     reference's ``device_put(params, shardings)``)."""
-    specs = _serving_param_pspecs(cfg, mesh)
-    return tree_unflatten(tree_paths(params), [
-        cut(x, s, mesh) for x, s in zip(tree_leaves(params),
-                                        tree_leaves(specs))])
+    return cut_tree(params, _serving_param_pspecs(cfg, mesh), mesh)
 
 
 def gather_params(params: dict, cfg: ModelConfig, mesh) -> dict:
     """This rank's shards -> the whole tree (every rank gets it)."""
-    specs = _serving_param_pspecs(cfg, mesh)
-    return tree_unflatten(tree_paths(params), [
-        uncut(x, s, mesh) for x, s in zip(tree_leaves(params),
-                                          tree_leaves(specs))])
+    return uncut_tree(params, _serving_param_pspecs(cfg, mesh), mesh)
 
 
 def shard_cache(cache: DecodeCache, cfg: ModelConfig, mesh) -> DecodeCache:
@@ -494,31 +495,199 @@ def shard_batch(batch: dict, mesh) -> dict:
                                         tree_leaves(specs))])
 
 
+class FSDPLeaf:
+    """A parameter leaf sharded over FSDP axes, as the training route reads
+    it: ``shard`` (the rank's block) and ``ghost``, a whole-shaped zero
+    tensor without storage (a stride-0 view of one scalar) on which
+    autograd lands the gathered leaf's gradient. :meth:`TPContext.gather`
+    all-gathers ``shard`` along ``dim`` over ``axes`` where the model
+    code takes the leaf (per layer, inside the remat region). Indexing
+    takes a layer of a stacked leaf (the stacked dim is never FSDP's)."""
+    __slots__ = ("shard", "ghost", "dim", "axes")
+
+    def __init__(self, shard, ghost, dim: int, axes: tuple):
+        self.shard, self.ghost, self.dim, self.axes = shard, ghost, dim, axes
+
+    def __getitem__(self, i: int) -> "FSDPLeaf":
+        return FSDPLeaf(self.shard[i], self.ghost[i], self.dim - 1,
+                        self.axes)
+
+
+def _reduced(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` all-reduced over ``group`` in fp32, back in ``x``'s dtype."""
+    out = x.float().clone()
+    dist.all_reduce(out, op=_OPS[op], group=group)
+    return out.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; the backward is the identity (``grad=False``:
+    the sum is consumed by work every rank repeats, so each holds the
+    whole gradient already) or the same sum (``grad=True``: the sum is
+    consumed inside each rank's own shard, so each holds a part)."""
+
+    @staticmethod
+    def forward(ctx, x, group, grad: bool):
+        ctx.group, ctx.grad = group, grad
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduced(g, ctx.group) if ctx.grad else g), None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the group (the
+    entry of a column-parallel block, or a whole leaf used inside each
+    rank's shard of the work)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """The FSDP gather: ``shard`` all-gathered along ``dim`` over ``axes``.
+    The gradient goes whole to ``ghost`` (the rank's worker needs its own
+    gradient of the whole leaf: on the single-pod mesh every data rank is
+    another worker), none to the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, ghost, mesh, axes, dim):
+        return gather_over(mesh, shard, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None, None, None
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token NLL of vocab-parallel logits: the rank holds the logits of
+    its block ``[lo, lo + V/m)`` of the vocab. The fp32 max of each row is
+    all-reduced (MAX), then Σexp and the label's logit (from the rank
+    that owns it) in one fp32 all-reduce (SUM). The backward is the
+    rank's block of softmax minus one-hot, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, group):
+        z = logits.float()
+        top = z.amax(dim=-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        e = torch.sub(z, top).exp_()    # one (tokens, V/m) fp32 buffer
+        ids = labels - lo
+        own = (ids >= 0) & (ids < z.shape[-1])
+        ids = ids.clamp(0, z.shape[-1] - 1)
+        picked = torch.gather(z, -1, ids[..., None])[..., 0]
+        sums = torch.stack([e.sum(dim=-1), torch.where(own, picked, 0.0)])
+        dist.all_reduce(sums, group=group)
+        ctx.save_for_backward(e, sums[0], ids, own)
+        ctx.dtype = logits.dtype
+        return torch.log(sums[0]) + top[..., 0] - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, ids, own = ctx.saved_tensors
+        grad = e.div_(total[..., None])     # the saved buffer, reused
+        grad.scatter_add_(-1, ids[..., None], -own.to(grad.dtype)[..., None])
+        return grad.mul_(g[..., None]).to(ctx.dtype), None, None, None
+
+
+def _fsdp_dims(spec: P) -> tuple | None:
+    """(dim, axes) of a spec's FSDP dim (its one dim over axes other than
+    "model"), or None."""
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes and "model" not in axes:
+            return dim, axes
+    return None
+
+
+def model_specs(specs):
+    """A spec tree with only the "model" axis kept: the cuts a gradient
+    has once its FSDP dims came back whole."""
+    return tree_map(lambda sp: P(*(e if "model" in spec_axes(e) else None
+                                   for e in sp)), specs)
+
+
+def cut_tree(tree, specs, mesh, lead: int = 0):
+    """The rank's blocks of a whole tree by a spec tree (:func:`cut` per
+    leaf); ``lead`` leading dims (a worker or ring axis) stay whole."""
+    pre = (None,) * lead
+    return tree_unflatten(tree_paths(tree), [
+        cut(x, P(*pre, *s), mesh) for x, s in zip(tree_leaves(tree),
+                                                 tree_leaves(specs))])
+
+
+def uncut_tree(tree, specs, mesh, lead: int = 0):
+    """The whole tree from every rank's blocks (:func:`cut_tree`'s
+    inverse)."""
+    pre = (None,) * lead
+    return tree_unflatten(tree_paths(tree), [
+        uncut(x, P(*pre, *s), mesh) for x, s in zip(tree_leaves(tree),
+                                                   tree_leaves(specs))])
+
+
 class TPContext:
     """The rank's place on the ``model`` axis, for the collectives that
-    tensor parallelism needs and GSPMD inserts in the reference.
+    tensor parallelism needs and GSPMD inserts in the reference, and for
+    the per-layer gathers of parameter FSDP.
 
     The model functions take it as ``tp`` (None: one process, no
     collective). They read every count from the local shapes (a tensor
     sharded over the model axis is this rank's block of it) and complete a
-    sharded dim through these methods: ``all_reduce`` (partial sums of a
-    row-parallel product, the sharded norm's Σx², the vocab-parallel
-    lookup) and ``all_gather`` (vocab-parallel logits, the query heads
-    of a ring sharded over W). ``batch_axes`` are the mesh axes the batch
-    was cut over (``gather_batch`` makes a whole batch of the ranks' rows:
-    the returned logits, a MoE layer's global dispatch). Which leaves are
-    sharded is ``param_pspecs(cfg, mesh, fsdp=False)``'s, read back from
-    the shapes ``shard_params`` cut: a leaf that falls back to replication
-    keeps its whole shape and takes no collective.
+    sharded dim through these methods, each of which has a backward, so
+    the training route runs them under autograd. Which backward depends
+    on who consumes the sum, so the call site picks the method:
+
+      * ``all_reduce``: a row-parallel product's partial sums (``wo``,
+        ``w_down``, the MoE combine, Mamba's ``out_proj``) or the
+        vocab-parallel lookup, consumed by work every rank repeats: the
+        backward is the identity;
+      * ``shard_sum``: a sum consumed inside each rank's own shard (the
+        sharded norm's Σx², mamba1's ``xp_*``): the backward sums the
+        gradient over the model axis too;
+      * ``enter``: the identity, whose backward sums the gradient: the
+        input of every column-parallel block, and a leaf kept whole but
+        used inside the rank's shard (``wk``/``wv`` where the KV heads do
+        not divide, mamba2's ``in_b``/``in_c``/``in_dt``, the gates of a
+        MoE layer's own experts);
+      * ``vocab_nll``: the loss of vocab-parallel logits without gathering
+        them; ``all_gather``: the serving logits and a W-sharded ring's
+        query heads (no backward: serving only).
+
+    ``batch_axes`` are the mesh axes the batch was cut over
+    (``gather_batch`` makes a whole batch of the ranks' rows: the returned
+    logits, a MoE layer's global dispatch). Which leaves are sharded is
+    read back from the shapes ``shard_params`` cut: a leaf that falls back
+    to replication keeps its whole shape and takes no collective.
+
+    ``pspecs`` (training: ``param_pspecs(cfg, mesh, fsdp, fsdp_axes)``)
+    names the leaves sharded over FSDP axes: :meth:`grad_leaves` hands the
+    model an :class:`FSDPLeaf` for each, and :meth:`gather` gathers them
+    where the model takes them.
     """
 
-    def __init__(self, cfg: ModelConfig, mesh, batch_axes: tuple = ()):
+    def __init__(self, cfg: ModelConfig, mesh, batch_axes: tuple = (),
+                 pspecs=None):
         self.mesh = mesh
         self.size = mesh.size(("model",))
         self.index = mesh.coord("model")
         self.group = mesh.group("model")
         self.batch_axes = tuple(batch_axes)
         self.batch_group = mesh.group(self.batch_axes)
+        self.fsdp = {}
+        if pspecs is not None:
+            for path, spec in zip(tree_paths(pspecs), tree_leaves(pspecs)):
+                dims = _fsdp_dims(spec)
+                if dims is not None:
+                    self.fsdp[path] = dims
+                    mesh.group(dims[1])     # made in the same order on
+                    #                         every rank (``new_group``)
         if (cfg.block == "mamba2" and self.size > 1
                 and (cfg.d_inner % self.size == 0)
                 != (cfg.ssm_heads % self.size == 0)):
@@ -527,13 +696,33 @@ class TPContext:
                 f"heads split differently over a model axis of {self.size}")
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``x`` summed (or maxed) over the model axis, in fp32, returned in
-        ``x``'s dtype (one rounding of the fp32 sum)."""
+        """``x`` summed (or maxed: serving only, no backward) over the
+        model axis, in fp32, returned in ``x``'s dtype (one rounding of the
+        fp32 sum). The backward is the identity."""
         if self.group is None:
             return x
-        out = x.float().clone()
-        dist.all_reduce(out, op=_OPS[op], group=self.group)
-        return out.to(x.dtype)
+        if op != "sum":
+            return _reduced(x.detach(), self.group, op)
+        return _AllReduce.apply(x, self.group, False)
+
+    def shard_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model axis as :meth:`all_reduce`; the
+        backward sums the gradient over the model axis too."""
+        if self.group is None:
+            return x
+        return _AllReduce.apply(x, self.group, True)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its gradient is summed over the model axis."""
+        if self.group is None:
+            return x
+        return _Enter.apply(x, self.group)
+
+    def vocab_nll(self, logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+        """fp32 per-token NLL from the rank's block of the logits."""
+        return _VocabNLL.apply(logits, labels,
+                               self.index * logits.shape[-1], self.group)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' blocks of ``x`` along ``dim``, in model-axis order."""
@@ -550,6 +739,40 @@ class TPContext:
             return x
         step = x.shape[dim] // n
         return x.narrow(dim, self.mesh.index(self.batch_axes) * step, step)
+
+    def grad_leaves(self, paths: list, leaves: list) -> tuple[list, list]:
+        """(the tensors autograd differentiates, the leaves the model reads)
+        for the rank's parameter shards: a leaf with an FSDP dim is read
+        as an :class:`FSDPLeaf` and differentiated through its ghost (the
+        gradient comes back whole on the FSDP dim), any other leaf is
+        both."""
+        req, model = [], []
+        for path, x in zip(paths, leaves):
+            x = x.detach()
+            if path not in self.fsdp:
+                x.requires_grad_()
+                req.append(x)
+                model.append(x)
+                continue
+            dim, axes = self.fsdp[path]
+            shape = list(x.shape)
+            shape[dim] *= self.mesh.size(axes)
+            ghost = torch.zeros((), dtype=x.dtype, device=x.device).expand(
+                shape).requires_grad_()
+            req.append(ghost)
+            model.append(FSDPLeaf(x, ghost, dim, axes))
+        return req, model
+
+    def gather(self, tree):
+        """A (sub)tree with every :class:`FSDPLeaf` gathered whole on its
+        FSDP dim (the model's blocks over the model axis stay the rank's);
+        tensors pass through."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v) for k, v in tree.items()}
+        if isinstance(tree, FSDPLeaf):
+            return _Gather.apply(tree.shard, tree.ghost, self.mesh,
+                                 tree.axes, tree.dim)
+        return tree
 
     def local_cache_shapes(self, cfg: ModelConfig, shapes: dict) -> dict:
         """Field -> the rank's shape of a decode cache with these whole

@@ -53,23 +53,33 @@ reference. It runs the dense step only; the cohort plane refuses it.
 reference; the cohort step gathers.
 
 The mesh runtime (:func:`jit_train_step`, the reference's step of the
-same name on a mesh whose model axis is 1) runs the worker axis as
-processes of a ``torch.distributed`` process group (``launch.mesh.Mesh``):
-worker m is the ranks at coordinate m of the worker axis ("data" on the
-single-pod mesh, "pod" on the multi-pod one), and each rank computes only
-its own worker's gradient (the structural locality of the reference's
-``make_pod_vgrads``), the mean over its pod's "data" ranks on the pod
-mesh. The flat state is ZeRO-sharded as ``flat_state_axes`` resolves it
-(``state_fsdp_axes``, ``shard_cada_state``): a rank holds its server slice
-of θ, h, v̂ and ∇, and its worker's row of the (M, n_flat) planes, cut to
-its column slice; the AMSGrad kernel and the LHS norms run on those
-slices and one all-reduce completes their scalars (``kernels/ops.py``).
-θ' is gathered back to every rank for the next forward: parameters stay
-replicated at rest, as they are with the model axis at 1 and no FSDP.
+same name) runs the mesh's axes as processes of a ``torch.distributed``
+process group (``launch.mesh.Mesh``). Worker m is the ranks at coordinate
+m of the worker axis ("data" on the single-pod mesh, "pod" on the
+multi-pod one), and each rank computes only its own worker's gradient
+(the structural locality of the reference's ``make_pod_vgrads``), the
+mean over its pod's "data" ranks on the pod mesh.
 
-Refused by name, for the next slice: parameter FSDP (``fsdp`` on, by value
-or by ``sharding.wants_fsdp``, and ``fsdp_axes``), a model axis above 1
-(tensor parallelism), and sharded state on the pytree plane
+Parameters are cut by ``param_pspecs(cfg, mesh, fsdp, fsdp_axes)``: over
+the model axis (tensor parallelism) and, with FSDP on (by value or by
+``sharding.wants_fsdp``), over the FSDP axes. A rank's forward and
+backward run on its shards through ``sharding.TPContext``: each
+collective of the model axis has its backward, and each FSDP leaf is
+gathered per layer inside the remat region, its gradient handed back
+whole (every data rank is another worker, whose own gradient Algorithm 1
+needs whole). The rank's gradients are then gathered over the model axis
+into whole leaves.
+
+The flat plane stays the reference's: ``flat_layout`` over whole leaves,
+ZeRO-sharded as ``flat_state_axes`` resolves it (``state_fsdp_axes``,
+``shard_cada_state``, the FSDP axes). A rank holds its server slice of θ,
+h, v̂ and ∇, and its worker's row of the (M, n_flat) planes, cut to its
+column slice; the AMSGrad kernel and the LHS norms run on those slices
+and one all-reduce completes their scalars (``kernels/ops.py``). Every
+model rank of a data group runs the same round on the same slice. θ' is
+gathered whole and cut back to the rank's parameter shards.
+
+Refused by name, for a later slice: the pytree plane's sharded state
 (``fused=False`` with ``state_fsdp_axes`` or ``shard_cada_state``, and the
 pytree plane on the mesh).
 """
@@ -86,10 +96,12 @@ from repro_torch.core.comm import (comm_round, init_comm_state, nabla_f32,
                                    record_progress, strategy_for)
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (FlatSharding, P,
-                                              param_pspecs, wants_fsdp)
+from repro_torch.distributed.sharding import (FlatSharding, P, TPContext,
+                                              cut_tree, model_specs,
+                                              param_pspecs, uncut_tree,
+                                              wants_fsdp)
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import DATA, MODEL, POD, mesh_axis_size
+from repro_torch.launch.mesh import DATA, POD
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import abstract_params, init_params, lm_loss
 from repro_torch.utils.trees import (tree_add, tree_leaves, tree_map,
@@ -120,10 +132,6 @@ class TrainHParams:
     #                                 occupied ring row (flat step only)
 
     def __post_init__(self):
-        if self.fsdp_axes != ("data",):
-            raise NotImplementedError(
-                f"TrainHParams.fsdp_axes={self.fsdp_axes!r}: parameter "
-                f"FSDP {_NEXT}")
         for name in ("state_fsdp_axes", "shard_cada_state"):
             if getattr(self, name) and not self.fused:
                 raise NotImplementedError(
@@ -240,26 +248,32 @@ def _amsgrad_apply(params, h, vhat, grad, hp: TrainHParams):
     return new_params, h_new, vhat_new, dsq
 
 
-def _value_and_grad(loss_fn, params, wbatch):
+def _value_and_grad(loss_fn, params, wbatch, tp=None):
     """(loss, gradient tree) of ``loss_fn(params, wbatch)``; gradients in
-    each leaf's dtype, as ``jax.grad`` gives them."""
+    each leaf's dtype, as ``jax.grad`` gives them. Under ``tp`` the params
+    are the rank's shards; an FSDP leaf's gradient comes back whole on its
+    FSDP dim (``TPContext.grad_leaves``)."""
     paths, leaves = tree_paths(params), tree_leaves(params)
-    req = [p.detach().requires_grad_() for p in leaves]
+    if tp is None:
+        req = model = [p.detach().requires_grad_() for p in leaves]
+    else:
+        req, model = tp.grad_leaves(paths, leaves)
     with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(paths, req), wbatch)
+        loss = loss_fn(tree_unflatten(paths, model), wbatch)
         grads = torch.autograd.grad(loss, req, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+             for p, g in zip(req, grads)]
     return loss.detach(), tree_unflatten(paths, grads)
 
 
-def make_worker_grad(cfg: ModelConfig, hp: TrainHParams):
+def make_worker_grad(cfg: ModelConfig, hp: TrainHParams, tp=None):
     """One worker's mean LM gradient, with the reference's microbatch
     accumulation: the largest count <= ``hp.microbatches`` that divides the
     worker's batch; with more than one, the losses and gradients are summed
-    in fp32 and divided by the count."""
+    in fp32 and divided by the count. ``tp`` (a ``sharding.TPContext``):
+    the params are the rank's shards (:func:`jit_train_step`)."""
     def loss_fn(params, wbatch):
-        return lm_loss(cfg, params, wbatch, train=True)[0]
+        return lm_loss(cfg, params, wbatch, train=True, tp=tp)[0]
 
     def worker_grad(params, wbatch):
         bm = wbatch["tokens" if "tokens" in wbatch else "labels"].shape[0]
@@ -267,14 +281,14 @@ def make_worker_grad(cfg: ModelConfig, hp: TrainHParams):
         while bm % nm:
             nm -= 1
         if nm == 1:
-            return _value_and_grad(loss_fn, params, wbatch)
+            return _value_and_grad(loss_fn, params, wbatch, tp)
         size = bm // nm
         loss_s = g_s = None
         for j in range(nm):
             micro = {k: (v[:, j * size:(j + 1) * size] if k == "positions"
                          else v[j * size:(j + 1) * size])
                      for k, v in wbatch.items()}
-            loss, g = _value_and_grad(loss_fn, params, micro)
+            loss, g = _value_and_grad(loss_fn, params, micro, tp)
             if g_s is None:   # the reference adds onto fp32 zeros: exact
                 loss_s, g_s = loss, tree_map(lambda x: x.float(), g)
             else:
@@ -288,14 +302,14 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
-def make_vgrads(cfg: ModelConfig, hp: TrainHParams):
+def make_vgrads(cfg: ModelConfig, hp: TrainHParams, tp=None):
     """``(vgrad, vgrad_per)``: the workers' (losses (M,), M-stacked
     gradient trees), each worker on its own slice of the batch, at one
     shared parameter tree (``vgrad``) or at its own row of an M-leading one
     (``vgrad_per``). A loop over the batch's leading (worker) axis, one
     worker at a time: M workers on the dense plane, C on the cohort
-    plane."""
-    worker_grad = make_worker_grad(cfg, hp)
+    plane, the rank's own on the mesh (``tp``: its shards)."""
+    worker_grad = make_worker_grad(cfg, hp, tp)
 
     def run(point, batch):
         losses, grads = [], []
@@ -326,14 +340,6 @@ def _always_metrics(losses, m: int, dsq) -> dict:
             "dtheta_sq": dsq}
 
 
-def _refuse_fsdp(cfg: ModelConfig, hp: TrainHParams, mesh=None) -> None:
-    if hp.fsdp or (hp.fsdp is None and mesh is not None
-                   and wants_fsdp(cfg, mesh)):
-        raise NotImplementedError(
-            f"TrainHParams.fsdp={hp.fsdp!r} (resolved on for {cfg.name}): "
-            f"parameter FSDP {_NEXT}")
-
-
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
                     impl=None, shards: int = 1):
     """``step(state, batch) -> (state, metrics)``: one round of Algorithm 1
@@ -342,8 +348,9 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
     (:func:`worker_split`). ``impl`` is the dispatch override of
     ``kernels/ops.py`` (None on the main path). The state is not updated in
     place. With ``hp.fused`` False the step runs the pytree plane.
-    ``shards`` is the state's pad divisor (:func:`init_train_state`)."""
-    _refuse_fsdp(cfg, hp)
+    ``shards`` is the state's pad divisor (:func:`init_train_state`).
+    One process holds whole parameters: the FSDP knobs shape only the
+    mesh runtime."""
     strategy = strategy_for(hp.rule)
     vgrad, vgrad_per = make_vgrads(cfg, hp)
     if not hp.fused:
@@ -577,7 +584,9 @@ def flat_sharding(cfg: ModelConfig, mesh, hp: TrainHParams) -> FlatSharding:
     one object the layout's pad divisor (``.shards``), the plane specs and
     the shard-local kernels all read."""
     return FlatSharding(mesh=mesh, waxis=worker_axis_name(mesh),
-                        axes=flat_state_axes(cfg, mesh, hp))
+                        axes=flat_state_axes(cfg, mesh, hp),
+                        pspecs=param_pspecs(cfg, mesh, hp.fsdp,
+                                            hp.fsdp_axes))
 
 
 def flat_state_shards(cfg: ModelConfig, mesh, hp: TrainHParams) -> int:
@@ -674,18 +683,32 @@ def _worker_planes(strategy) -> tuple:
     return ("worker_grads",) + tuple(strategy.pooled_extras())
 
 
+def _param_extras_specs(fs: FlatSharding, hp: TrainHParams) -> dict:
+    """The specs of the comm state's parameter-shaped extras (cada1's
+    snapshot, cada2's ring), by the parameter specs."""
+    psp = fs.pspecs
+    specs = strategy_for(hp.rule).flat_extras_specs(
+        psp, _prepend_worker(psp, fs.waxis), fs.waxis, P,
+        col_axes=fs.col_axes)
+    return {k: v for k, v in specs.items() if isinstance(v, dict)}
+
+
 def shard_train_state(state: DistTrainState, fs: FlatSharding,
                       hp: TrainHParams) -> DistTrainState:
     """A whole flat state (every rank holds the same one, made by
     :func:`init_train_state` at ``shards=fs.shards``) -> this rank's: its
     server slice of h, v̂ and ∇, its worker row of the (M, n_flat) planes
-    cut to its columns; parameters and (M,) vectors stay whole."""
+    cut to its columns, its blocks of the parameters and of their copies
+    (the ring, the snapshot) by ``fs.pspecs``; (M,) vectors stay whole."""
     layout = F.layout_of(state.params, shards=fs.shards)
     cut = {"h": fs.cut_server(state.h, layout),
            "vhat": fs.cut_server(state.vhat, layout)}
+    cut["params"] = cut_tree(state.params, fs.pspecs, fs.mesh)
     if state.comm is not None:
         planes = _worker_planes(strategy_for(hp.rule))
-        extras = {k: fs.cut_rows(v, layout) if k in planes else v
+        trees = _param_extras_specs(fs, hp)
+        extras = {k: fs.cut_rows(v, layout) if k in planes
+                  else cut_tree(v, trees[k], fs.mesh) if k in trees else v
                   for k, v in state.comm.extras.items()}
         cut["comm"] = state.comm._replace(
             nabla=fs.cut_server(state.comm.nabla, layout),
@@ -700,9 +723,12 @@ def unshard_train_state(state: DistTrainState, fs: FlatSharding,
     :func:`shard_train_state`'s cuts)."""
     whole = {"h": fs.gather_server(state.h),
              "vhat": fs.gather_server(state.vhat)}
+    whole["params"] = uncut_tree(state.params, fs.pspecs, fs.mesh)
     if state.comm is not None:
         planes = _worker_planes(strategy_for(hp.rule))
-        extras = {k: fs.gather_rows(v) if k in planes else v
+        trees = _param_extras_specs(fs, hp)
+        extras = {k: fs.gather_rows(v) if k in planes
+                  else uncut_tree(v, trees[k], fs.mesh) if k in trees else v
                   for k, v in state.comm.extras.items()}
         whole["comm"] = state.comm._replace(
             nabla=fs.gather_server(state.comm.nabla),
@@ -711,13 +737,32 @@ def unshard_train_state(state: DistTrainState, fs: FlatSharding,
     return state._replace(**whole)
 
 
+def train_context(cfg: ModelConfig, fs: FlatSharding):
+    """The ``sharding.TPContext`` a rank's forward and backward run under
+    (the model axis, the FSDP leaves of ``fs.pspecs``), or None where the
+    parameters are whole on every rank."""
+    tp = TPContext(cfg, fs.mesh, pspecs=fs.pspecs)
+    return tp if tp.size > 1 or tp.fsdp else None
+
+
 def _mesh_vgrads(cfg: ModelConfig, hp: TrainHParams, fs: FlatSharding,
-                 layout: F.FlatLayout):
-    """The rank's worker's gradients. On the multi-pod mesh the worker is
-    a pod: each of its "data" ranks takes its slice of the pod's batch,
-    and the pod's gradient and loss are their mean (one all-reduce of the
-    packed fp32 gradient over "data")."""
-    vgrad, vgrad_per = make_vgrads(cfg, hp)
+                 layout: F.FlatLayout, tp=None):
+    """The rank's worker's gradients, as whole leaves. Under ``tp`` they
+    are computed on the rank's shards (an FSDP leaf's whole on its FSDP
+    dim already) and gathered over the model axis. On the multi-pod mesh
+    the worker is a pod: each of its "data" ranks takes its slice of the
+    pod's batch, and the pod's gradient and loss are their mean (one
+    all-reduce of the packed fp32 gradient over "data")."""
+    vgrad, vgrad_per = make_vgrads(cfg, hp, tp)
+    msp = model_specs(fs.pspecs)
+
+    def whole(f):
+        def call(p, b):
+            losses, grads = f(p, b)
+            return losses, uncut_tree(grads, msp, fs.mesh, lead=1)
+        return call
+
+    vgrad, vgrad_per = whole(vgrad), whole(vgrad_per)
     d = fs.mesh.size((DATA,)) if fs.waxis == POD else 1
     if d == 1:
         return vgrad, vgrad_per
@@ -753,6 +798,20 @@ def _local_batch(batch: dict, fs: FlatSharding, lead: int) -> dict:
     return out
 
 
+def _owning(params: dict, plane: torch.Tensor) -> dict:
+    """``params`` with every leaf that is still a view of the whole θ
+    ``plane`` (a leaf no axis cuts) copied, so that the plane is freed
+    with the step instead of living on in the state: unless every leaf is
+    such a view, when the plane is the parameters themselves."""
+    leaves = tree_leaves(params)
+    ptr = plane.untyped_storage().data_ptr()
+    views = [x.untyped_storage().data_ptr() == ptr for x in leaves]
+    if all(views):
+        return params
+    return tree_unflatten(tree_paths(params), [
+        x.clone() if v else x for x, v in zip(leaves, views)])
+
+
 def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
     """The mesh runtime's step builder: the counterpart of the reference's
     ``jit_train_step``, whose name it keeps so that a reader finds it
@@ -764,59 +823,74 @@ def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
     Every rank of ``mesh`` (a ``launch.mesh.Mesh`` over the process group)
     calls this and then ``step`` in lockstep. ``state`` is the rank's:
     :func:`shard_train_state` of :func:`init_train_state` at
-    ``shards=flat_state_shards(cfg, mesh, hp)``. ``batch`` is the whole
+    ``shards=flat_state_shards(cfg, mesh, hp)``, its parameters cut by
+    ``param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)`` (the model axis,
+    and the FSDP axes where FSDP is on). ``batch`` is the whole
     worker-split batch (:func:`worker_split`, the same on every rank); the
     step reads its rank's part. Metrics are whole (M,) vectors on every
     rank. ``impl`` is the dispatch override of ``kernels/ops.py``."""
-    _refuse_fsdp(cfg, hp, mesh)
-    if mesh_axis_size(mesh, MODEL) > 1:
-        raise NotImplementedError(
-            f"a model axis of {mesh.shape[MODEL]}: tensor parallelism "
-            f"{_NEXT}")
     if not hp.fused:
         raise NotImplementedError(
             f"the pytree plane (fused=False) on the mesh runtime {_NEXT}")
     fs = flat_sharding(cfg, mesh, hp)
     fs.groups()
+    tp = train_context(cfg, fs)
     m = mesh.shape[fs.waxis]
     specs = train_state_specs(cfg, mesh, hp)
     layout = flat_layout(cfg, fs.shards)
     strategy = strategy_for(hp.rule)
     lead = int(strategy.delta_payload
                and F.batch_has_local_axis(hp.rule, None))
-    vgrad, vgrad_per = _mesh_vgrads(cfg, hp, fs, layout)
+    vgrad, vgrad_per = _mesh_vgrads(cfg, hp, fs, layout, tp)
+    if strategy.delta_payload:
+        # the local steps run at whole per-worker parameters (unpacked
+        # from the flat plane): the rank takes its shards of them
+        shard_per = vgrad_per
+        vgrad_per = lambda wp, b: shard_per(       # noqa: E731
+            cut_tree(wp, fs.pspecs, mesh, lead=1), b)
 
-    def server_step(pflat, h, vhat, grad):
-        """The AMSGrad kernel on the rank's server slice, Σupd² summed over
-        the state axes, then θ' gathered whole and rounded through each
-        leaf's dtype."""
+    def packed(params):
+        """θ as the whole (n_flat,) fp32 plane, from the rank's shards."""
+        return layout.pack(uncut_tree(params, fs.pspecs, mesh))
+
+    def server_step(pserver, h, vhat, grad):
+        """The AMSGrad kernel on the rank's server slice of θ, Σupd²
+        summed over the state axes, then θ' gathered whole, rounded
+        through each leaf's dtype and cut to the rank's shards."""
         theta, h2, vh2, dsq = kops.fused_amsgrad_flat(
-            fs.cut_server(pflat, layout), h, vhat, grad, hp.lr, b1=hp.b1,
+            pserver, h, vhat, grad, hp.lr, b1=hp.b1,
             b2=hp.b2, eps=hp.eps, impl=impl, shard=fs)
-        theta = layout.cast_roundtrip(fs.gather_server(theta))
-        return layout.unpack(theta), h2, vh2, dsq
+        plane = layout.cast_roundtrip(fs.gather_server(theta))
+        params = cut_tree(layout.unpack(plane), fs.pspecs, mesh)
+        return _owning(params, plane), h2, vh2, dsq
 
     def step_always(state: DistTrainState, batch):
         wb = _local_batch(batch, fs, lead)
         losses, fresh = vgrad(state.params, wb)
-        pflat = layout.pack(state.params)
         grad = fs.cols_to_server(kops.eq3_row_mean(
             fs.cut_cols(layout.pack_worker(fresh), layout), m, shard=fs),
             layout)
-        params, h, vhat, dsq = server_step(pflat, state.h, state.vhat, grad)
+        params, h, vhat, dsq = server_step(
+            fs.cut_server(packed(state.params), layout), state.h,
+            state.vhat, grad)
         return state._replace(step=state.step + 1, params=params, h=h,
                               vhat=vhat), _always_metrics(
             fs.rows_sum(losses, (fs.waxis,)), m, dsq)
 
     def step_flat(state: DistTrainState, batch):
         k = state.step
-        pflat = layout.pack(state.params)
+        pflat = packed(state.params)
+        pserver = fs.cut_server(pflat, layout)
+        if not strategy.delta_payload:
+            # only a delta rule's local steps read θ's whole flat plane:
+            # the others keep the server slice alone through the round
+            pflat = None
         out = F.flat_comm_round(
             strategy, layout, state.comm, state.params, pflat,
             _local_batch(batch, fs, lead), k, vgrad=vgrad,
             vgrad_per=vgrad_per, fuse_evals=False,
             group_evals=hp.group_evals, impl=impl, shard=fs)
-        params, h, vhat, dsq = server_step(pflat, state.h, state.vhat,
+        params, h, vhat, dsq = server_step(pserver, state.h, state.vhat,
                                            F.nabla_f32(out.comm))
         new_state = DistTrainState(step=k + 1, params=params, h=h,
                                    vhat=vhat,

@@ -14,8 +14,9 @@ never rule behaviour. For ``topk`` the kept fraction scales down with
 model size (the absolute kept count is what the wire pays for).
 
 The returned :class:`TrainHParams` may ask for parameter FSDP
-(``fsdp=True`` for the 7B+ archs), which the mesh runtime refuses by name
-until the next slice ports it; the table itself is the reference's.
+(``fsdp=True`` for the 7B+ archs), which the mesh runtime
+(``trainer.jit_train_step``) runs: the per-layer gathers of the FSDP dims
+inside the remat region. The table itself is the reference's.
 """
 from __future__ import annotations
 

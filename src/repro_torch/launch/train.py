@@ -16,7 +16,9 @@ processes (``torchrun``, or the reference's ``REPRO_COORDINATOR``,
 ``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID`` in each process's
 environment; ``launch/multihost.py``) it runs the mesh runtime
 (``trainer.jit_train_step``): a (data=world, model=1) mesh whose ranks are
-the M workers, the flat state ZeRO-sharded over ``--state-fsdp-axes``;
+the M workers, the flat state ZeRO-sharded over ``--state-fsdp-axes``, the
+parameters cut by FSDP where ``sharding.wants_fsdp`` turns it on (the
+reference's resolution of ``fsdp=None``; rank 0 saves them gathered);
 ``--backend`` picks the process group's (default: nccl on the card, gloo
 on the CPU; gloo where ranks share one card). Rank 0 alone prints the
 log and writes ``history.json``, the trace, the metrics and the
@@ -60,6 +62,7 @@ from repro_torch.core.comm import STRATEGIES, strategy_for, strategy_kinds
 from repro_torch.core.rules import CommRule
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import uncut_tree
 from repro_torch.distributed.trainer import (TrainHParams, flat_sharding,
                                              init_train_state,
                                              jit_train_step,
@@ -377,6 +380,13 @@ def main(argv=None) -> list[dict]:
         state = init_train_state(cfg, hp, m, 0, device)
     lead = is_coordinator()
 
+    def whole_params(state):
+        """The whole parameters (every rank gathers the mesh's shards: a
+        collective), which rank 0 saves."""
+        if not ranked:
+            return state.params
+        return uncut_tree(state.params, fs.pspecs, mesh)
+
     # telemetry: a train_step span per step on the wall clock, and a comm
     # ledger fed from the steps' metrics, fetched every --metrics-every
     # steps
@@ -416,13 +426,17 @@ def main(argv=None) -> list[dict]:
                       f"uploads={int(row['uploads'])}/{m} "
                       f"skip={row['skip_rate']:.2f} "
                       f"({row['wall_s']}s)", flush=True)
-        if lead and args.ckpt_every and args.ckpt_dir and i and \
+        if args.ckpt_every and args.ckpt_dir and i and \
                 i % args.ckpt_every == 0:
-            ckpt.save(os.path.join(args.ckpt_dir, f"step_{i}"),
-                      state.params, step=i)
+            params = whole_params(state)
+            if lead:
+                ckpt.save(os.path.join(args.ckpt_dir, f"step_{i}"),
+                          params, step=i)
+    if args.ckpt_dir:
+        params = whole_params(state)
     if lead and args.ckpt_dir:
         ckpt.save(os.path.join(args.ckpt_dir, f"step_{args.steps}"),
-                  state.params, step=args.steps)
+                  params, step=args.steps)
         with open(os.path.join(args.ckpt_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=1)
     final = np.mean([h["loss"] for h in history[-3:]])

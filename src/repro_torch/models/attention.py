@@ -85,13 +85,22 @@ def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
 
 # ------------------------------------------------------------- projections
 
-def qkv(params, cfg: ModelConfig, x):
+def qkv(params, cfg: ModelConfig, x, tp=None):
     """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd); the head counts are
-    the weights' (a rank's heads where they are sharded)."""
+    the weights' (a rank's heads where they are sharded). Where ``wq`` is
+    a block of the heads, x enters the column-parallel block under ``tp``
+    (its gradient summed over the model axis), and so do ``wk``/``wv``
+    where they stay whole (:func:`local_kv` then takes the rank's KV heads
+    of the whole K/V)."""
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, -1, cfg.hd)
-    k = (x @ params["wk"]).reshape(b, s, -1, cfg.hd)
-    v = (x @ params["wv"]).reshape(b, s, -1, cfg.hd)
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    if tp is not None and wq.shape[-1] != cfg.n_heads * cfg.hd:
+        x = tp.enter(x)
+        if wk.shape[-1] == cfg.n_kv_heads * cfg.hd:
+            wk, wv = tp.enter(wk), tp.enter(wv)
+    q = (x @ wq).reshape(b, s, -1, cfg.hd)
+    k = (x @ wk).reshape(b, s, -1, cfg.hd)
+    v = (x @ wv).reshape(b, s, -1, cfg.hd)
     return q, k, v
 
 

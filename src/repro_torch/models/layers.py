@@ -14,12 +14,13 @@ def rmsnorm(x, w, eps: float = 1e-5, tp=None):
     """fp32 statistics, the normalised value rounded to x's dtype before
     the weight multiplies it. With ``tp`` (a ``TPContext``) x's last dim is
     this rank's block of a dim sharded over the model axis: Σx² is
-    all-reduced in fp32 and divided by the whole dim."""
+    all-reduced in fp32 (its gradient too: the rank's block consumes it)
+    and divided by the whole dim."""
     xf = x.float()
     if tp is None:
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
-        var = tp.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) \
+        var = tp.shard_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) \
             / (x.shape[-1] * tp.size)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
@@ -35,17 +36,19 @@ _GATE_ACT = {"swiglu": F.silu, "geglu": _gelu}
 def ffn(params, cfg: ModelConfig, x, tp=None):
     """Dense FFN: gated (swiglu/geglu: w_gate, w_up, w_down) or plain
     gelu. Where the rank holds a block of d_ff (w_gate/w_up column-,
-    w_down row-parallel), its partial output is all-reduced over ``tp``'s
-    model axis; a replicated FFN runs whole."""
+    w_down row-parallel), x enters the block (its gradient summed over
+    ``tp``'s model axis) and the partial output is all-reduced; a
+    replicated FFN runs whole."""
+    split = tp is not None and params["w_down"].shape[-2] != cfg.d_ff
+    if split:
+        x = tp.enter(x)
     act = _GATE_ACT.get(cfg.mlp_act)
     if act is not None:
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = _gelu(x @ params["w_up"])
     y = h @ params["w_down"]
-    if tp is not None and params["w_down"].shape[-2] != cfg.d_ff:
-        y = tp.all_reduce(y)
-    return y
+    return tp.all_reduce(y) if split else y
 
 
 def ffn_stacked(params, cfg: ModelConfig, x):

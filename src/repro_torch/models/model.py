@@ -36,6 +36,18 @@ row-parallel product (``wo``, ``w_down``, the MoE layer, Mamba's
 norm over a sharded d_inner, the vocab-parallel lookup's all-reduce and
 the logits' all-gather; a replicated tensor takes none.
 
+Tensor parallelism and parameter FSDP (training): ``hidden_states``,
+``forward`` and ``lm_loss`` take ``tp`` on the training route too
+(``distributed/trainer.py``'s mesh runtime). Every collective has its
+backward (``TPContext``): the input of each column-parallel block enters
+it (its gradient summed over the model axis), a sum consumed inside the
+rank's shard sums its gradient too, and a leaf that stays whole but is
+used inside the shard enters as well. The loss of vocab-parallel logits
+is taken without gathering them (``TPContext.vocab_nll``). A leaf
+sharded over FSDP axes comes as a ``sharding.FSDPLeaf`` and is gathered
+where it is used: per layer inside the remat region, so the recompute
+gathers it again and the gathered leaf is not kept.
+
 Every block of the reference is ported: dense, MoE (``models/moe.py``;
 the Switch auxiliary loss of each layer is summed into the aux term),
 pure-SSM (mamba1, mamba2) and hybrid (mamba2 + one shared attention
@@ -214,7 +226,7 @@ def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
     roped K and V (the decode cache's entries: the rank's KV heads, or all
     of them where ``wk``/``wv`` are replicated) and the MLP's aux loss."""
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv(params["attn"], cfg, h)
+    q, k, v = attn.qkv(params["attn"], cfg, h, tp)
     q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
     k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
     kq, vq = attn.local_kv(k, v, cfg, q.shape[-2], tp)
@@ -251,7 +263,7 @@ def _embed(cfg: ModelConfig, params, tokens, embeds, tp=None):
     one non-zero term."""
     if embeds is not None:
         return embeds.to(cfg.torch_dtype)
-    table = params["embed"]
+    table = _gathered(tp, params["embed"])
     if tp is None or table.shape[0] == cfg.vocab:
         return table[tokens]
     ids = tokens - tp.index * table.shape[0]
@@ -326,20 +338,28 @@ def _remat(cfg: ModelConfig, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _train_layers(cfg: ModelConfig, params, x, positions=None):
+def _gathered(tp, tree):
+    """A parameter (sub)tree with its FSDP leaves gathered (``tp``'s
+    ``gather``); as it is without ``tp``."""
+    return tree if tp is None else tp.gather(tree)
+
+
+def _train_layers(cfg: ModelConfig, params, x, positions=None, tp=None):
     """Every layer on the training route, in the reference's order, with
     ``cfg.remat`` wrapping what the reference wraps in ``jax.checkpoint``:
     each dense or MoE block, each pure-SSM layer, and each SSM layer inside
     a hybrid stage (not the shared attention block). Returns x and the aux
-    loss summed over the layers."""
+    loss summed over the layers. Under ``tp`` a layer's FSDP leaves are
+    gathered inside its checkpointed body."""
     cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
                             x.device)
     blocks = params["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block in ("dense", "moe"):
         def block(h, i):
-            h, _, _, a = _attn_mlp_block(layer(blocks, i), cfg, h, cos, sin,
-                                         train=True)
+            h, _, _, a = _attn_mlp_block(_gathered(tp, layer(blocks, i)),
+                                         cfg, h, cos, sin, train=True,
+                                         tp=tp)
             return h, a
         body = _remat(cfg, block)
         for i in range(cfg.n_layers):
@@ -348,29 +368,30 @@ def _train_layers(cfg: ModelConfig, params, x, positions=None):
         return x, aux
     ssm_block = (ssm.mamba2_block if cfg.block == "mamba2"
                  else ssm.mamba1_block)
-    body = _remat(cfg, lambda h, i: ssm_block(layer(blocks, i), cfg, h,
-                                              train=True))
+    body = _remat(cfg, lambda h, i: ssm_block(
+        _gathered(tp, layer(blocks, i)), cfg, h, train=True, tp=tp))
     for i in range(cfg.n_layers):
         x = body(x, i)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
-            x, _, _, a = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
-                                         train=True)
+            x, _, _, a = _attn_mlp_block(_gathered(tp, params["shared"]),
+                                         cfg, x, cos, sin, train=True, tp=tp)
             aux = aux + a
     return x, aux
 
 
 def hidden_states(cfg: ModelConfig, params, tokens=None, impl=None,
-                  train=False, *, embeds=None, positions=None):
+                  train=False, *, embeds=None, positions=None, tp=None):
     """tokens (B, S) or ``embeds`` (B, S, d) -> final hidden states
     (B, S, d) and the aux loss (the MoE layers' summed). ``train`` takes
     the training route (module docstring); ``impl`` applies to the serving
-    route's kernels; ``positions`` shape the rotary tables."""
-    x = _embed(cfg, params, tokens, embeds)
+    route's kernels; ``positions`` shape the rotary tables; ``tp``: the
+    rank's shards (``TPContext``)."""
+    x = _embed(cfg, params, tokens, embeds, tp)
     if train:
-        x, aux = _train_layers(cfg, params, x, positions)
+        x, aux = _train_layers(cfg, params, x, positions, tp)
     else:
         x, _, _, aux = _run_layers(cfg, params, x, impl, cached=False,
-                                   positions=positions)
+                                   positions=positions, tp=tp)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -378,38 +399,53 @@ def logits_fn(cfg: ModelConfig, params, hidden, tp=None):
     """hidden @ the output head (``embed.T`` where tied); where the rank
     holds a block of the vocab, the logits of the ranks' blocks are
     all-gathered over the model axis."""
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"])
+    head = _head(cfg, params, tp)
     logits = hidden @ head
     if tp is not None and logits.shape[-1] != cfg.vocab:
         logits = tp.all_gather(logits, dim=-1)
     return logits
 
 
+def _head(cfg: ModelConfig, params, tp=None):
+    """The output head (d, V), or the rank's block (d, V/m) of it."""
+    if cfg.tie_embeddings:
+        return _gathered(tp, params["embed"]).T
+    return _gathered(tp, params["lm_head"])
+
+
 def forward(cfg: ModelConfig, params, tokens=None, impl=None, train=False,
-            *, embeds=None, positions=None):
+            *, embeds=None, positions=None, tp=None):
     hidden, aux = hidden_states(cfg, params, tokens, impl, train,
-                                embeds=embeds, positions=positions)
-    return logits_fn(cfg, params, hidden), aux
+                                embeds=embeds, positions=positions, tp=tp)
+    return logits_fn(cfg, params, hidden, tp), aux
 
 
-def lm_loss(cfg: ModelConfig, params, batch, impl=None, train=False):
+def lm_loss(cfg: ModelConfig, params, batch, impl=None, train=False,
+            tp=None):
     """batch {"tokens": (B, S+1)} or {"embeds": (B, S, d), "labels":
     (B, S)}, each with optional "positions" -> (scalar loss, metrics): the
     mean next-token NLL in fp32 plus the aux loss. With ``train`` the
     forward takes the training route, whose every op has a gradient under
-    autograd (the serving route's kernels have none)."""
+    autograd (the serving route's kernels have none). With ``tp`` (the
+    rank's shards) logits of a vocab block stay the rank's: the hidden
+    states enter the vocab-parallel head and ``tp.vocab_nll`` completes
+    the NLL without gathering them."""
     positions = batch.get("positions")
     if "tokens" in batch:
         inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-        logits, aux = forward(cfg, params, inputs, impl, train,
-                              positions=positions)
+        hidden, aux = hidden_states(cfg, params, inputs, impl, train,
+                                    positions=positions, tp=tp)
     else:
-        logits, aux = forward(cfg, params, None, impl, train,
-                              embeds=batch["embeds"], positions=positions)
+        hidden, aux = hidden_states(cfg, params, None, impl, train,
+                                    embeds=batch["embeds"],
+                                    positions=positions, tp=tp)
         labels = batch["labels"]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    head = _head(cfg, params, tp)
+    if tp is not None and head.shape[-1] != cfg.vocab:
+        nll = tp.vocab_nll(tp.enter(hidden) @ head, labels)
+    else:
+        logp = torch.log_softmax((hidden @ head).float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss = torch.mean(nll)
     return loss + aux, {"nll": loss, "aux": aux}
 

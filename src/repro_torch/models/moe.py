@@ -62,19 +62,25 @@ def moe_ffn(params, cfg: ModelConfig, x, tp=None):
     y. Global dispatch over a batch cut over the data axes routes the
     whole batch, gathered (the reference's capacity is over all B·S
     tokens), and keeps the rank's rows.
+
+    Under autograd the rank's work holds a part of two gradients, which
+    enter the split layer (summed over the model axis): the tokens'
+    through the expert products, and the router probabilities' through
+    the gates of the rank's experts. The aux loss, which every rank
+    computes whole, takes the probabilities as they are.
     """
     split = tp is not None and (params["w_up"].shape[-3] != cfg.n_experts
                                 or params["w_down"].shape[-2] != cfg.d_ff)
     if cfg.moe_local_dispatch:
-        rows = [_dispatch(params, cfg, x[i:i + 1], tp)
+        rows = [_dispatch(params, cfg, x[i:i + 1], tp, split)
                 for i in range(x.shape[0])]
         y, aux = (torch.cat([y for y, _ in rows]),
                   torch.stack([a for _, a in rows]).mean())
     elif tp is not None and tp.batch_group is not None:
-        y, aux = _dispatch(params, cfg, tp.gather_batch(x), tp)
+        y, aux = _dispatch(params, cfg, tp.gather_batch(x), tp, split)
         y = tp.batch_rows(y)
     else:
-        y, aux = _dispatch(params, cfg, x, tp)
+        y, aux = _dispatch(params, cfg, x, tp, split)
     return (tp.all_reduce(y) if split else y), aux
 
 
@@ -87,35 +93,41 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(params, cfg: ModelConfig, xf):
+def _route(params, cfg: ModelConfig, xf, enter=None):
     """Routing of the (N, d) tokens: (probs (N, E), gate_idx (N, k), the
     (N, E) combine weights, and each expert's top-C gates and tokens
-    (E, C))."""
+    (E, C)). ``enter`` (a split layer's ``tp.enter``) takes the
+    probabilities the gates are made of."""
     with _fp32_matmul(xf.device):
         logits = xf.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)                       # (N, E)
-    gate_vals, gate_idx = _top_k(probs, cfg.top_k)              # (N, k)
+    gated = probs if enter is None else enter(probs)
+    gate_vals, gate_idx = _top_k(gated, cfg.top_k)              # (N, k)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
     # (N, E) combine weights: the renormalised gate if selected, else 0
-    combine = torch.zeros_like(probs).scatter(1, gate_idx, gate_vals)
+    combine = torch.zeros_like(gated).scatter(1, gate_idx, gate_vals)
     # capacity dispatch: each expert picks its top-C tokens by gate weight
     top_gate, top_tok = _top_k(combine.T, _capacity(xf.shape[0], cfg))
     return probs, gate_idx, combine, top_gate, top_tok
 
 
-def _dispatch(params, cfg: ModelConfig, x, tp=None):
+def _dispatch(params, cfg: ModelConfig, x, tp=None, split=False):
     """The layer over one routing group: (this rank's y, aux); its own
-    experts only where they are a block of E (``tp``, expert-parallel)."""
+    experts only where they are a block of E (``tp``, expert-parallel).
+    ``split``: the rank holds a part of the layer (the docstring of
+    :func:`moe_ffn`)."""
     b, s, d = x.shape
     n, e = b * s, cfg.n_experts
     xf = x.reshape(n, d)
-    probs, gate_idx, _, top_gate, top_tok = _route(params, cfg, xf)
+    probs, gate_idx, _, top_gate, top_tok = _route(
+        params, cfg, xf, tp.enter if split else None)
     n_own = params["w_up"].shape[-3]
     lo = 0 if n_own == e else tp.index * n_own
     top_gate, top_tok = top_gate[lo:lo + n_own], top_tok[lo:lo + n_own]
 
-    xe = torch.stack([xf.index_select(0, top_tok[j]) for j in range(n_own)])
+    xs = tp.enter(xf) if split else xf
+    xe = torch.stack([xs.index_select(0, top_tok[j]) for j in range(n_own)])
     ye = ffn_stacked(params, cfg, xe)                           # (E, C, d)
     ye = (ye * top_gate[..., None].to(ye.dtype)).to(xf.dtype)
 

@@ -94,13 +94,14 @@ def _mamba1_xproj(params, cfg: ModelConfig, xc, tp=None):
     """Post-conv activations -> (dt_raw (.., r), B (.., N), C (.., N)).
     Where the rank holds a block of d_inner, ``xp_*`` are row-parallel:
     the three partial products are all-reduced as one (.., r + 2N)
-    tensor over ``tp``'s model axis."""
+    tensor over ``tp``'s model axis, and so is their gradient (the rank's
+    d_inner block consumes the sums)."""
     dt_raw = xc @ params["xp_dt"]                              # (B,S,r)
     b_ssm = xc @ params["xp_b"]                                # (B,S,N)
     c_ssm = xc @ params["xp_c"]                                # (B,S,N)
     if tp is not None and params["xp_dt"].shape[-2] != cfg.d_inner:
         r, n = dt_raw.shape[-1], b_ssm.shape[-1]
-        dt_raw, b_ssm, c_ssm = tp.all_reduce(torch.cat(
+        dt_raw, b_ssm, c_ssm = tp.shard_sum(torch.cat(
             [dt_raw, b_ssm, c_ssm], dim=-1)).split([r, n, n], dim=-1)
     return dt_raw, b_ssm, c_ssm
 
@@ -136,13 +137,18 @@ def mamba1_inner(params, cfg: ModelConfig, xc, z, h0=None,
     return (out, h_final) if return_state else (out, None)
 
 
-def mamba1_block(params, cfg: ModelConfig, x, impl=None, train=False):
-    """Full block: norm -> in_proj -> conv -> selective scan -> out_proj."""
+def mamba1_block(params, cfg: ModelConfig, x, impl=None, train=False,
+                 tp=None):
+    """Full block: norm -> in_proj -> conv -> selective scan -> out_proj.
+    Under ``tp`` with d_inner sharded, the normed x enters the
+    column-parallel ``in_x``/``in_z``."""
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
+    if tp is not None and params["in_x"].shape[-1] != cfg.d_inner:
+        xn = tp.enter(xn)
     xi = xn @ params["in_x"]                                   # (B,S,di)
     z = xn @ params["in_z"]
     xc = F.silu(causal_conv1d(xi, params["conv_w"], params["conv_b"]))
-    out, _ = mamba1_inner(params, cfg, xc, z, impl=impl, train=train)
+    out, _ = mamba1_inner(params, cfg, xc, z, impl=impl, train=train, tp=tp)
     return x + out
 
 
@@ -222,12 +228,21 @@ def mamba2_inner(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
     return out, None
 
 
-def mamba2_block(params, cfg: ModelConfig, x, impl=None, train=False):
+def mamba2_block(params, cfg: ModelConfig, x, impl=None, train=False,
+                 tp=None):
+    """Full block. Under ``tp`` with d_inner and the heads sharded, the
+    normed x enters the column-parallel projections, and the whole
+    ``in_b``/``in_c``/``in_dt``, whose outputs only the rank's heads
+    consume, enter too (their gradients summed over the model axis)."""
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
+    if tp is not None and params["in_x"].shape[-1] != cfg.d_inner:
+        xn = tp.enter(xn)
+        params = {**params, **{k: tp.enter(params[k])
+                               for k in ("in_b", "in_c", "in_dt")}}
     z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn)
     xc = F.silu(causal_conv1d(xi, params["conv_w"], params["conv_b"]))
     out, _ = mamba2_inner(params, cfg, xc, z, b_ssm, c_ssm, dt_raw,
-                          impl=impl, train=train)
+                          impl=impl, train=train, tp=tp)
     return x + out
 
 

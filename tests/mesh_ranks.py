@@ -1,8 +1,11 @@
 """Rank programs of the mesh runtime's CPU tests
 (``tests/test_torch_mesh_trainer.py``,
-``tests/test_torch_serving_sharding.py``), spawned by
+``tests/test_torch_serving_sharding.py``, the tensor-parallel trainer's), spawned by
 ``torch.multiprocessing.spawn``; this module imports no JAX, so a rank
 loads only the port.
+
+``tests/test_torch_tp_grads.py`` and ``tests/test_torch_tp_trainer.py``
+run the model axis and parameter FSDP in training here too.
 
 A test writes a job file (``torch.save``) into its ``tmp_path`` and spawns
 ``world`` ranks of one program here; the ranks meet at a ``file://``
@@ -84,22 +87,36 @@ def run_steps(rank: int, world: int, workdir: str) -> None:
                "batched_diff_sq": cada_update.batched_diff_sq_norm_flat,
                "batched_sq": cada_update.batched_sq_norm_flat,
                "eq3_row_mean": cada_update.eq3_row_mean_flat}
-    out = {}
-    for name, cfg, hp, state, batches in job["cases"]:
+    out, meshes = {}, {}
+    for case in job["cases"]:
+        name, cfg, hp, state, batches = case[:5]
+        if len(case) > 5:       # a case of its own mesh
+            sizes, axes = case[5]
+            if (sizes, axes) not in meshes:
+                meshes[sizes, axes] = Mesh(sizes, axes)
+            mesh = meshes[sizes, axes]
         make, _, _ = TT.jit_train_step(cfg, mesh, hp)
         fs = TT.flat_sharding(cfg, mesh, hp)
-        st = TT.shard_train_state(_to(state, device), fs, hp)
+        # a list of states: each step starts from its own (reloaded) state
+        starts = state if isinstance(state, list) else [state]
+        st = TT.shard_train_state(_to(starts[0], device), fs, hp)
         batches = [_to(b, device) for b in batches]
         step = make(batches[0])
-        mets, states = [], []
+        mets, states, counts = [], [], []
         for f in counted.values():
             f.launches = 0
-        for b in batches:
-            st, m = step(st, b)
+        for k, b in enumerate(batches):
+            if k and len(starts) > 1:
+                st = TT.shard_train_state(_to(starts[k], device), fs, hp)
+            counts.append({})
+            with counted_collectives(counts[-1]):
+                st, m = step(st, b)
             mets.append(_host(m))
             states.append(_host(TT.unshard_train_state(st, fs, hp)))
         out[name] = {"metrics": mets, "states": states,
-                     "local_h": st.h.numel(),
+                     "local_h": st.h.numel(), "collectives": counts,
+                     "param_shapes": _shapes(st.params),
+                     "param_storage": _storage_bytes(st.params),
                      "launches": {k: f.launches for k, f in counted.items()}}
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -138,6 +155,105 @@ def counted_collectives(counts: dict):
     finally:
         for op, f in saved.items():
             setattr(dist, op, f)
+
+
+@contextlib.contextmanager
+def logged_collectives(log: list):
+    """Logs each ``all_reduce`` and ``all_gather`` of the process group as
+    (op, shape of the rank's tensor) into ``log`` while inside."""
+    saved = {op: getattr(dist, op) for op in ("all_reduce", "all_gather")}
+
+    def logging(op, f):
+        def call(*args, **kw):
+            t = args[0] if op == "all_reduce" else args[1]
+            log.append((op, tuple(t.shape)))
+            return f(*args, **kw)
+        return call
+
+    for op, f in saved.items():
+        setattr(dist, op, logging(op, f))
+    try:
+        yield
+    finally:
+        for op, f in saved.items():
+            setattr(dist, op, f)
+
+
+def run_grads(rank: int, world: int, workdir: str) -> None:
+    """The job's cases, each (name, mesh sizes over (data, model), cfg, hp,
+    whole params (a tree of tensors), the worker-split batch): each rank
+    cuts its shards by ``param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)``
+    and computes its worker's gradient as the mesh runtime does
+    (``trainer._mesh_vgrads``: autograd through the collectives, whole
+    leaves gathered over the model axis). Keeps the rank's worker, loss,
+    whole gradients and shard shapes, the collectives (op, shape) of
+    the loss's forward alone and of its value and gradient (before the
+    gradients' gathers), and the loss taken from the logits gathered
+    whole (``forward``'s serving logits) beside the vocab-parallel one.
+    On the job's ``device``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import trainer as TT
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as TM
+    from repro_torch.utils.trees import tree_leaves, tree_paths, \
+        tree_unflatten
+
+    job = _join(rank, world, workdir)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if job.get("device") == "cuda" else torch.device("cpu"))
+    out, meshes = {}, {}
+    for name, sizes, cfg, hp, params, batch in job["cases"]:
+        if sizes not in meshes:
+            meshes[sizes] = Mesh(sizes, ("data", "model"))
+        mesh = meshes[sizes]
+        fs = TT.flat_sharding(cfg, mesh, hp)
+        tp = TT.train_context(cfg, fs)
+        layout = TT.flat_layout(cfg, fs.shards)
+        shards = SH.cut_tree(_to(params, device), fs.pspecs, mesh)
+        wb = TT._local_batch(_to(batch, device), fs, 0)
+        row = {k: v[0] for k, v in wb.items()}
+        fwd, vg = [], []
+        paths, leaves = tree_paths(shards), tree_leaves(shards)
+        model = leaves if tp is None else tp.grad_leaves(paths, leaves)[1]
+        with torch.no_grad(), logged_collectives(fwd):
+            loss, _ = TM.lm_loss(cfg, tree_unflatten(paths, model), row,
+                                 train=True, tp=tp)
+        gathered = None
+        if not tp or not tp.fsdp:
+            with torch.no_grad():
+                inputs = ({"tokens": row["tokens"][:, :-1]}
+                          if "tokens" in row else {"embeds": row["embeds"]})
+                labels = row["tokens"][:, 1:] if "tokens" in row \
+                    else row["labels"]
+                logits, aux = TM.forward(cfg, shards, train=True,
+                                         positions=row.get("positions"),
+                                         tp=tp, **inputs)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                gathered = -torch.gather(logp, -1, labels[..., None]).mean() \
+                    + aux
+        with logged_collectives(vg):
+            TT.make_worker_grad(cfg, hp, tp)(shards, row)
+        vgrad, _ = TT._mesh_vgrads(cfg, hp, fs, layout, tp)
+        losses, grads = vgrad(shards, wb)
+        out[name] = {"worker": mesh.coord(fs.waxis), "loss": _host(losses),
+                     "grads": _host(grads), "shard_shapes": _shapes(shards),
+                     "forward": fwd, "value_and_grad": vg,
+                     "vocab_parallel_loss": _host(loss),
+                     "gathered_logits_loss": _host(gathered)}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _storage_bytes(tree) -> tuple:
+    """(bytes of the storages behind ``tree``'s leaves, each counted once;
+    bytes of the leaves themselves): equal when no leaf is a view into a
+    larger buffer."""
+    from repro_torch.utils.trees import tree_leaves
+    leaves = tree_leaves(tree)
+    storages = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                for x in leaves}
+    return (sum(storages.values()),
+            sum(x.numel() * x.element_size() for x in leaves))
 
 
 def _shapes(tree) -> dict:

@@ -1079,6 +1079,109 @@ def test_mesh_nccl_one_card_per_rank(gen, tmp_path):
     _mesh_on_card(tmp_path, "nccl")
 
 
+# ------------------------------------ the mesh trainer: model axis, FSDP
+
+TPT_TOL = 1e-5   # θ's update, h, ‖Δθ‖²: of scale (partial sums' order)
+
+
+def _tp_fsdp_steps(tmp_path, device: str, steps: int = 3):
+    """stablelm's smoke config (fp32), cada2 at c = 20, two cases on 2
+    ranks sharing the device over gloo: tensor parallelism on a (data=1,
+    model=2) mesh (M = 1) and parameter FSDP with remat on a (data=2,
+    model=1) mesh (M = 2); each against the one-process trainer on the
+    device from the same state and batches. Returns per case the ranks'
+    results and the one-process metrics and final state."""
+    import mesh_ranks
+    rule = CommRule(kind="cada2", c=20.0, d_max=4, max_delay=10)
+    cfg = TC.get_smoke_config("stablelm-1.6b")
+    cases = {"tp": (cfg, TrainHParams(rule=rule, lr=1e-3), (1, 2)),
+             "fsdp": (cfg.with_(remat=True),
+                      TrainHParams(rule=rule, lr=1e-3, fsdp=True), (2, 1))}
+    toks = torch.randint(0, cfg.vocab, (steps, 4, 33),
+                         generator=torch.Generator().manual_seed(0))
+    jobs, out = [], {}
+    for name, (c, hp, sizes) in cases.items():
+        m = sizes[0]
+        state = init_train_state(c, hp, m, 0, "cpu", shards=m)
+        batches = [worker_split({"tokens": t}, m) for t in toks]
+        jobs.append((name, c, hp, state, batches,
+                     (sizes, ("data", "model"))))
+        step = make_train_step(c, hp, m, shards=m)
+        st = mesh_ranks._to(state, torch.device(device))
+        mets = []
+        for b in batches:
+            st, met = step(st, {k: v.to(device) for k, v in b.items()})
+            mets.append(met)
+        out[name] = (mets, mesh_ranks._host(st))
+    ranks = mesh_ranks.spawn(mesh_ranks.run_steps, 2, tmp_path, {
+        "sizes": (2, 1), "axes": ("data", "model"), "device": device,
+        "cases": jobs})
+    return {name: ([r[name] for r in ranks],) + out[name] for name in out}
+
+
+def _share(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def test_tp_fsdp_trainer_on_one_card_equals_one_process(gen, tmp_path):
+    """The mesh trainer with a model axis, and with parameter FSDP, on 2
+    ranks sharing the card: per rank one shard-local AMSGrad and row-norm
+    launch a step and no row-mean kernel (eq. (3) is an all-reduce);
+    masks equal to the one-process trainer's; FSDP (the gathers are exact)
+    gives its state bit for bit, tensor parallelism (partial sums of the
+    blocks) within TPT_TOL of scale."""
+    from repro_torch.utils.trees import tree_leaves
+    for name, (ranks, mets, st) in _tp_fsdp_steps(tmp_path, "cuda").items():
+        for got in ranks:
+            assert got["launches"] == {"amsgrad": 3, "batched_diff_sq": 3,
+                                       "batched_sq": 0, "eq3_row_mean": 0}
+            for k, met in enumerate(mets):
+                assert torch.equal(got["metrics"][k]["upload_mask"],
+                                   met["upload_mask"].cpu()), (name, k)
+                assert float(got["metrics"][k]["dtheta_sq"]) == \
+                    pytest.approx(float(met["dtheta_sq"]), rel=TPT_TOL)
+            final = got["states"][-1]
+            pairs = [(final.h, st.h), (final.comm.nabla, st.comm.nabla)]
+            pairs += list(zip(tree_leaves(final.params),
+                              tree_leaves(st.params)))
+            for a, b in pairs:
+                if name == "fsdp":
+                    assert torch.equal(a, b), name
+                else:
+                    assert _share(a, b) <= TPT_TOL, name
+
+
+def test_vocab_parallel_loss_on_one_card(gen, tmp_path):
+    """internlm2's smoke config on 2 ranks sharing the card, a (data=1,
+    model=2) mesh: the loss of the vocab-parallel logits against the loss
+    of the logits gathered whole (rtol 1e-6), and the rank's whole
+    gradient against the one-process gradient on the card (TPT_TOL of
+    each leaf's scale); the value and gradient gather no logits."""
+    import mesh_ranks
+    from repro_torch.distributed.trainer import make_worker_grad
+    from repro_torch.utils.trees import tree_leaves
+    cfg = TC.get_smoke_config("internlm2-1.8b")
+    hp = TrainHParams()
+    params = TM.init_params(cfg, 0, "cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 2, 33), generator=gen,
+                         device="cuda")
+    _, want = make_worker_grad(cfg, hp)(params, {"tokens": toks[0]})
+    ranks = mesh_ranks.spawn(mesh_ranks.run_grads, 2, tmp_path, {
+        "device": "cuda", "cases": [(
+            "dense", (1, 2), cfg, hp, mesh_ranks._to(params,
+                                                     torch.device("cpu")),
+            {"tokens": toks.cpu()})]})
+    for r in ranks:
+        got = r["dense"]
+        assert float(got["vocab_parallel_loss"]) == pytest.approx(
+            float(got["gathered_logits_loss"]), rel=1e-6)
+        assert not [op for op, _ in got["value_and_grad"]
+                    if op == "all_gather"]
+        for g, w in zip(tree_leaves(got["grads"]), tree_leaves(want)):
+            assert _share(g[0], w.cpu()) <= TPT_TOL
+
+
 # ------------------------------------------------- tensor-parallel serving
 
 TP_BAND = 0.05   # of each array's scale: chip_smoke.py's TP_BAND (bf16)

@@ -29,9 +29,10 @@ import repro_torch.configs as TC
 from repro_torch.core.engine import CADAEngine
 from repro_torch.core.rules import RULES, CommRule
 from repro_torch.distributed.trainer import (
-    DistTrainState, TrainHParams, init_train_state, make_train_step,
-    worker_split)
+    DistTrainState, TrainHParams, init_train_state, jit_train_step,
+    make_train_step, worker_split)
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as TM
 from repro_torch.optim.fused import FusedAMSGrad
 from repro_torch.utils.trees import tree_leaves
@@ -138,18 +139,22 @@ def test_state_follows_the_hyper_parameters():
     ("fsdp", True), ("fsdp_axes", ("data", "pod")),
     ("state_fsdp_axes", ("data",)), ("shard_cada_state", True)])
 def test_unported_hyper_parameters_are_refused_by_name(field, value):
-    """What the port leaves to its next slice is refused by name: parameter
-    FSDP (``fsdp``, ``fsdp_axes``; ``fsdp=True`` is a legal value, as
-    ``launch.policy`` sets it, and the step builders refuse it) and
+    """What the port leaves to a later slice is refused by name:
     ZeRO-sharded state on the pytree plane (the state knobs with
     ``fused=False``; on the flat plane they run on the mesh runtime and
-    the mesh-free step ignores them)."""
+    the mesh-free step ignores them) and the pytree plane on the mesh.
+    Parameter FSDP (``fsdp``, ``fsdp_axes``) is ported: the mesh-free step
+    builds with it (one process holds whole parameters), and the mesh
+    runtime refuses it only on the pytree plane."""
     pytree = field in ("state_fsdp_axes", "shard_cada_state")
-    with pytest.raises(NotImplementedError, match=field):
-        hp = TrainHParams(**{field: value}, fused=not pytree)
-        make_train_step(CFG, hp, 2)
     if pytree:
-        make_train_step(CFG, TrainHParams(**{field: value}), 2)
+        with pytest.raises(NotImplementedError, match=field):
+            TrainHParams(**{field: value}, fused=False)
+    else:
+        with pytest.raises(NotImplementedError, match="fused=False"):
+            jit_train_step(CFG, Mesh((1, 1), ("data", "model")),
+                           TrainHParams(**{field: value}, fused=False))
+    make_train_step(CFG, TrainHParams(**{field: value}), 2)
 
 
 # ------------------------------------------------ engine against trainer

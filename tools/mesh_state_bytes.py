@@ -4,15 +4,20 @@ allocated; the state's tensors lie on the ``meta`` device).
 
     PYTHONPATH=src python3 tools/mesh_state_bytes.py --arch stablelm-1.6b \\
         --mesh data=4 --state-fsdp-axes data --rule cada2
+    PYTHONPATH=src python3 tools/mesh_state_bytes.py --arch falcon-mamba-7b \\
+        --layers 2 --mesh data=2,model=2 --fsdp on --dtype float32
 
 Each entry of ``abstract_train_state`` is divided by the product of the
 sizes of the mesh axes its ``train_state_specs`` shards it over, which is
 what a rank of ``trainer.jit_train_step`` holds at rest: its server slice
 of h, v̂ and ∇, its worker's row of the (M, n_flat) planes (cut to its
-column slice), and whole copies of the parameters and of the rule's
-parameter-shaped extras (cada2's stale-iterate ring). Printed beside the
-one-process trainer's state for the same M, and one JSON line of every
-number last.
+column slice), and its blocks of the parameters and of the rule's
+parameter-shaped extras (cada2's stale-iterate ring) by ``param_pspecs``:
+over the model axis, and over the FSDP axes where FSDP is on (``--fsdp
+auto`` resolves it by ``wants_fsdp``, as the trainer does). Printed
+beside the one-process trainer's state for the same M, with the bytes of
+one whole (n_flat,) fp32 plane (a step's transient unit: the packed θ, a
+worker's packed gradient), and one JSON line of every number last.
 """
 from __future__ import annotations
 
@@ -66,17 +71,26 @@ def main(argv=None) -> dict:
     p.add_argument("--arch", default="stablelm-1.6b")
     p.add_argument("--layers", type=int, default=0)
     p.add_argument("--mesh", default="data=4",
-                   help="axis=size,... (a model axis of 1 is added)")
+                   help="axis=size,... (a model axis of 1 where absent)")
     p.add_argument("--state-fsdp-axes", default="data")
+    p.add_argument("--fsdp", choices=("auto", "on", "off"), default="off")
+    p.add_argument("--fsdp-axes", default="data")
+    p.add_argument("--dtype", default="",
+                   help="the parameters' dtype (default: the config's)")
     p.add_argument("--rule", default="cada2")
     args = p.parse_args(argv)
     cfg = C.get_config(args.arch)
     if args.layers:
         cfg = cfg.with_(n_layers=args.layers)
+    if args.dtype:
+        cfg = cfg.with_(dtype=args.dtype)
     shape = {k: int(v) for k, v in (kv.split("=") for kv in
                                     args.mesh.split(","))}
-    mesh = Shape({**shape, "model": 1})
+    mesh = Shape({"model": 1, **shape})
     hp = T.TrainHParams(rule=CommRule(kind=args.rule),
+                        fsdp={"auto": None, "on": True,
+                              "off": False}[args.fsdp],
+                        fsdp_axes=tuple(args.fsdp_axes.split(",")),
                         state_fsdp_axes=tuple(
                             a for a in args.state_fsdp_axes.split(",") if a))
     m = mesh.shape[T.worker_axis_name(mesh)]
@@ -100,10 +114,13 @@ def main(argv=None) -> dict:
         print(f"  {group:14s} {nbytes / 1e9:10.3f} GB a rank")
     print(f"  total          {total / 1e9:10.3f} GB a rank at rest; the "
           f"one-process trainer's state for M = {m}: {whole / 1e9:.3f} GB")
+    plane = state.h.numel() * 4
+    print(f"  one (n_flat,) fp32 plane: {plane / 1e9:.3f} GB")
     row = {"arch": cfg.name, "layers": cfg.n_layers,
            "n_flat": state.h.numel(), "mesh": mesh.shape, "m": m,
+           "fsdp": args.fsdp, "dtype": cfg.dtype,
            "per_rank_bytes": total, "one_process_bytes": whole,
-           "by_entry": groups}
+           "plane_bytes": plane, "by_entry": groups}
     print(json.dumps(row))
     return row
 
