@@ -215,7 +215,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      ranks spawned on the one card (gloo: NCCL refuses two ranks on one
      device), a (data=2, model=1) mesh, M = 2, one worker a rank;
      stablelm-1.6b at phase 7's width with 2 of its 24 layers, cada2 at
-     12d's c = 1000 with ``state_fsdp_axes=("data",)``, 4 steps of phase
+     15's c = 10⁴ with ``state_fsdp_axes=("data",)``, 2 steps of phase
      7's batches. Each rank holds half of the server planes and its
      worker's row of the stale plane, and launches exactly one AMSGrad
      (on its half) and one two-operand norm (on its row) a step and no
@@ -233,7 +233,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      card over gloo, a (data=1, model=2) mesh, each holding its shards of
      the params (``shard_params``) and of the cache. 14a zamba2-2.7b and
      14b granite-moe-1b-a400m at full width and depth, 2 prompts of 2048,
-     32 decode steps teacher-forced on the one-process greedy tokens (run
+     16 decode steps teacher-forced on the one-process greedy tokens (run
      by this process first, on the same params and prompts). The driven
      run is bf16 (counts set to 0 just before and read just after: per
      rank 54 scans at 2560 of 5120 channels and 9 flash launches at 16 of
@@ -257,7 +257,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      cada2 at a skipping c, the flat state over ("model", "data"); 15b
      falcon-mamba-7b at full width with 2 of its 64 layers under its
      ``train_policy`` hyper-parameters (``fsdp=True``, 8 microbatches),
-     TPT_STEPS steps of 4 × 2048 (15a) or 4 × 1024 (15b) tokens. The
+     TPT_STEPS steps of 4 × 2048 (15a) or 4 × 512 (15b) tokens. The
      one-process trainer runs first in this process from the same init
      and batches, in fp32 (and, for 15a, in bf16). The driven run is
      fp32 (counts set to 0 just before and read just after: per rank
@@ -270,7 +270,11 @@ Phases, each of which raises on failure (the exit code is then not 0):
      parameter bytes, each collective's count, bytes and median ms; the
      AMSGrad, row-norm and row-mean kernels on the step's own shard-local
      operands against their plain versions, timed. A rank that fails
-     fails the phase.
+     fails the phase. 15c, in the same spawn: the pytree plane
+     (``fused=False``) on 15a's config in fp32 with both state knobs,
+     no kernel launched, masks equal to one process's and to 15a's,
+     within 15a's fp32 bands; a rank's step ms, peak memory and
+     collectives a step by kind.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their redesign, their bounds and, for flash,
@@ -551,15 +555,18 @@ PYTREE_PARAM_ULPS, PYTREE_PARAM_DIFFS = 4.0, 1000
 # CUDA tensors through the host), a (data=2, model=1) mesh, M = 2 (one
 # worker a rank); stablelm-1.6b at phase 7's width with MESH_LAYERS of its
 # 24 layers (the cut: two ranks and the one-process reference, run by rank
-# 0 after the mesh run, share the card's 80 GB), cada2 at 12d's skipping c
-# with state_fsdp_axes=("data",), MESH_STEPS steps of phase 7's batches;
+# 0 after the mesh run, share the card's 80 GB), cada2 at MESH_C with
+# state_fsdp_axes=("data",), MESH_STEPS steps of phase 7's batches (at
+# 12d's c = 1000 the gate first skipped at the fourth step, at 15's
+# c = 10⁴ it skips at the second: [[T,T],[F,F]], the skip the check needs
+# in half the steps);
 # ‖Δθ‖² (two per-shard partial sums against one launch's) within
 # MESH_DSQ_RTOL of the one-process trainer's: the kernel sums Σupd² in
 # fp32, each thread adding its ~1,000 (a half plane) or ~2,000 (the whole
 # plane) elements in sequence, so each launch carries a few 1e-6 of its
 # own; measured 3.89e-6 apart (PERF.md, PR 23), and each side's gap to an
 # fp64 sum of the same updates is printed at step 0
-MESH_LAYERS, MESH_STEPS, MESH_RANKS = 2, 4, 2
+MESH_LAYERS, MESH_STEPS, MESH_RANKS, MESH_C = 2, 2, 2, 1e4
 MESH_DSQ_RTOL = 1e-5
 MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
 # phase 14: tensor-parallel serving (distributed/serving.py's builders) on
@@ -591,8 +598,8 @@ MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
 #     fp32, two floors, if the ranks' bf16 run is as close to fp32 as the
 #     one process's (the fp32 check above holds the arithmetic)
 TP_RANKS = 2
-TP_SERVE = {"14a": (SERVE_ARCH, 2, 2048, 32),
-            "14b": ("granite-moe-1b-a400m", 2, 2048, 32)}
+TP_SERVE = {"14a": (SERVE_ARCH, 2, 2048, 16),
+            "14b": ("granite-moe-1b-a400m", 2, 2048, 16)}
 TP_BAND_F32 = 1e-3
 # a MoE config's fp32 band: a routing near-tie (top-k of the experts, or an
 # expert's top-C of the tokens) that the fp32 order of sums tips gives a
@@ -623,8 +630,9 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 # FSDP axis alone: with whole worker rows a rank needs more than 18 GB,
 # the fourth of the card that is its share), so the FSDP leaves are
 # gathered per layer inside the remat region and mamba1 runs its TP
-# backward; 4 x 1024 tokens a step, as the chunked scan's loop over time
-# runs one small kernel per step and channel block (launch-bound). The
+# backward; 4 x 512 tokens a step, as the chunked scan's loop over time
+# runs one small kernel per step and channel block (launch-bound; 1024
+# until 15c joined the phase, whose time this pays for). The
 # one-process trainer from the same init and batches runs first in this
 # process (fp32, and bf16 for 15a) and is freed before the spawn. Bands
 # of the fp32 run: masks exact; losses and ‖Δθ‖² within TPT_RTOL_F32;
@@ -641,10 +649,24 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 # (5.65e-5 apart from fp32 in one process, while the ranks' fp32 sums of
 # partial products leave 3.3e-6 and their bf16 run 1.3e-4 on the H100,
 # PERF.md §6: held to the bare floor, it failed at 2.3 floors)
-TPT_RANKS, TPT_STEPS, TPT_LAYERS, TPT_C = 4, 3, 2, 1e4
+# TPT_STEPS is 2: at c = 10⁴ the masks are [[T,T],[F,F]], and a third
+# step only repeated the skip ([[T,T],[F,F],[F,F]] in 15a and 15b on the
+# H100, PERF.md §6); its time pays for 15c.
+# 15c: the pytree plane (fused=False) on the same ranks, in the same
+# spawn, after 15a and 15b: 15a's stablelm-1.6b at TPT_LAYERS layers in
+# fp32, cada2 at TPT_C, the per-leaf state with both state knobs (the
+# moments over ("data",) beside the model axis, ∇ over "data" and the
+# model axis, the worker trees over the model axis), held against the
+# one-process pytree trainer with 15a's fp32 bands; its masks must equal
+# 15a's flat-plane masks on the same init and batches, and it launches no
+# kernel (its server step and norms are eager per-leaf PyTorch, as the
+# reference's)
+TPT_RANKS, TPT_STEPS, TPT_LAYERS, TPT_C = 4, 2, 2, 1e4
 TPT_MESH = (2, 2)                      # (data, model)
 TPT_TRAIN = {"15a": ("stablelm-1.6b", TPT_LAYERS, TRAIN_SEQ),
-             "15b": ("falcon-mamba-7b", 2, 1024)}
+             "15b": ("falcon-mamba-7b", 2, 512)}
+TPT_PYTREE = "15c"
+TPT_RUNS = (*TPT_TRAIN, TPT_PYTREE)
 TPT_RTOL_F32, TPT_BAND_F32, TPT_BF16_FLOORS = 1e-4, TP_BAND_F32, 2.0
 # a rank's cap on its cached memory (GiB) while the ranks step (the whole
 # state is drawn one rank at a time, uncapped): four ranks, the parent's
@@ -4631,7 +4653,7 @@ def mesh_rank_run(rank: int) -> dict:
     plane's size."""
     import torch.distributed as dist
     cfg = lm_configs.get_config(TRAIN_ARCH).with_(n_layers=MESH_LAYERS)
-    rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": PYTREE_TRAIN_C})
+    rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": MESH_C})
     hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR,
                               state_fsdp_axes=(DATA,))
     mesh = Mesh((MESH_RANKS, 1), (DATA, MODEL))
@@ -4813,7 +4835,7 @@ def phase_mesh(card: str) -> dict:
             "amsgrad": MESH_STEPS, "batched_diff_sq": MESH_STEPS}
     totals = dict.fromkeys(want, 0)
     first = results[0]
-    rule = dict(TRAIN_RULE, c=PYTREE_TRAIN_C)
+    rule = dict(TRAIN_RULE, c=MESH_C)
     print(f"  13 {TRAIN_ARCH} at full width, {MESH_LAYERS} of 24 layers "
           f"(n_flat {first['n_flat']:,}), cada2 {rule}, state_fsdp_axes "
           f"('data',), mesh (data={MESH_RANKS}, model=1), "
@@ -5268,17 +5290,21 @@ def _tpt_stub():
 
 
 def _tpt_setup(label: str):
-    """(cfg at the phase's depth, hyper-parameters, token batches) of 15a
-    or 15b, on any mesh of TPT_MESH's shape."""
+    """(cfg at the phase's depth, hyper-parameters, token batches) of 15a,
+    15b or 15c, on any mesh of TPT_MESH's shape."""
     from dataclasses import replace
     from repro_torch.launch.policy import train_policy
-    arch, layers, seq = TPT_TRAIN[label]
+    arch, layers, seq = TPT_TRAIN["15a" if label == TPT_PYTREE else label]
     cfg = lm_configs.get_config(arch).with_(n_layers=layers)
     rule = CommRule(kind="cada2", **{**TRAIN_RULE, "c": TPT_C})
     stub = _tpt_stub()
     if label == "15a":
         hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR,
                                   state_fsdp_axes=(MODEL, DATA))
+    elif label == TPT_PYTREE:
+        hp = trainer.TrainHParams(rule=rule, lr=TRAIN_LR, fused=False,
+                                  state_fsdp_axes=(DATA,),
+                                  shard_cada_state=True)
     else:   # the policy of the whole model, not of its depth cut
         hp = replace(train_policy(lm_configs.get_config(arch), stub),
                      rule=rule, state_fsdp_axes=(MODEL, DATA))
@@ -5292,8 +5318,8 @@ def _tpt_dtypes(label: str) -> tuple:
 
 
 def _tpt_reference(label: str) -> dict:
-    """The one-process trainer of 15a or 15b in this process, before the
-    spawn: TPT_STEPS steps from seed 0 in each dtype of the phase. Saves
+    """The one-process trainer of 15a, 15b or 15c in this process, before
+    the spawn: TPT_STEPS steps from seed 0 in each dtype of the phase. Saves
     for rank 0 each run's masks, losses, ‖Δθ‖², θ's update and h (host
     copies, ``<label>.pt``); returns the step ms and, for bf16, its
     distance from the fp32 run (the floors of the ranks' bf16 run)."""
@@ -5318,7 +5344,8 @@ def _tpt_reference(label: str) -> dict:
             run["losses"].append(float(mets["loss"]))
             run["dsq"].append(float(mets["dtheta_sq"]))
         run["update"] = (layout.pack(state.params) - theta0).cpu()
-        run["h"] = state.h.float().cpu()
+        run["h"] = (state.h if torch.is_tensor(state.h)
+                    else layout.pack(state.h)).float().cpu()
         runs[dt] = run
         del state, step, theta0
     floors = {}
@@ -5359,7 +5386,7 @@ def _tpt_rank(rank: int, workdir: str) -> None:
         "gloo", init_method="file://" + os.path.join(workdir, "rdv"),
         rank=rank, world_size=TPT_RANKS)
     mesh = Mesh(TPT_MESH, (DATA, MODEL))
-    out = {label: tpt_rank_run(rank, label, mesh) for label in TPT_TRAIN}
+    out = {label: tpt_rank_run(rank, label, mesh) for label in TPT_RUNS}
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5375,12 +5402,13 @@ def _tpt_drive(rank: int, cfg, hp, mesh, tokens, rec=None) -> dict:
     0 only) and the launches counted from just before to just after."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import uncut_tree
-    fs = trainer.flat_sharding(cfg, mesh, hp)
+    fs = trainer.state_sharding(cfg, mesh, hp)
+    shards = trainer.flat_state_shards(cfg, mesh, hp)
     make, _, m = trainer.jit_train_step(cfg, mesh, hp)
     for r in range(TPT_RANKS):
         if r == rank:
-            whole = trainer.init_train_state(cfg, hp, m, 0, shards=fs.shards)
-            layout = flat.layout_of(whole.params, shards=fs.shards)
+            whole = trainer.init_train_state(cfg, hp, m, 0, shards=shards)
+            layout = flat.layout_of(whole.params, shards=shards)
             theta0 = layout.pack(whole.params).cpu() if rank == 0 else None
             state = trainer.shard_train_state(whole, fs, hp)
             del whole
@@ -5417,15 +5445,24 @@ def _tpt_drive(rank: int, cfg, hp, mesh, tokens, rec=None) -> dict:
         raise RuntimeError(f"15 rank {rank}: the state left the card")
     run["param_bytes"] = sum(t.numel() * t.element_size()
                              for t in tree_leaves(state.params))
-    run["local_h"] = state.h.numel()
+    run["local_h"] = sum(t.numel() for t in tree_leaves(state.h))
     by_op: dict = {}
+    kinds: dict = {}
     for op, nbytes, ms in coll:
         by_op.setdefault(f"{op} {nbytes} B", []).append(ms)
+        kind = kinds.setdefault(op, [0, 0, 0.0])
+        kind[0], kind[1], kind[2] = kind[0] + 1, kind[1] + nbytes, \
+            kind[2] + ms
     run["collectives"] = {k: [len(v), statistics.median(v), max(v)]
                           for k, v in by_op.items()}
+    # a step's collectives by kind: count, bytes of the rank's tensors, ms
+    run["step_collectives"] = {k: [c / TPT_STEPS, b / TPT_STEPS,
+                                   ms / TPT_STEPS]
+                               for k, (c, b, ms) in kinds.items()}
     run["collective_ms"] = sum(ms for _, _, ms in coll)
     params = uncut_tree(state.params, fs.pspecs, mesh)
-    h = fs.gather_server(state.h)
+    h = (fs.gather_server(state.h) if hp.fused
+         else layout.pack(uncut_tree(state.h, fs.msp, mesh)))
     if rank == 0:
         run["update"] = layout.pack(params).cpu() - theta0
         run["h"] = h.float().cpu()
@@ -5437,18 +5474,20 @@ def _tpt_drive(rank: int, cfg, hp, mesh, tokens, rec=None) -> dict:
 
 
 def tpt_rank_run(rank: int, label: str, mesh) -> dict:
-    """15a or 15b on one rank: the driven fp32 run (the shard-local
-    kernels' operands recorded), then 15a's bf16 run; rank 0 holds each
-    against the one-process runs. Then, one rank after the other (the card
-    to itself), the AMSGrad, row-norm and row-mean kernels on the fp32
-    run's first shard-local operands against their plain versions."""
+    """15a, 15b or 15c on one rank: the driven fp32 run (on the flat
+    plane the shard-local kernels' operands recorded), then 15a's bf16
+    run; rank 0 holds each against the one-process runs. Then, on the
+    flat plane, one rank after the other (the card to itself), the
+    AMSGrad, row-norm and row-mean kernels on the fp32 run's first
+    shard-local operands against their plain versions."""
     import torch.distributed as dist
     cfg, hp, tokens, _ = _tpt_setup(label)
     rec: dict = {}
     out = {"rank": rank}
     for dt in _tpt_dtypes(label):
         run, launches = _tpt_drive(rank, cfg.with_(dtype=dt), hp, mesh,
-                                   tokens, rec if dt == "float32" else None)
+                                   tokens, rec if dt == "float32"
+                                   and hp.fused else None)
         print(f"    {label} rank {rank} {dt}: step ms "
               f"{[round(x, 1) for x in run['step_ms']]}, masks "
               f"{run['masks']}, peak {run['peak_gib']:.3f} GiB (reserved "
@@ -5463,6 +5502,8 @@ def tpt_rank_run(rank: int, label: str, mesh) -> dict:
             del ref
         del run
         gc.collect()
+    if not hp.fused:
+        return out
     for r in range(TPT_RANKS):
         if r == rank:
             out.update(_tpt_kernels(rank, rec))
@@ -5531,7 +5572,7 @@ def phase_tpt(card: str) -> dict:
     TPT_DIR.mkdir(parents=True)
     t0 = time.perf_counter()
     one = {}
-    for label in TPT_TRAIN:
+    for label in TPT_RUNS:
         one[label] = _tpt_reference(label)
         print(f"  {label} one process: step ms " + ", ".join(
             f"{dt} {[round(x, 1) for x in v]}"
@@ -5631,7 +5672,58 @@ def phase_tpt(card: str) -> dict:
         if all(all(row) for row in masks) or not any(any(r) for r in masks):
             raise RuntimeError(f"15 {label}: masks {masks}: no step "
                                "skipped, or none uploaded")
+    _tpt_pytree_report(card, results, dict.fromkeys(want, 0))
     return totals
+
+
+def _tpt_pytree_report(card: str, results: list, zero: dict) -> None:
+    """15c's checks and lines: no kernel launched, the ranks' metrics
+    equal, masks equal to one process's and to 15a's flat-plane masks,
+    the fp32 gaps within 15a's bands; a rank's step ms, peak memory and
+    collectives a step by kind."""
+    label = TPT_PYTREE
+    cfg, hp, _, _ = _tpt_setup(label)
+    first = results[0][label]["float32"]
+    print(f"  {label} the pytree plane (fused=False): stablelm-1.6b at full "
+          f"width, {cfg.n_layers} layers, fp32, cada2 c = {hp.rule.c}, "
+          f"state_fsdp_axes {hp.state_fsdp_axes}, shard_cada_state "
+          f"{hp.shard_cada_state}, {TPT_STEPS} steps, on {card}")
+    for res in (r[label] for r in results):
+        run = res["float32"]
+        if res["launches"] != zero:
+            raise RuntimeError(f"15c rank {res['rank']}: the pytree plane "
+                               f"launched kernels {res['launches']}")
+        if (run["masks"] != first["masks"]
+                or run["losses"] != first["losses"]
+                or run["dsq"] != first["dsq"]):
+            raise RuntimeError("15c: the ranks' metrics differ")
+        print(f"    rank {res['rank']}: {run['param_bytes']:,} parameter "
+              f"bytes, moments {run['local_h']:,} entries; step ms "
+              f"{[round(x, 1) for x in run['step_ms']]} (host clock; "
+              f"{run['collective_ms']:.1f} ms in collectives); peak "
+              f"{run['peak_gib']:.3f} GiB (reserved "
+              f"{run['peak_reserved_gib']:.3f}); no kernel launched")
+        print("      collectives a step (count, MB of the rank's tensors, "
+              "ms): " + "; ".join(
+                  f"{k} x{c:g} {b / 1e6:.1f} MB {ms:.1f} ms"
+                  for k, (c, b, ms) in run["step_collectives"].items()))
+    flat_masks = results[0]["15a"]["float32"]["masks"]
+    if first["masks"] != first["ref_masks"]:
+        raise RuntimeError(f"15c: masks {first['masks']} on the mesh, "
+                           f"{first['ref_masks']} in one process")
+    if first["masks"] != flat_masks:
+        raise RuntimeError(f"15c: masks {first['masks']}, the flat plane's "
+                           f"(15a) {flat_masks}")
+    bands = {"losses": TPT_RTOL_F32, "dsq": TPT_RTOL_F32,
+             "update": TPT_BAND_F32, "h": TPT_BAND_F32}
+    gaps = first["gaps"]
+    print(f"    float32: masks {first['masks']} equal to one process's and "
+          f"to 15a's flat plane's; losses {first['losses']}; gaps to one "
+          "process " + ", ".join(f"{k} {gaps[k]:.3g} (band {bands[k]:.3g})"
+                                 for k in bands))
+    outside = {k: gaps[k] for k in bands if gaps[k] > bands[k]}
+    if outside:
+        raise RuntimeError(f"15c: outside the bands: {outside}")
 
 
 def main() -> None:
@@ -5731,7 +5823,8 @@ def main() -> None:
     for name, entry in tp_kernels.items():
         main_shape[name]["tp_rank_shape"] = entry
     print(f"    phase 14 took {time.perf_counter() - t14:.1f} s")
-    print("[15] the mesh trainer: the model axis and parameter FSDP")
+    print("[15] the mesh trainer: the model axis, parameter FSDP, the pytree "
+          "plane")
     gc.collect()
     torch.cuda.empty_cache()
     t15 = time.perf_counter()

@@ -87,6 +87,18 @@ class CommContext(NamedTuple):
     vgrad: Callable
     vgrad_per: Callable
     participation: Any = None  # (M,) bool round-participation mask | None
+    # the mesh runtime's ``distributed.sharding.TreeSharding`` (None off
+    # the mesh): the worker trees then hold the rank's worker row, cut to
+    # its ``gwsp`` blocks, the (M,) vectors all M workers, and the hooks
+    # pass it to the norms and compressors and cut (M,) vectors to the
+    # trees' rows with :meth:`plane_rows`
+    shard: Any = None
+
+    def plane_rows(self, v):
+        """The entries of an (M,) vector (the round's upload mask) that
+        belong to the rows the worker trees hold: all of them off the
+        mesh."""
+        return v if self.shard is None else self.shard.plane_rows(v)
 
 
 class CommRoundResult(NamedTuple):
@@ -98,15 +110,24 @@ class CommRoundResult(NamedTuple):
 
 # ------------------------------------------------------------ tree helpers
 
-def per_worker_sq_norm(tree) -> torch.Tensor:
+def per_worker_sq_norm(tree, shard=None) -> torch.Tensor:
     """(M,) squared norms of an M-leading dict, accumulated in fp32 leaf
-    by leaf in the reference's leaf order."""
-    tot = 0.0
+    by leaf in the reference's leaf order. ``shard`` (the mesh runtime's
+    ``TreeSharding``, or None): the leaves are the rank's one-row blocks
+    under ``gwsp``; each leaf's partial sum is completed over the axes
+    that cut it (a leaf no axis cuts counts once), and the rows are
+    assembled into all M over the worker axis."""
+    parts = []
     for leaf in tree_leaves(tree):
         sq = torch.square(leaf.float())
-        tot = tot + (sq.sum(dim=tuple(range(1, leaf.dim())))
+        parts.append(sq.sum(dim=tuple(range(1, leaf.dim())))
                      if leaf.dim() > 1 else sq)
-    return tot
+    if shard is not None:
+        parts = shard.complete(parts, shard.worker_specs())
+    tot = 0.0
+    for part in parts:
+        tot = tot + part
+    return tot if shard is None else shard.rows_sum(tot)
 
 
 def select_rows(mask, new, old):
@@ -180,6 +201,13 @@ class CommStrategy:
         del params, m, make_grad_zeros, bcast
         return {}
 
+    def extras_specs(self, param_spec, worker_param_spec,
+                     worker_grad_spec) -> dict:
+        """PartitionSpec dict matching :meth:`init_extras` (the reference's
+        table of the pytree plane on the mesh)."""
+        del param_spec, worker_param_spec, worker_grad_spec
+        return {}
+
     def pre_step(self, extras: dict, params, k: int) -> dict:
         """Start-of-iteration transition (e.g. CADA1 snapshot refresh)."""
         del params, k
@@ -196,23 +224,28 @@ class CommStrategy:
         del cache, upload, ctx
         return extras
 
-    def transform_delta(self, delta):
+    def transform_delta(self, delta, shard=None):
         """Wire format of the uploaded innovation δ_m on the pytree plane:
         the b-bit round trip at :attr:`bits_per_entry` below 32 (one scale
-        per worker and leaf), else the raw δ."""
+        per worker and leaf, completed over the axes that cut the leaf on
+        the mesh), else the raw δ."""
         if self.bits_per_entry < 32:
-            return per_worker_quantize_dequantize(delta, self.bits_per_entry)
+            complete = (None if shard is None else
+                        lambda parts, op: shard.complete(
+                            parts, shard.worker_specs(), op))
+            return per_worker_quantize_dequantize(delta, self.bits_per_entry,
+                                                  complete)
         return delta
 
     def wire_delta(self, ctx: CommContext, extras: dict, cache, delta):
         """The innovation that rides the wire, given the raw fp32
         δ = fresh − stale; rules whose LHS already compressed it return
         their cache instead."""
-        del ctx, extras, cache
-        return self.transform_delta(delta)
+        del extras, cache
+        return self.transform_delta(delta, ctx.shard)
 
     def local_payload(self, extras: dict, params, batch, m: int, vgrad_per,
-                      h_steps):
+                      h_steps, shard=None):
         """The delta-payload rules' local run on the pytree plane:
         ``(losses, payload, cache)`` (core/local_update.py)."""
         raise NotImplementedError
@@ -380,7 +413,8 @@ class LAGStrategy(CommStrategy):
 
     def lhs(self, ctx, extras):
         return per_worker_sq_norm(_innovation(ctx.fresh,
-                                              ctx.comm.worker_grads)), None
+                                              ctx.comm.worker_grads),
+                                  ctx.shard), None
 
     def flat_lhs(self, ctx, extras):
         return kops.batched_diff_sq_norm(
@@ -402,6 +436,9 @@ class CADA1Strategy(CommStrategy):
         return {"snapshot": params,
                 "worker_delta": bcast(make_grad_zeros(), m)}
 
+    def extras_specs(self, param_spec, worker_param_spec, worker_grad_spec):
+        return {"snapshot": param_spec, "worker_delta": worker_grad_spec}
+
     def pre_step(self, extras, params, k):
         if k % self.rule.max_delay == 0:
             return {**extras, "snapshot": params}
@@ -412,11 +449,12 @@ class CADA1Strategy(CommStrategy):
         delta_fresh = _innovation(ctx.fresh, snap_grads)
         diff = tree_map(lambda a, b: a - b.float(), delta_fresh,
                         extras["worker_delta"])
-        return per_worker_sq_norm(diff), delta_fresh
+        return per_worker_sq_norm(diff, ctx.shard), delta_fresh
 
     def post_upload(self, extras, delta_fresh, upload, ctx):
         return {**extras,
-                "worker_delta": select_rows(upload, delta_fresh,
+                "worker_delta": select_rows(ctx.plane_rows(upload),
+                                            delta_fresh,
                                             extras["worker_delta"])}
 
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
@@ -481,15 +519,23 @@ class CADA2Strategy(CommStrategy):
     def init_extras(self, params, m, make_grad_zeros, bcast):
         return {"worker_params": bcast(params, m)}
 
+    def extras_specs(self, param_spec, worker_param_spec, worker_grad_spec):
+        return {"worker_params": worker_param_spec}
+
     def lhs(self, ctx, extras):
         _, stale_now = ctx.vgrad_per(extras["worker_params"], ctx.batch)
-        return per_worker_sq_norm(_innovation(ctx.fresh, stale_now)), None
+        return per_worker_sq_norm(_innovation(ctx.fresh, stale_now),
+                                  ctx.shard), None
 
     def post_upload(self, extras, cache, upload, ctx):
+        stale = extras["worker_params"]
+        point = (ctx.params if ctx.shard is None
+                 else ctx.shard.params_to_stale(ctx.params))
+        rows = tree_leaves(stale)[0].shape[0]
         return {**extras,
                 "worker_params": select_rows(
-                    upload, broadcast_to_workers(ctx.params, ctx.m),
-                    extras["worker_params"])}
+                    ctx.plane_rows(upload), broadcast_to_workers(point, rows),
+                    stale)}
 
     def ring_rows(self, m: int) -> int:
         """R = min(M, max_delay) + 1 — the occupancy bound above."""
@@ -594,8 +640,9 @@ class CompressedInnovationStrategy(CommStrategy):
 
     def lhs(self, ctx, extras):
         q = self.transform_delta(_innovation(ctx.fresh,
-                                             ctx.comm.worker_grads))
-        return per_worker_sq_norm(q), q
+                                             ctx.comm.worker_grads),
+                                 ctx.shard)
+        return per_worker_sq_norm(q, ctx.shard), q
 
     def wire_delta(self, ctx, extras, cache, delta):
         del delta  # cache IS Q_b(δ) of this round's innovation
@@ -617,8 +664,9 @@ class ErrorFeedbackStrategy(CommStrategy):
     Subclasses supply the compressor (:meth:`_compress_flat`) and their
     accounting. ``error_feedback=False`` allocates no residual plane."""
 
-    def _compress(self, corrected):
-        """The compressor over the fp32 corrected innovation (dicts)."""
+    def _compress(self, corrected, shard=None):
+        """The compressor over the fp32 corrected innovation (dicts; on the
+        mesh the rank's blocks, ``shard``)."""
         raise NotImplementedError
 
     def _compress_flat(self, layout, corrected, shard=None):
@@ -631,24 +679,34 @@ class ErrorFeedbackStrategy(CommStrategy):
             return {}
         return {"residual": bcast(make_grad_zeros(), m)}
 
+    def extras_specs(self, param_spec, worker_param_spec, worker_grad_spec):
+        if not self.rule.error_feedback:
+            return {}
+        return {"residual": worker_grad_spec}
+
     def lhs(self, ctx, extras):
         delta = _innovation(ctx.fresh, ctx.comm.worker_grads)
         corrected = (ef_correct(delta, extras["residual"])
                      if self.rule.error_feedback else delta)
-        wire = self._compress(corrected)
-        return per_worker_sq_norm(wire), (wire, corrected)
+        wire = self._compress(corrected, ctx.shard)
+        return per_worker_sq_norm(wire, ctx.shard), (wire, corrected)
 
     def wire_delta(self, ctx, extras, cache, delta):
         del delta
         return cache[0]
 
-    def post_upload(self, extras, cache, upload, ctx):
+    def _residual_update(self, extras, cache, rows):
+        """e_m ← (δ_m + e_m) − wire_m on the uploading ``rows`` (the mask
+        of the rows the residual holds)."""
         if not self.rule.error_feedback:
             return extras
         wire, corrected = cache
         return {**extras,
-                "residual": ef_residual(corrected, wire, upload,
+                "residual": ef_residual(corrected, wire, rows,
                                         extras["residual"])}
+
+    def post_upload(self, extras, cache, upload, ctx):
+        return self._residual_update(extras, cache, ctx.plane_rows(upload))
 
     def init_flat_extras(self, layout, params, params_flat, m, grad_dtype):
         if not self.rule.error_feedback:
@@ -679,7 +737,7 @@ class ErrorFeedbackStrategy(CommStrategy):
         return cache[0]
 
     def flat_post_upload(self, extras, cache, upload, ctx):
-        return self.post_upload(extras, cache, ctx.plane_rows(upload), ctx)
+        return self._residual_update(extras, cache, ctx.plane_rows(upload))
 
 
 @register
@@ -691,8 +749,8 @@ class LAQStrategy(ErrorFeedbackStrategy):
     kind = "laq"
     default_bits = 8
 
-    def _compress(self, corrected):
-        return self.transform_delta(corrected)
+    def _compress(self, corrected, shard=None):
+        return self.transform_delta(corrected, shard)
 
     def _compress_flat(self, layout, corrected, shard=None):
         return self.transform_delta_flat(layout, corrected, shard)
@@ -710,7 +768,12 @@ class TopKStrategy(ErrorFeedbackStrategy):
     with k = ⌈topk_frac·n⌉ and value_bits = ``quantize_bits`` or 32."""
     kind = "topk"
 
-    def _compress(self, corrected):
+    def _compress(self, corrected, shard=None):
+        if shard is not None:
+            # the exact top-k with its lower-index tie order needs the
+            # whole leaf: the worker's leaves are gathered over the axes
+            # that cut them, compressed, and cut back
+            return shard.on_whole_worker(self._compress, corrected)
         return self.transform_delta(
             per_worker_topk_sparsify(corrected, self.rule.topk_frac))
 
@@ -774,9 +837,14 @@ class AVPStrategy(CommStrategy):
         return {"period": self._init_periods(m,
                                              tree_leaves(params)[0].device)}
 
+    def extras_specs(self, param_spec, worker_param_spec, worker_grad_spec):
+        from repro_torch.distributed.sharding import P
+        return {"period": P(None)}
+
     def lhs(self, ctx, extras):
         energy = per_worker_sq_norm(_innovation(ctx.fresh,
-                                                ctx.comm.worker_grads))
+                                                ctx.comm.worker_grads),
+                                    ctx.shard)
         return self._gate(ctx.comm.staleness, extras["period"],
                           energy), energy
 
@@ -841,9 +909,25 @@ def init_comm_state(strategy: CommStrategy, params, m: int,
     )
 
 
+def comm_state_specs(strategy: CommStrategy, param_spec, worker_param_spec,
+                     grad_spec, worker_grad_spec, scalar_spec) -> CommState:
+    """CommState-shaped PartitionSpec tree of the pytree plane (the
+    reference's table): ∇ by ``grad_spec``, the stale gradients by
+    ``worker_grad_spec``, τ and the RHS ring by ``scalar_spec``, the
+    strategy's extras by its :meth:`~CommStrategy.extras_specs`."""
+    return CommState(
+        nabla=grad_spec,
+        worker_grads=worker_grad_spec,
+        staleness=scalar_spec,
+        diff_hist=scalar_spec,
+        extras=strategy.extras_specs(param_spec, worker_param_spec,
+                                     worker_grad_spec),
+    )
+
+
 def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
                k: int, *, vgrad, vgrad_per=None, participation=None,
-               local_steps=None) -> CommRoundResult:
+               local_steps=None, shard=None) -> CommRoundResult:
     """One communication round of Algorithm 1 (lines 4-15) on the pytree
     plane: the reference's expression order, leaf by leaf.
 
@@ -854,9 +938,21 @@ def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
     for the delta-payload rules only, whose batch leads with the H axis
     where ``flat.batch_has_local_axis`` says so and whose payload is the
     model delta of the local run (``flat.flat_comm_round`` has the
-    contract)."""
+    contract).
+
+    ``shard`` (a ``distributed.sharding.TreeSharding`` on the mesh
+    runtime, or None) runs the round on one rank: the worker trees of
+    ``comm`` hold the rank's worker row cut to its ``gwsp`` blocks, ∇ its
+    ``gsp`` blocks, ``params`` its parameter shards, the (M,) vectors all
+    M workers; ``vgrad``/``vgrad_per`` give the rank's worker's one-row
+    losses and its gradients cut to the ``gwsp`` blocks. The norms and
+    the wire's scales are completed per leaf over the axes that cut it,
+    and eq. (3) is the per-leaf mean of the workers' rows, gathered over
+    the worker axis (a round in which no worker uploads skips the
+    gather)."""
     r = strategy.rule
     m = comm.staleness.shape[0]
+    rows = None if shard is None else shard.row_index(comm.staleness.device)
     if local_steps is not None and not strategy.delta_payload:
         raise ValueError(
             f"rule kind {r.kind!r} ships per-iteration gradients; "
@@ -874,11 +970,12 @@ def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
         h_steps = local_steps_vector(m, batch_h, local_steps,
                                      device=comm.staleness.device)
         losses, fresh, cache = strategy.local_payload(
-            extras, params, batch_h, m, vgrad_per, h_steps)
+            extras, params, batch_h, m if rows is None else 1, vgrad_per,
+            h_steps if rows is None else h_steps[rows], shard=shard)
         ctx = CommContext(params=params, batch=batch, fresh=fresh,
                           comm=comm._replace(extras=extras), step=k, m=m,
                           vgrad=vgrad, vgrad_per=vgrad_per,
-                          participation=participation)
+                          participation=participation, shard=shard)
         lhs = torch.full((m,), torch.inf, dtype=torch.float32,
                          device=comm.staleness.device)
     else:
@@ -888,9 +985,11 @@ def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
         ctx = CommContext(params=params, batch=batch, fresh=fresh,
                           comm=comm._replace(extras=extras), step=k, m=m,
                           vgrad=vgrad, vgrad_per=vgrad_per,
-                          participation=participation)
+                          participation=participation, shard=shard)
         # Lines 7/9: rule LHS vs the shared recent-progress RHS.
         lhs, cache = strategy.lhs(ctx, extras)
+    if shard is not None:
+        losses = shard.rows_sum(losses)
     rhs = r.rhs(comm.diff_hist)
     # Line 10: upload if the condition is VIOLATED or staleness capped.
     upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
@@ -904,9 +1003,20 @@ def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
                                 _innovation(fresh, comm.worker_grads))
     zeros = tree_zeros_like(delta)
     wire = tree_map(lambda d, s: d.to(s.dtype),
-                    select_rows(upload, delta, zeros), comm.worker_grads)
-    nabla = tree_map(lambda n, d: (n.float() + d.float().mean(dim=0)
-                                   ).to(n.dtype), comm.nabla, wire)
+                    select_rows(ctx.plane_rows(upload), delta, zeros),
+                    comm.worker_grads)
+    if shard is None:
+        inc = tree_map(lambda d: d.float().mean(dim=0), wire)
+    elif bool(upload.any()):
+        # the workers' rows of the rank's blocks, their mean, and the
+        # rank's part of it under ∇'s specs
+        inc = shard.worker_to_grad(tree_map(
+            lambda d: d.float().mean(dim=0), shard.worker_rows(wire)))
+    else:   # every row is +0.0: the mean is +0.0 without the gather
+        inc = tree_map(lambda n: torch.zeros(n.shape, dtype=torch.float32,
+                                             device=n.device), comm.nabla)
+    nabla = tree_map(lambda n, d: (n.float() + d).to(n.dtype), comm.nabla,
+                     inc)
     worker_grads = tree_map(lambda s, d: (s.float() + d.float()).to(s.dtype),
                             comm.worker_grads, wire)
 
@@ -935,8 +1045,9 @@ def comm_round(strategy: CommStrategy, comm: CommState, params, batch,
         "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
         "max_staleness": staleness.max(),
         "grad_evals": grad_evals,
-        "bytes_up": (uploads.float()
-                     * strategy.bytes_per_upload(tree_size(params))),
+        "bytes_up": (uploads.float() * strategy.bytes_per_upload(
+            tree_size(params) if shard is None
+            else shard.whole_size(params, shard.psp))),
     }
     new_comm = CommState(nabla=nabla, worker_grads=worker_grads,
                          staleness=staleness, diff_hist=comm.diff_hist,

@@ -432,7 +432,7 @@ def stacked_two_point_eval(layout: FlatLayout, params, pts, batch, m: int,
 
 
 def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
-                         vgrad) -> torch.Tensor:
+                         vgrad, every=None) -> torch.Tensor:
     """The grouped second evaluation: one broadcast-point ``vgrad`` per
     OCCUPIED ring row, placed into the (M, n_flat) fp32 second plane by
     each worker's slot. Every worker still evaluates its own sample; only
@@ -442,9 +442,13 @@ def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
 
     The reference's fixed-R masked scan is a loop over the rows here, and
     its per-row skip of an empty row is one occupancy count a call, read
-    to the host once."""
+    to the host once. ``every`` (a mesh rank's round: the (M,) slots of
+    every worker, where ``slot`` holds the rank's rows) gives the rows to
+    evaluate, the same on every rank, since an evaluation's collectives
+    span the ranks of other workers."""
     rr = tree_leaves(ring)[0].shape[0]
-    occupied = torch.bincount(slot.long(), minlength=rr).tolist()
+    occupied = torch.bincount((slot if every is None else every).long(),
+                              minlength=rr).tolist()
     plane = torch.zeros((m, layout.n_flat), dtype=torch.float32,
                         device=slot.device)
     for r in range(rr):
@@ -481,7 +485,9 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     evaluation may differ from the per-row one in the last bits).
 
     ``shard`` (the mesh runtime's ``FlatSharding``): each plane is cut to
-    the rank's column slice as soon as it is packed.
+    the rank's column slice as soon as it is packed, and a per-worker
+    second point is the rank's worker's own stale iterate
+    (``shard.worker_points``).
     """
     def _packed_eval(f, point):
         """(losses, the packed fp32 plane of one evaluation, cut to the
@@ -496,6 +502,13 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     if indexed is None:
         return (*_packed_eval(vgrad, params), None)
     ring, slot = indexed
+    every = slot
+    if shard is not None and slot is not None and not group_evals:
+        # the rank's worker's own stale iterate (``shard.worker_points``:
+        # gathered over the worker axis where that axis cuts the ring)
+        losses, fresh = _packed_eval(vgrad, params)
+        return losses, fresh, _packed_eval(
+            vgrad_per, shard.worker_points(ring, slot))[1]
     if cohort is not None and slot is not None:
         slot = slot[cohort]
     # each gradient tree is packed (and freed) before the next evaluation:
@@ -506,7 +519,8 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
         return losses, fresh, _packed_eval(vgrad, shared_pt)[1]
     if group_evals:
         losses, fresh = _packed_eval(vgrad, params)
-        second = grouped_second_plane(layout, ring, slot, batch, m, vgrad)
+        second = grouped_second_plane(layout, ring, slot, batch, m, vgrad,
+                                      None if shard is None else every)
         return (losses, fresh, second if shard is None
                 else shard.cut_cols(second, layout))
     idx = slot.long()

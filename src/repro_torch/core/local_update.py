@@ -185,14 +185,26 @@ class LocalUpdateStrategy(CommStrategy):
         del extras, params, m
         return None
 
-    def local_payload(self, extras, params, batch, m, vgrad_per, h_steps):
+    def local_payload(self, extras, params, batch, m, vgrad_per, h_steps,
+                      shard=None):
         """The local run on dicts: ``batch`` leads with (H, M, ...),
         ``h_steps`` is the (M,) int32 count of steps each worker takes.
         Returns the (M,) mean losses over each worker's steps, the
         (M,)-leading fp32 payload θ^k − θ_m^(h) and the momenta after the
-        run (or None)."""
+        run (or None).
+
+        On the mesh (``shard``, a ``TreeSharding``) M is the rank's one
+        row: the local steps run at whole per-worker parameters (the
+        rank's shards gathered, and momenta held as ``gwsp`` blocks
+        gathered over the axes that cut them), ``vgrad_per`` takes whole
+        parameters and gives whole gradients, and the payload and the
+        momenta are cut back to the rank's blocks at the end."""
+        if shard is not None:
+            params = shard.whole_params(params)
         wp = broadcast_to_workers(params, m)
         mom = self._initial_momenta(extras, params, m)
+        if mom is not None and shard is not None:
+            mom = shard.whole_worker(mom)
         step_losses = []
         for j in range(batch_lead(batch)):
             losses, grads = vgrad_per(wp, batch_map(lambda x: x[j], batch))
@@ -203,6 +215,10 @@ class LocalUpdateStrategy(CommStrategy):
                 mom = select_rows(active, new_mom, mom)
             step_losses.append(torch.where(active, losses, 0.0))
         payload = tree_map(lambda p, w: p.float() - w.float(), params, wp)
+        if shard is not None:
+            payload = shard.cut_worker(payload)
+            if mom is not None:
+                mom = shard.cut_worker(mom)
         return (_masked_mean_losses(torch.stack(step_losses), h_steps),
                 payload, mom)
 
@@ -296,17 +312,29 @@ class LocalMomentumStrategy(LocalUpdateStrategy):
     def init_extras(self, params, m, make_grad_zeros, bcast):
         return {"momenta": bcast(make_grad_zeros(), m)}
 
+    def extras_specs(self, param_spec, worker_param_spec, worker_grad_spec):
+        return {"momenta": worker_grad_spec}
+
     def post_upload(self, extras, cache, upload, ctx):
         mom_run = cache   # the momenta after the local run
         cnt = upload.sum(dtype=torch.int32).clamp_min(1).float()
+        rows = ctx.plane_rows(upload)
 
-        def leaf(mn, mo):
-            mask = upload.reshape((-1,) + (1,) * (mn.dim() - 1))
-            avg = torch.where(mask, mn.float(), 0.0).sum(dim=0) / cnt
-            return torch.where(mask, avg[None].to(mo.dtype), mo)
+        def mask_of(x):
+            return rows.reshape((-1,) + (1,) * (x.dim() - 1))
+
+        masked = tree_map(lambda mn: torch.where(mask_of(mn), mn.float(),
+                                                 0.0), mom_run)
+        if ctx.shard is not None:
+            # the uploaders' rows of the rank's blocks, over the workers
+            masked = ctx.shard.worker_rows(masked)
+
+        def leaf(ms, mo):
+            avg = ms.sum(dim=0) / cnt
+            return torch.where(mask_of(mo), avg[None].to(mo.dtype), mo)
 
         return {**extras,
-                "momenta": tree_map(leaf, mom_run, extras["momenta"])}
+                "momenta": tree_map(leaf, masked, extras["momenta"])}
 
     def _local_step_flat(self, wp, g, mom):
         r = self.rule

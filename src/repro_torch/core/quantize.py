@@ -20,7 +20,8 @@ import math
 
 import torch
 
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
+                                     tree_unflatten)
 
 
 def _levels(bits: int) -> float:
@@ -53,22 +54,29 @@ def quantize_dequantize(tree, bits: int):
     return tree_map(leaf, tree)
 
 
-def per_worker_quantize_dequantize(tree, bits: int):
+def per_worker_quantize_dequantize(tree, bits: int, complete=None):
     """Same, but leaves carry a leading worker axis: one scale per worker
-    (axis 0), as each worker would transmit independently."""
+    (axis 0), as each worker would transmit independently. ``complete``
+    (the mesh runtime's, or None): the leaves are the rank's blocks, and
+    ``complete(maxima, "max")`` takes the list of their per-worker maxima
+    to the whole leaves' (a max is exact, so the scales are the whole
+    leaves' bit for bit)."""
     if bits <= 0 or bits >= 32:
         return tree
     levels = _levels(bits)
-
-    def leaf(x):
+    leaves = tree_leaves(tree)
+    maxima = []
+    for x in leaves:
         mag = x.float().abs()
         dims = tuple(range(1, x.dim()))
         # (M,) leaves: one entry per worker (amax over no axis)
-        scale = torch.clamp_min(
-            mag.amax(dim=dims, keepdim=True) if dims else mag, 1e-12)
-        return round_trip(x, scale, levels)
-
-    return tree_map(leaf, tree)
+        maxima.append(mag.amax(dim=dims, keepdim=True) if dims else mag)
+    if complete is not None:
+        maxima = complete(maxima, "max")
+    out = [round_trip(x, torch.clamp_min(s, 1e-12), levels)
+           for x, s in zip(leaves, maxima)]
+    return (tree_unflatten(tree_paths(tree), out) if isinstance(tree, dict)
+            else out[0])
 
 
 # ------------------------------------------------------------------- top-k

@@ -17,17 +17,16 @@ and mesh shape (a mesh is read through its ``.shape`` dict only):
   * the "pod" axis never shards parameters: pods replicate the model and
     are CADA's workers.
 
-The mesh runtime executes all of them on the flat plane: the worker axis
-and the flat state's axes (:class:`FlatSharding`), the model axis and
-parameter FSDP in training (``trainer.jit_train_step``), and the model
-axis and the batch over the data axes in serving
-(``distributed/serving.py``): :func:`cut_tree`, :func:`shard_params`,
-:func:`shard_cache` and :func:`shard_batch` cut the rank's blocks by the
-tables, and a :class:`TPContext` carries the collectives the model code
-completes a sharded dim with, each with its backward, and the per-layer
-gathers of the FSDP dims (:class:`FSDPLeaf`). The pytree plane's
-per-leaf sharded state is a table only, and the trainer refuses it by
-name.
+The mesh runtime executes all of them: the worker axis and the flat
+state's axes (:class:`FlatSharding`), the per-leaf state of the pytree
+plane (:class:`TreeSharding`), the model axis and parameter FSDP in
+training (``trainer.jit_train_step``), and the model axis and the batch
+over the data axes in serving (``distributed/serving.py``):
+:func:`cut_tree`, :func:`shard_params`, :func:`shard_cache` and
+:func:`shard_batch` cut the rank's blocks by the tables, and a
+:class:`TPContext` carries the collectives the model code completes a
+sharded dim with, each with its backward, and the per-layer gathers of
+the FSDP dims (:class:`FSDPLeaf`).
 
 :class:`FlatSharding` is both the reference's static description (the
 mesh, the worker axis, the state axes) and, on a mesh of ranks
@@ -36,7 +35,12 @@ which flat columns its planes hold, which server slice it owns, the cuts
 of a global plane to those slices and the gathers back (in place of the
 reference's ``constrain_server``/``constrain_worker``, which pin a global
 array's layout for the partitioner), and the collectives the shard-local
-kernel forms complete their scalars with.
+kernel forms complete their scalars with. :class:`TreeSharding` is the
+same for the pytree plane's per-leaf state: the reference's spec trees
+(parameters, moments, gradient-shaped and worker-leading state), the
+moves of a leaf between them (:func:`move`), and the one collective for
+each set of axes that completes a per-leaf sum or max over exactly the
+axes that cut each leaf.
 """
 from __future__ import annotations
 
@@ -69,6 +73,20 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+def strip_axis(spec: P, axis: str) -> P:
+    """``spec`` with ``axis`` removed from every dim."""
+    dims = []
+    for d in spec:
+        if d == axis:
+            dims.append(None)
+        elif isinstance(d, tuple):
+            kept = tuple(a for a in d if a != axis)
+            dims.append(kept if kept else None)
+        else:
+            dims.append(d)
+    return P(*dims)
 
 
 # ------------------------------------------------------- flat state plane
@@ -113,6 +131,15 @@ class FlatSharding:
             s *= int(self.mesh.shape[a])
         return s
 
+    @property
+    def worker_pspecs(self):
+        """The blocks of a point that is the rank's worker's own (cada2's
+        stale iterate, a delta rule's local parameters): the parameters'
+        specs without the worker axis, so that a per-worker evaluation's
+        FSDP gathers stay among its worker's ranks (where the worker axis
+        is an FSDP axis, another worker's rank holds another point)."""
+        return tree_map(lambda sp: strip_axis(sp, self.waxis), self.pspecs)
+
     def server_spec(self) -> P:
         """(n_flat,) server-plane PartitionSpec."""
         return P(spec_dim(self.axes))
@@ -156,12 +183,7 @@ class FlatSharding:
     def all_reduce(self, x: torch.Tensor, axes: tuple, op: str = "sum"):
         """``x`` reduced over the ranks that differ only on ``axes`` (a new
         tensor; ``x`` itself when that group is this rank alone)."""
-        group = self.mesh.group(axes)
-        if group is None:
-            return x
-        out = x.clone()
-        dist.all_reduce(out, op=_OPS[op], group=group)
-        return out
+        return all_reduce_over(self.mesh, x, axes, op)
 
     def gather_cols(self, buf: torch.Tensor) -> torch.Tensor:
         """This rank's column slice of its rows -> the whole rows."""
@@ -197,6 +219,25 @@ class FlatSharding:
         full[self.row_index(part.device)] = part
         return self.all_reduce(full, axes)
 
+    def worker_points(self, ring, slot):
+        """The rank's worker's row of the stale-iterate ring (the ring cut
+        by the parameters' specs, a leading (R,) axis; ``slot`` every
+        worker's (M,) ring row), as the one-row blocks of
+        :attr:`worker_pspecs`. Every rank knows every worker's slot, so
+        the rows the workers read are gathered over the worker axis, the
+        same rows on every rank, and the rank keeps its own."""
+        own = slot[self.row_index(slot.device)]
+        if all(a == b for a, b in zip(tree_leaves(self.pspecs),
+                                      tree_leaves(self.worker_pspecs))):
+            return tree_map(lambda x: x.index_select(0, own.long()), ring)
+        rows = sorted(set(slot.tolist()))
+        idx = torch.tensor(rows, dtype=torch.long, device=slot.device)
+        mine = rows.index(int(own[0]))
+        return tree_map(
+            lambda x, a, b: move(x.index_select(0, idx), P(None, *a),
+                                 P(None, *b), self.mesh)[mine:mine + 1],
+            ring, self.pspecs, self.worker_pspecs)
+
     def groups(self) -> None:
         """Make every process group the round uses. ``new_group`` is a
         collective of the whole world, so the mesh runtime calls this on
@@ -204,6 +245,18 @@ class FlatSharding:
         for axes in ((self.waxis,), self.col_axes, self.axes,
                      self.plane_axes):
             self.mesh.group(axes)
+
+
+def all_reduce_over(mesh, x: torch.Tensor, axes: tuple, op: str = "sum"
+                    ) -> torch.Tensor:
+    """``x`` reduced over the ``axes`` group of ``mesh`` (a new tensor;
+    ``x`` itself when that group is this rank alone)."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=_OPS[op], group=group)
+    return out
 
 
 def gather_over(mesh, x: torch.Tensor, axes: tuple, dim: int = -1
@@ -630,6 +683,218 @@ def uncut_tree(tree, specs, mesh, lead: int = 0):
     return tree_unflatten(tree_paths(tree), [
         uncut(x, P(*pre, *s), mesh) for x, s in zip(tree_leaves(tree),
                                                    tree_leaves(specs))])
+
+
+def leaf_axes(spec: P) -> tuple:
+    """Every mesh axis that cuts a dim of ``spec``, in the order they
+    appear."""
+    return tuple(dict.fromkeys(a for e in spec for a in spec_axes(e)))
+
+
+def move(x, src: P, dst: P, mesh):
+    """A tensor's block under ``src`` -> its block under ``dst``: each dim
+    whose entries differ is gathered over its ``src`` axes, then cut to
+    the rank's part over its ``dst`` axes. A strict part is a contiguous
+    copy, so the tensor it came from may be freed; where no dim differs,
+    ``x`` itself."""
+    out, narrowed = x, False
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        sa, sb = spec_axes(a), spec_axes(b)
+        if sa == sb:
+            continue
+        if mesh.size(sa) > 1:
+            out = gather_over(mesh, out, sa, dim)
+        n = mesh.size(sb)
+        if n > 1:
+            step = out.shape[dim] // n
+            out = out.narrow(dim, mesh.index(sb) * step, step)
+            narrowed = True
+    return (out.clone(memory_format=torch.contiguous_format) if narrowed
+            else out)
+
+
+def one_dim_per_axis(spec: P) -> P:
+    """``spec`` with every mesh axis on one dim at most: an axis that
+    cuts a dim alone (a tensor-parallel dim) keeps it and leaves the
+    tuples of the other dims, and of a tuple repeated elsewhere the first
+    dim keeps it. The reference's tables repeat an axis where the FSDP
+    axes name "model" (``state_fsdp_axes=("model", "data")``), a spec
+    that its ``NamedSharding`` rejects; each axis dropped here leaves a
+    dim that the remaining axes still divide."""
+    alone = {e for e in spec if isinstance(e, str)}
+    seen, dims = set(), []
+    for e in spec:
+        axes = spec_axes(e)
+        if not isinstance(e, str):
+            axes = tuple(a for a in axes if a not in alone and a not in seen)
+        seen.update(axes)
+        dims.append(spec_dim(axes))
+    return P(*dims)
+
+
+def _inner(spec: P) -> P:
+    """A worker-leading spec with its worker dim left whole (the rank
+    holds one row of it)."""
+    return P(None, *spec[1:])
+
+
+@dataclass(frozen=True)
+class TreeSharding:
+    """How the pytree plane's per-leaf state shards over a mesh: the
+    counterpart of :class:`FlatSharding` for ``fused=False``, built once
+    from the spec trees of the reference's pytree ``train_state_specs``:
+
+      * ``psp``: the parameters (``param_pspecs``);
+      * ``msp``: the moments h, v̂ (over ``state_fsdp_axes`` where set);
+      * ``gsp``: the gradient-shaped CADA state ∇ (over "data" under
+        ``shard_cada_state``);
+      * ``gwsp``: the worker-leading (M, ...) form of ``gsp``, the worker
+        axis leading and stripped from the inner dims (the stale
+        gradients and the rules' per-worker trees);
+      * ``wsp``: the worker-leading form of ``psp`` (cada2's stale
+        iterates).
+
+    On a mesh of ranks each rank holds its blocks under each spec: of a
+    worker-leading tree, its worker's row (``coord(waxis)``) cut by the
+    inner dims. It gives the moves of a leaf between the specs
+    (:func:`move`), the gathers of the workers' rows, and the collectives
+    that complete a per-leaf reduction over exactly the axes that cut the
+    leaf: a leaf no axis cuts is whole on every rank and its value is
+    taken as it is, once.
+    """
+    mesh: Any
+    waxis: str
+    psp: Any = field(compare=False)
+    msp: Any = field(compare=False)
+    gsp: Any = field(compare=False)
+    gwsp: Any = field(compare=False)
+    wsp: Any = field(compare=False)
+
+    @property
+    def pspecs(self):
+        """The parameters' specs (the name the trainer's forward reads on
+        either plane's sharding)."""
+        return self.psp
+
+    @property
+    def worker_pspecs(self):
+        """The blocks of a point that is the rank's worker's own (a stale
+        iterate: ``wsp``'s inner dims; a delta rule's local parameters):
+        the parameters' specs without the worker axis, as
+        :attr:`FlatSharding.worker_pspecs`."""
+        return tree_map(lambda sp: strip_axis(sp, self.waxis), self.psp)
+
+    # ---- collectives
+    def all_reduce(self, x: torch.Tensor, axes: tuple, op: str = "sum"):
+        return all_reduce_over(self.mesh, x, axes, op)
+
+    def row_index(self, device) -> torch.Tensor:
+        """(1,) int64: the worker row this rank's worker trees hold."""
+        return torch.tensor([self.mesh.coord(self.waxis)], dtype=torch.long,
+                            device=device)
+
+    def plane_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The entries of an (M,) vector that belong to the rank's row."""
+        return v[self.row_index(v.device)]
+
+    def rows_sum(self, part: torch.Tensor) -> torch.Tensor:
+        """(M,) from this rank's one-row values: each rank puts its row in
+        a zero vector and one all-reduce over the worker axis adds them."""
+        full = torch.zeros((self.mesh.shape[self.waxis],), dtype=part.dtype,
+                           device=part.device)
+        full[self.row_index(part.device)] = part
+        return self.all_reduce(full, (self.waxis,))
+
+    def complete(self, parts: list, specs: list, op: str = "sum") -> list:
+        """Per-leaf partial results (one tensor a leaf, in leaf order, of
+        the rank's blocks under ``specs``) -> the whole leaves' results:
+        each completed over the axes that cut its leaf, the leaves that
+        share those axes in one all-reduce; a leaf no axis cuts is
+        returned as it is."""
+        groups: dict = {}
+        for i, spec in enumerate(specs):
+            axes = tuple(a for a in leaf_axes(spec)
+                         if self.mesh.shape.get(a, 1) > 1)
+            if axes:
+                groups.setdefault(tuple(sorted(
+                    axes, key=self.mesh.axes.index)), []).append(i)
+        out = list(parts)
+        for axes, idx in groups.items():
+            done = self.all_reduce(torch.cat([parts[i].reshape(-1)
+                                              for i in idx]), axes, op)
+            for i, part in zip(idx, done.split([parts[i].numel()
+                                                for i in idx])):
+                out[i] = part.reshape(parts[i].shape)
+        return out
+
+    def worker_specs(self) -> list:
+        """The specs of the rank's blocks of a worker tree, in leaf order:
+        ``gwsp``'s, the worker dim whole (the rank holds one row)."""
+        return [_inner(sp) for sp in tree_leaves(self.gwsp)]
+
+    # ---- moves
+    def move_tree(self, tree, src, dst, lead: int = 0):
+        """Every leaf of ``tree`` from its block under ``src`` to its block
+        under ``dst`` (``lead`` leading dims whole)."""
+        pre = (None,) * lead
+        return tree_map(lambda x, a, b: move(x, P(*pre, *a), P(*pre, *b),
+                                             self.mesh), tree, src, dst)
+
+    def whole_params(self, params):
+        """The rank's ``psp`` blocks of θ -> the whole parameters."""
+        return uncut_tree(params, self.psp, self.mesh)
+
+    def params_to_stale(self, params):
+        """The rank's ``psp`` blocks of θ -> its blocks of one stale
+        iterate (:attr:`worker_pspecs`, ``wsp``'s inner dims)."""
+        return self.move_tree(params, self.psp, self.worker_pspecs)
+
+    def worker_rows(self, tree):
+        """The rank's one-row blocks of a worker tree -> every worker's
+        rows of the same blocks, (M, ...), gathered over the worker
+        axis."""
+        return tree_map(lambda x: gather_over(self.mesh, x, (self.waxis,),
+                                              0), tree)
+
+    def worker_to_grad(self, tree):
+        """Blocks of a worker tree's inner dims (a per-leaf reduction over
+        the workers) -> the rank's ``gsp`` blocks: ``gsp`` cuts each dim
+        over the inner dims' axes and possibly the worker axis too."""
+        return self.move_tree(tree, tree_map(lambda s: P(*s[1:]), self.gwsp),
+                              self.gsp)
+
+    def cut_worker(self, tree):
+        """One worker's row of whole leaves, (1, ...) -> the rank's blocks
+        of it under ``gwsp``."""
+        return cut_tree(tree, tree_map(_inner, self.gwsp), self.mesh)
+
+    def whole_worker(self, tree):
+        """The rank's ``gwsp`` blocks of its worker's row -> the row's
+        whole leaves (gathered over the inner dims' axes)."""
+        return uncut_tree(tree, tree_map(_inner, self.gwsp), self.mesh)
+
+    def on_whole_worker(self, f, tree):
+        """``f`` of the worker's whole leaves, cut back to the rank's
+        blocks: for a per-leaf selection that needs the whole leaf (top-k's
+        exact support)."""
+        return self.cut_worker(f(self.whole_worker(tree)))
+
+    def whole_size(self, tree, specs) -> int:
+        """The element count of the whole tree whose rank's blocks under
+        ``specs`` are ``tree``."""
+        return sum(x.numel() * self.mesh.size(leaf_axes(sp))
+                   for x, sp in zip(tree_leaves(tree), tree_leaves(specs)))
+
+    def groups(self) -> None:
+        """Make every process group the pytree round uses, in the same
+        order on every rank (``new_group`` is a collective of the
+        world)."""
+        self.mesh.group((self.waxis,))
+        for tree in (self.psp, self.msp, self.gsp, self.gwsp, self.wsp):
+            for spec in tree_leaves(tree):
+                for entry in spec:
+                    self.mesh.group(spec_axes(entry))
+                self.mesh.group(leaf_axes(spec))
 
 
 class TPContext:

@@ -67,8 +67,13 @@ backward run on its shards through ``sharding.TPContext``: each
 collective of the model axis has its backward, and each FSDP leaf is
 gathered per layer inside the remat region, its gradient handed back
 whole (every data rank is another worker, whose own gradient Algorithm 1
-needs whole). The rank's gradients are then gathered over the model axis
-into whole leaves.
+needs whole). An evaluation at a point that is the worker's own (cada2's
+stale iterate, a delta rule's local parameters) runs under
+``train_context(worker=True)``: its FSDP gathers leave out the worker
+axis, over which the rank holds its worker's point whole (the flat
+plane's ring rows gathered by ``FlatSharding.worker_points``), since
+another worker's ranks hold another point. The rank's gradients are then
+gathered over the model axis into whole leaves.
 
 The flat plane stays the reference's: ``flat_layout`` over whole leaves,
 ZeRO-sharded as ``flat_state_axes`` resolves it (``state_fsdp_axes``,
@@ -79,9 +84,16 @@ and one all-reduce completes their scalars (``kernels/ops.py``). Every
 model rank of a data group runs the same round on the same slice. θ' is
 gathered whole and cut back to the rank's parameter shards.
 
-Refused by name, for a later slice: the pytree plane's sharded state
-(``fused=False`` with ``state_fsdp_axes`` or ``shard_cada_state``, and the
-pytree plane on the mesh).
+The pytree plane (``fused=False``) runs on the mesh too, with the
+reference's per-leaf specs (:func:`train_state_specs`,
+``sharding.TreeSharding``): the moments over ``state_fsdp_axes``, ∇ and
+the worker trees over "data" under ``shard_cada_state``, everything else
+by the parameters' specs. A rank holds its blocks of each leaf; the round
+(``comm.comm_round(shard=)``) runs on them, its per-leaf norms, the wire's
+scales and top-k's selection completed over the axes that cut each leaf,
+eq. (3) the mean of the workers' rows gathered over the worker axis; the
+server step is :func:`_amsgrad_apply` on the moments' blocks, Σupd²
+completed over their axes, and θ' moved back to the parameters' blocks.
 """
 from __future__ import annotations
 
@@ -92,14 +104,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import flat as F
-from repro_torch.core.comm import (comm_round, init_comm_state, nabla_f32,
+from repro_torch.core.comm import (comm_round, comm_state_specs,
+                                   init_comm_state, nabla_f32,
                                    record_progress, strategy_for)
 from repro_torch.core.rules import CommRule
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (FlatSharding, P, TPContext,
-                                              cut_tree, model_specs,
-                                              param_pspecs, uncut_tree,
-                                              wants_fsdp)
+                                              TreeSharding, cut, cut_tree,
+                                              model_specs, one_dim_per_axis,
+                                              param_pspecs, strip_axis,
+                                              uncut, uncut_tree, wants_fsdp)
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import DATA, POD
 from repro_torch.models.config import ModelConfig
@@ -109,7 +123,6 @@ from repro_torch.utils.trees import (tree_add, tree_leaves, tree_map,
                                      tree_unflatten, tree_zeros_like)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NEXT = "is the next slice of the port (ROADMAP.md queue 1)"
 
 
 @dataclass(frozen=True)
@@ -132,12 +145,6 @@ class TrainHParams:
     #                                 occupied ring row (flat step only)
 
     def __post_init__(self):
-        for name in ("state_fsdp_axes", "shard_cada_state"):
-            if getattr(self, name) and not self.fused:
-                raise NotImplementedError(
-                    f"TrainHParams.{name}={getattr(self, name)!r} with "
-                    f"fused=False: the pytree plane's per-leaf sharded "
-                    f"state {_NEXT}")
         for name in ("cada_dtype", "moments_dtype"):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
@@ -228,10 +235,13 @@ def _state(hp: TrainHParams, m: int, params, device,
                                      grad_dtype=hp.cada_torch_dtype)))
 
 
-def _amsgrad_apply(params, h, vhat, grad, hp: TrainHParams):
+def _amsgrad_apply(params, h, vhat, grad, hp: TrainHParams, complete=None):
     """The paper's (2a)-(2c) per leaf, in eager PyTorch (the pytree
     plane's server step; no kernel, as in the reference): (params', h',
-    v̂', ||Δθ||²). Math in fp32; the moments keep their storage dtype."""
+    v̂', ||Δθ||²). Math in fp32; the moments keep their storage dtype.
+    ``complete`` (the mesh runtime's, or None): the leaves are the rank's
+    blocks, and ``complete(sums)`` takes the list of the leaves' partial
+    Σupd² to the whole leaves' before they are added in leaf order."""
     h_new = tree_map(
         lambda m, g: (hp.b1 * m.float() + (1 - hp.b1) * g.float()
                       ).to(m.dtype), h, grad)
@@ -244,8 +254,10 @@ def _amsgrad_apply(params, h, vhat, grad, hp: TrainHParams):
                    h_new, vhat_new)
     new_params = tree_map(lambda p, u: (p.float() + u).to(p.dtype),
                           params, upd)
-    dsq = tree_sq_norm(upd)
-    return new_params, h_new, vhat_new, dsq
+    if complete is None:
+        return new_params, h_new, vhat_new, tree_sq_norm(upd)
+    sums = complete([torch.sum(torch.square(u)) for u in tree_leaves(upd)])
+    return new_params, h_new, vhat_new, sum(sums)
 
 
 def _value_and_grad(loss_fn, params, wbatch, tp=None):
@@ -589,6 +601,40 @@ def flat_sharding(cfg: ModelConfig, mesh, hp: TrainHParams) -> FlatSharding:
                                             hp.fsdp_axes))
 
 
+def tree_sharding(cfg: ModelConfig, mesh, hp: TrainHParams
+                  ) -> TreeSharding:
+    """The pytree plane's ``sharding.TreeSharding`` for (cfg, mesh, hp):
+    the reference's spec trees (its ``train_state_specs`` pytree branch).
+    The moments may ZeRO over more axes than the parameters
+    (``state_fsdp_axes``), and the gradient-shaped CADA state, which has
+    no compute locality, over "data" under ``shard_cada_state`` whatever
+    the parameters' FSDP. Where the moments' table would put one axis on
+    two dims of a leaf (``state_fsdp_axes`` naming "model", the axis of
+    its tensor-parallel dim), the FSDP dim leaves it
+    (``sharding.one_dim_per_axis``): the reference's table is then a spec
+    its ``NamedSharding`` rejects, and its mesh-free step, the one that
+    runs there, ignores the knob."""
+    psp = param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)
+    waxis = worker_axis_name(mesh)
+    msp = (tree_map(one_dim_per_axis, param_pspecs(
+        cfg, mesh, True, hp.state_fsdp_axes)) if hp.state_fsdp_axes
+        else psp)
+    gsp = (param_pspecs(cfg, mesh, True, (DATA,)) if hp.shard_cada_state
+           else psp)
+    return TreeSharding(mesh=mesh, waxis=waxis, psp=psp, msp=msp, gsp=gsp,
+                        gwsp=_prepend_worker(gsp, waxis),
+                        wsp=_prepend_worker(psp, waxis))
+
+
+def state_sharding(cfg: ModelConfig, mesh, hp: TrainHParams):
+    """The state's sharding on ``mesh``: :func:`flat_sharding` on the flat
+    plane, :func:`tree_sharding` on the pytree plane (``fused=False``).
+    :func:`shard_train_state` and :func:`unshard_train_state` take
+    either."""
+    return (flat_sharding(cfg, mesh, hp) if hp.fused
+            else tree_sharding(cfg, mesh, hp))
+
+
 def flat_state_shards(cfg: ModelConfig, mesh, hp: TrainHParams) -> int:
     """The flat plane's state-shard count on ``mesh``: pass it as
     ``shards=`` to :func:`init_train_state` for :func:`jit_train_step`."""
@@ -600,36 +646,21 @@ def flat_layout(cfg: ModelConfig, shards: int = 1) -> F.FlatLayout:
     return F.layout_of(abstract_params(cfg), shards=shards)
 
 
-def _strip_axis(spec: P, axis: str) -> P:
-    """Remove ``axis`` from every dim of a PartitionSpec."""
-    dims = []
-    for d in spec:
-        if d == axis:
-            dims.append(None)
-        elif isinstance(d, tuple):
-            kept = tuple(a for a in d if a != axis)
-            dims.append(kept if kept else None)
-        else:
-            dims.append(d)
-    return P(*dims)
-
-
 def _prepend_worker(specs, axis: str):
     """(M, ...)-leading per-worker tree: the worker axis leads; inner dims
     keep their param sharding minus the worker axis."""
-    return tree_map(lambda sp: P(axis, *_strip_axis(sp, axis)), specs)
+    return tree_map(lambda sp: P(axis, *strip_axis(sp, axis)), specs)
 
 
 def train_state_specs(cfg: ModelConfig, mesh, hp: TrainHParams
                       ) -> DistTrainState:
-    """PartitionSpecs of the flat plane's state (the reference's table):
-    (n_flat,) server planes over the state axes, (M, n_flat) planes over
-    the worker axis × the column axes, parameter-shaped entries by their
-    param specs."""
+    """PartitionSpecs of the state (the reference's table). The flat
+    plane: (n_flat,) server planes over the state axes, (M, n_flat) planes
+    over the worker axis × the column axes, parameter-shaped entries by
+    their param specs. The pytree plane: every leaf by its spec tree of
+    :func:`tree_sharding`."""
     if not hp.fused:
-        raise NotImplementedError(
-            f"train_state_specs with fused=False: the pytree plane's "
-            f"per-leaf sharded state {_NEXT}")
+        return _tree_state_specs(tree_sharding(cfg, mesh, hp), hp)
     psp = param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)
     waxis = worker_axis_name(mesh)
     strategy = strategy_for(hp.rule)
@@ -640,6 +671,19 @@ def train_state_specs(cfg: ModelConfig, mesh, hp: TrainHParams
               F.flat_comm_state_specs(
                   strategy, psp, _prepend_worker(psp, waxis), waxis, P,
                   state_axes=fs.axes, col_axes=fs.col_axes)))
+
+
+def _tree_state_specs(ts: TreeSharding, hp: TrainHParams) -> DistTrainState:
+    """The pytree plane's state specs from its spec trees: the moments by
+    ``msp``, the CommState by ``comm_state_specs`` (∇ by ``gsp``, the
+    worker trees by ``gwsp``, cada2's stale iterates by ``wsp``, the (M,)
+    vectors replicated)."""
+    strategy = strategy_for(hp.rule)
+    return DistTrainState(
+        step=P(), params=ts.psp, h=ts.msp, vhat=ts.msp,
+        comm=(None if strategy.stateless else
+              comm_state_specs(strategy, ts.psp, ts.wsp, ts.gsp, ts.gwsp,
+                               P(None))))
 
 
 def train_batch_specs(mesh, local_steps: int = 1):
@@ -693,34 +737,55 @@ def _param_extras_specs(fs: FlatSharding, hp: TrainHParams) -> dict:
     return {k: v for k, v in specs.items() if isinstance(v, dict)}
 
 
-def shard_train_state(state: DistTrainState, fs: FlatSharding,
-                      hp: TrainHParams) -> DistTrainState:
-    """A whole flat state (every rank holds the same one, made by
-    :func:`init_train_state` at ``shards=fs.shards``) -> this rank's: its
-    server slice of h, v̂ and ∇, its worker row of the (M, n_flat) planes
-    cut to its columns, its blocks of the parameters and of their copies
-    (the ring, the snapshot) by ``fs.pspecs``; (M,) vectors stay whole."""
+def _walk(f, state, specs):
+    """``f(tensor, spec)`` over every tensor of a state (NamedTuples and
+    dicts) and its spec tree of the same structure; other leaves kept."""
+    if isinstance(state, dict):
+        return {k: _walk(f, v, specs[k]) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_walk(f, v, sp)
+                             for v, sp in zip(state, specs)))
+    return f(state, specs) if torch.is_tensor(state) else state
+
+
+def shard_train_state(state: DistTrainState, fs, hp: TrainHParams
+                      ) -> DistTrainState:
+    """A whole state (every rank holds the same one) -> this rank's.
+
+    The flat plane (``fs`` a ``FlatSharding``; the state made by
+    :func:`init_train_state` at ``shards=fs.shards``): its server slice of
+    h, v̂ and ∇, its worker row of the (M, n_flat) planes cut to its
+    columns, its blocks of the parameters and of their copies (the ring,
+    the snapshot) by ``fs.pspecs``; (M,) vectors stay whole. The pytree
+    plane (``fs`` a ``TreeSharding``): its block of every leaf by
+    :func:`train_state_specs`, of a worker tree its worker's row."""
+    if isinstance(fs, TreeSharding):
+        return _walk(lambda x, sp: cut(x, sp, fs.mesh), state,
+                     _tree_state_specs(fs, hp))
     layout = F.layout_of(state.params, shards=fs.shards)
-    cut = {"h": fs.cut_server(state.h, layout),
+    mine = {"h": fs.cut_server(state.h, layout),
            "vhat": fs.cut_server(state.vhat, layout)}
-    cut["params"] = cut_tree(state.params, fs.pspecs, fs.mesh)
+    mine["params"] = cut_tree(state.params, fs.pspecs, fs.mesh)
     if state.comm is not None:
         planes = _worker_planes(strategy_for(hp.rule))
         trees = _param_extras_specs(fs, hp)
         extras = {k: fs.cut_rows(v, layout) if k in planes
                   else cut_tree(v, trees[k], fs.mesh) if k in trees else v
                   for k, v in state.comm.extras.items()}
-        cut["comm"] = state.comm._replace(
+        mine["comm"] = state.comm._replace(
             nabla=fs.cut_server(state.comm.nabla, layout),
             worker_grads=fs.cut_rows(state.comm.worker_grads, layout),
             extras=extras)
-    return state._replace(**cut)
+    return state._replace(**mine)
 
 
-def unshard_train_state(state: DistTrainState, fs: FlatSharding,
-                        hp: TrainHParams) -> DistTrainState:
+def unshard_train_state(state: DistTrainState, fs, hp: TrainHParams
+                        ) -> DistTrainState:
     """This rank's state -> the whole one, on every rank (the gathers of
     :func:`shard_train_state`'s cuts)."""
+    if isinstance(fs, TreeSharding):
+        return _walk(lambda x, sp: uncut(x, sp, fs.mesh), state,
+                     _tree_state_specs(fs, hp))
     whole = {"h": fs.gather_server(state.h),
              "vhat": fs.gather_server(state.vhat)}
     whole["params"] = uncut_tree(state.params, fs.pspecs, fs.mesh)
@@ -737,23 +802,31 @@ def unshard_train_state(state: DistTrainState, fs: FlatSharding,
     return state._replace(**whole)
 
 
-def train_context(cfg: ModelConfig, fs: FlatSharding):
+def train_context(cfg: ModelConfig, fs, worker: bool = False):
     """The ``sharding.TPContext`` a rank's forward and backward run under
     (the model axis, the FSDP leaves of ``fs.pspecs``), or None where the
-    parameters are whole on every rank."""
-    tp = TPContext(cfg, fs.mesh, pspecs=fs.pspecs)
+    parameters are whole on every rank. ``worker``: the context of an
+    evaluation at a point that is the rank's worker's own (cada2's stale
+    iterate, a delta rule's local parameters), cut by
+    ``fs.worker_pspecs``: its FSDP gathers leave out the worker axis,
+    whose other ranks hold other workers' points."""
+    tp = TPContext(cfg, fs.mesh,
+                   pspecs=fs.worker_pspecs if worker else fs.pspecs)
     return tp if tp.size > 1 or tp.fsdp else None
 
 
-def _mesh_vgrads(cfg: ModelConfig, hp: TrainHParams, fs: FlatSharding,
-                 layout: F.FlatLayout, tp=None):
-    """The rank's worker's gradients, as whole leaves. Under ``tp`` they
-    are computed on the rank's shards (an FSDP leaf's whole on its FSDP
-    dim already) and gathered over the model axis. On the multi-pod mesh
-    the worker is a pod: each of its "data" ranks takes its slice of the
-    pod's batch, and the pod's gradient and loss are their mean (one
-    all-reduce of the packed fp32 gradient over "data")."""
-    vgrad, vgrad_per = make_vgrads(cfg, hp, tp)
+def _mesh_vgrads(cfg: ModelConfig, hp: TrainHParams, fs,
+                 layout: F.FlatLayout, tp=None, tp_worker=None):
+    """The rank's worker's gradients, as whole leaves: ``vgrad`` at θ
+    under ``tp``, ``vgrad_per`` at the worker's own point under
+    ``tp_worker`` (``train_context(..., worker=True)``). Each is computed
+    on the rank's shards (an FSDP leaf's whole on its FSDP dim already)
+    and gathered over the model axis. On the multi-pod mesh the worker is
+    a pod: each of its "data" ranks takes its slice of the pod's batch,
+    and the pod's gradient and loss are their mean (one all-reduce of the
+    packed fp32 gradient over "data")."""
+    vgrad = make_vgrads(cfg, hp, tp)[0]
+    vgrad_per = make_vgrads(cfg, hp, tp_worker)[1]
     msp = model_specs(fs.pspecs)
 
     def whole(f):
@@ -822,32 +895,36 @@ def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
 
     Every rank of ``mesh`` (a ``launch.mesh.Mesh`` over the process group)
     calls this and then ``step`` in lockstep. ``state`` is the rank's:
-    :func:`shard_train_state` of :func:`init_train_state` at
-    ``shards=flat_state_shards(cfg, mesh, hp)``, its parameters cut by
+    :func:`shard_train_state` of :func:`init_train_state` (at
+    ``shards=flat_state_shards(cfg, mesh, hp)``) by
+    ``state_sharding(cfg, mesh, hp)``, its parameters cut by
     ``param_pspecs(cfg, mesh, hp.fsdp, hp.fsdp_axes)`` (the model axis,
     and the FSDP axes where FSDP is on). ``batch`` is the whole
     worker-split batch (:func:`worker_split`, the same on every rank); the
     step reads its rank's part. Metrics are whole (M,) vectors on every
-    rank. ``impl`` is the dispatch override of ``kernels/ops.py``."""
-    if not hp.fused:
-        raise NotImplementedError(
-            f"the pytree plane (fused=False) on the mesh runtime {_NEXT}")
-    fs = flat_sharding(cfg, mesh, hp)
+    rank. ``impl`` is the dispatch override of ``kernels/ops.py`` (the
+    pytree plane's step launches no kernel, as the reference's)."""
+    fs = state_sharding(cfg, mesh, hp)
     fs.groups()
     tp = train_context(cfg, fs)
+    tp_worker = train_context(cfg, fs, worker=True)
     m = mesh.shape[fs.waxis]
     specs = train_state_specs(cfg, mesh, hp)
-    layout = flat_layout(cfg, fs.shards)
+    layout = flat_layout(cfg, flat_state_shards(cfg, mesh, hp))
     strategy = strategy_for(hp.rule)
     lead = int(strategy.delta_payload
                and F.batch_has_local_axis(hp.rule, None))
-    vgrad, vgrad_per = _mesh_vgrads(cfg, hp, fs, layout, tp)
+    vgrad, vgrad_per = _mesh_vgrads(cfg, hp, fs, layout, tp, tp_worker)
+    if not hp.fused:
+        step = _pytree_mesh_step(strategy, hp, fs, m, lead, vgrad,
+                                 vgrad_per)
+        return _maker(step, fs, m, lead), specs, m
     if strategy.delta_payload:
         # the local steps run at whole per-worker parameters (unpacked
-        # from the flat plane): the rank takes its shards of them
+        # from the flat plane): the rank takes its blocks of its worker's
         shard_per = vgrad_per
         vgrad_per = lambda wp, b: shard_per(       # noqa: E731
-            cut_tree(wp, fs.pspecs, mesh, lead=1), b)
+            cut_tree(wp, fs.worker_pspecs, mesh, lead=1), b)
 
     def packed(params):
         """θ as the whole (n_flat,) fp32 plane, from the rank's shards."""
@@ -899,10 +976,14 @@ def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
                            **out.metrics}
 
     step = step_always if strategy.stateless else step_flat
+    return _maker(step, fs, m, lead), specs, m
 
+
+def _maker(step, fs, m: int, lead: int):
+    """``make(batch)``: the step, for batches shaped like ``batch``
+    (checked against the mesh: M rows, and b_m that the pod's data ranks
+    divide)."""
     def make(batch: dict):
-        """The step, for batches shaped like ``batch`` (checked against
-        the mesh: M rows, and b_m that the pod's data ranks divide)."""
         for key, leaf in batch.items():
             if leaf.shape[lead] != m:
                 raise ValueError(f"{key}: {leaf.shape[lead]} worker rows "
@@ -910,4 +991,66 @@ def jit_train_step(cfg: ModelConfig, mesh, hp: TrainHParams, *, impl=None):
         _local_batch(batch, fs, lead)
         return step
 
-    return make, specs, m
+    return make
+
+
+def _pytree_mesh_step(strategy, hp: TrainHParams, ts: TreeSharding, m: int,
+                      lead: int, vgrad, vgrad_per):
+    """The pytree plane's step on the rank's blocks (``_make_pytree_step``
+    on the mesh). ``vgrad``/``vgrad_per`` are :func:`_mesh_vgrads`' (the
+    rank's worker's whole gradients at the rank's parameter shards, or at
+    its blocks of its worker's own point); the round sees them cut to the
+    ``gwsp`` blocks, at the rank's shards of θ or of the snapshot, or at
+    its worker's stale iterate, whose ``wsp`` blocks are the worker
+    point's. A delta rule's local steps run at whole per-worker
+    parameters, cut to the rank's blocks for each evaluation."""
+    mesh = ts.mesh
+
+    def blocks(f):
+        def call(p, b):
+            losses, grads = f(p, b)
+            return losses, ts.cut_worker(grads)
+        return call
+
+    fresh_fn = blocks(vgrad)
+    if strategy.delta_payload:
+        def per_fn(wp, b):
+            return vgrad_per(cut_tree(wp, ts.worker_pspecs, mesh, lead=1), b)
+    else:
+        per_fn = blocks(vgrad_per)
+    msp_leaves = tree_leaves(ts.msp)
+
+    def server_step(params, h, vhat, grad):
+        """``_amsgrad_apply`` on the rank's blocks under the moments'
+        specs (θ and the gradient moved there), Σupd² completed over
+        their axes, θ' moved back to the parameters' blocks."""
+        new, h2, vh2, dsq = _amsgrad_apply(
+            ts.move_tree(params, ts.psp, ts.msp), h, vhat,
+            ts.move_tree(grad, ts.gsp, ts.msp), hp,
+            complete=lambda sums: ts.complete(sums, msp_leaves))
+        return ts.move_tree(new, ts.msp, ts.psp), h2, vh2, dsq
+
+    def step_always(state: DistTrainState, batch):
+        losses, fresh = fresh_fn(state.params, _local_batch(batch, ts, lead))
+        grad = ts.worker_to_grad(tree_map(lambda g: torch.mean(g, dim=0),
+                                          ts.worker_rows(fresh)))
+        params, h, vhat, dsq = server_step(state.params, state.h,
+                                           state.vhat, grad)
+        return state._replace(step=state.step + 1, params=params, h=h,
+                              vhat=vhat), _always_metrics(
+            ts.rows_sum(losses), m, dsq)
+
+    def step(state: DistTrainState, batch):
+        k = state.step
+        out = comm_round(strategy, state.comm, state.params,
+                         _local_batch(batch, ts, lead), k, vgrad=fresh_fn,
+                         vgrad_per=per_fn, shard=ts)
+        params, h, vhat, dsq = server_step(state.params, state.h,
+                                           state.vhat, nabla_f32(out.comm))
+        new_state = DistTrainState(step=k + 1, params=params, h=h,
+                                   vhat=vhat,
+                                   comm=record_progress(out.comm, dsq, k))
+        return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                           **out.metrics}
+
+    return step_always if strategy.stateless else step

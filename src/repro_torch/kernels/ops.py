@@ -16,8 +16,15 @@ scalars: ‖Δθ‖² over the state axes, the (M,) norms over the worker and
 column axes. No plane is gathered. Eq. (3)'s row mean on the mesh is the
 reference's tree sum: a sum over the worker group, then ``/ m_total``;
 it launches no kernel.
+
+On the ``meta`` device (the dry run, ``launch/dryrun.py``) the two
+serving kernels take a shape-only route: their outputs' shapes and
+dtypes, with their operations counted by formula (:func:`counting_meta_ops`)
+(the plain versions' loops over time would run S small ops a layer).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -28,6 +35,37 @@ from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
 IMPLS = (None, "plain", "kernel")
+
+_META_COUNTS: list = []   # the dicts of the open ``counting_meta_ops``
+
+
+@contextlib.contextmanager
+def counting_meta_ops():
+    """Inside, the operations the shape-only routes on ``meta`` tensors
+    stand for are counted into the yielded dict (kernel name -> count):
+    no PyTorch counter sees a kernel's work, so each adds its count by
+    formula. Outside any such block nothing is counted."""
+    counts: dict = {}
+    _META_COUNTS.append(counts)
+    try:
+        yield counts
+    finally:
+        _META_COUNTS.remove(counts)
+
+
+def count_meta_ops(name: str, ops: int) -> None:
+    """Add ``ops`` operations to ``name``'s count in every open
+    :func:`counting_meta_ops` block."""
+    for counts in _META_COUNTS:
+        counts[name] = counts.get(name, 0) + int(ops)
+
+
+def live_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal (windowed) attention of length ``s``
+    computes."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 def use_kernel(t, impl=None) -> bool:
@@ -177,7 +215,15 @@ def selective_scan(dt, x, a, b, c, *, impl=None):
     """Selective scan from a zero state: (y (G, S, D) fp32 without the D·x
     skip or the gate, h_final (G, D, N) fp32). dt/x (G, S, D); a (G, D, N)
     (a zero-stride view over G is fine; stride 0 on N gives the kernel's
-    one-decay-per-channel form); b/c (G, S, N)."""
+    one-decay-per-channel form); b/c (G, S, N). On ``meta`` tensors the
+    outputs' shapes and dtypes alone, and 6·G·S·D·N operations counted
+    (:func:`counting_meta_ops`) (three FMA-class operations a state and step)."""
+    if dt.device.type == "meta":
+        g, s, d = dt.shape
+        n = a.shape[-1]
+        count_meta_ops("selective_scan", 6 * g * s * d * n)
+        return (torch.empty((g, s, d), dtype=torch.float32, device="meta"),
+                torch.empty((g, d, n), dtype=torch.float32, device="meta"))
     if use_kernel(dt, impl):
         return _ss.selective_scan(dt, x, a, b, c)
     return _ref.selective_scan_ref(dt, x, a, b, c)
@@ -185,7 +231,15 @@ def selective_scan(dt, x, a, b, c, *, impl=None):
 
 def flash_attention(q, k, v, *, window: int = 0, impl=None):
     """Causal (optionally windowed) self-attention, q (B, S, Hq, hd), k/v
-    (B, S, Hkv, hd), GQA by a head-index map; output in q's dtype."""
+    (B, S, Hkv, hd), GQA by a head-index map; output in q's dtype. On
+    ``meta`` tensors the output's shape and dtype alone, and the two
+    products' 4·hd flops a live (query, key) pair and head counted
+    (:func:`counting_meta_ops`)."""
+    if q.device.type == "meta":
+        b, s, hq, hd = q.shape
+        count_meta_ops("flash_attention", 4 * hd * live_pairs(s, window)
+                    * b * hq)
+        return torch.empty_like(q)
     if use_kernel(q, impl):
         return _fa.flash_attention(q, k, v, window=window)
     return _ref.flash_attention_ref(q, k, v, window=window)

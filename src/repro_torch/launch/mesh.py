@@ -23,6 +23,15 @@ import torch.distributed as dist
 
 DATA, MODEL, POD = "data", "model", "pod"
 
+# Rates of one card of the production fleet, from NVIDIA's H100 SXM5 data
+# sheet (the 700 W part): the dry run's roofline terms
+# (``launch/dryrun.py``) divide by them. Not measured here.
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core FLOP/s
+H100_HBM_BW = 3.35e12        # HBM3 bytes/s
+NVLINK_BW = 450e9            # NVLink 4 bytes/s a direction, a card
+IB_BW = 400e9 / 8            # 400 Gb/s InfiniBand NDR a card, bytes/s
+NODE_CARDS = 8               # cards a node, joined by NVLink
+
 
 class Mesh:
     """Ranks ``0 .. world-1`` laid out row-major over ``axes`` of

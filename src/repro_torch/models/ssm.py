@@ -19,7 +19,9 @@ Where the scan runs: two routes.
     kernel is opt-in and has no backward), and so does this one: there is
     no backward kernel.
 One-token decode steps are plain PyTorch on every device, as the
-reference's are plain jnp.
+reference's are plain jnp. On ``meta`` tensors (the dry run) both routes
+are shape-only, their operations counted by formula
+(``ops.counting_meta_ops``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ def selective_scan_chunked(dt, x, a, b, c, h0=None,
     differently)."""
     bsz, s, d = dt.shape
     n = b.shape[-1]
+    if dt.device.type == "meta" and h0 is None:
+        return _MetaScan.apply(dt, x, a, b, c)
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"seq len {s} not divisible by chunk {chunk}")
@@ -66,6 +70,30 @@ def selective_scan_chunked(dt, x, a, b, c, h0=None,
             h = decay[:, t] * h + drive[:, t]
             ys.append(torch.einsum("bdn,bn->bd", h, c_c[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+class _MetaScan(torch.autograd.Function):
+    """The training scan on ``meta`` tensors (the dry run): its outputs'
+    shapes, in the autograd graph, with 6·B·S·D·N operations counted
+    forward (three FMA-class operations a state and step) and twice that
+    backward; a step-by-step loop over S would dispatch S small ops a
+    layer."""
+
+    @staticmethod
+    def forward(ctx, dt, x, a, b, c):
+        bsz, s, d = dt.shape
+        n = b.shape[-1]
+        ctx.shapes = [(t.shape, t.dtype) for t in (dt, x, a, b, c)]
+        ctx.elems = bsz * s * d * n
+        ops.count_meta_ops("selective_scan_chunked", 6 * ctx.elems)
+        return (torch.empty((bsz, s, d), dtype=torch.float32, device="meta"),
+                torch.empty((bsz, d, n), dtype=torch.float32, device="meta"))
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        ops.count_meta_ops("selective_scan_chunked", 12 * ctx.elems)
+        return tuple(torch.empty(shape, dtype=dtype, device="meta")
+                     for shape, dtype in ctx.shapes)
 
 
 def _scan(dt, x, a, b, c, h0, impl=None, train=False):

@@ -69,12 +69,15 @@ def _host(x):
 
 def run_steps(rank: int, world: int, workdir: str) -> None:
     """The job's cases on a mesh of ``world`` ranks: each case is (name,
-    cfg, hp, whole initial state, worker-split batches); each rank cuts
-    its part of the state, steps through the batches with
-    ``jit_train_step``, and keeps the metrics and the whole state
-    (gathered back) of every step."""
+    cfg, hp, whole initial state, worker-split batches[, (sizes, axes) of
+    its own mesh or None[, options]]); each rank cuts its part of the
+    state, steps through the batches with ``jit_train_step``, and keeps
+    the metrics and the whole state (gathered back) of every step. The
+    option ``block_local`` runs the case with a deliberately wrong
+    pytree plane (:func:`_block_local_selection`)."""
     from repro_torch.distributed import trainer as TT
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.utils.trees import tree_leaves
 
     from repro_torch.kernels import cada_update
 
@@ -90,13 +93,15 @@ def run_steps(rank: int, world: int, workdir: str) -> None:
     out, meshes = {}, {}
     for case in job["cases"]:
         name, cfg, hp, state, batches = case[:5]
-        if len(case) > 5:       # a case of its own mesh
+        undo = (_block_local_selection()
+                if len(case) > 6 and case[6].get("block_local") else None)
+        if len(case) > 5 and case[5] is not None:   # a mesh of its own
             sizes, axes = case[5]
             if (sizes, axes) not in meshes:
                 meshes[sizes, axes] = Mesh(sizes, axes)
             mesh = meshes[sizes, axes]
         make, _, _ = TT.jit_train_step(cfg, mesh, hp)
-        fs = TT.flat_sharding(cfg, mesh, hp)
+        fs = TT.state_sharding(cfg, mesh, hp)
         # a list of states: each step starts from its own (reloaded) state
         starts = state if isinstance(state, list) else [state]
         st = TT.shard_train_state(_to(starts[0], device), fs, hp)
@@ -114,12 +119,36 @@ def run_steps(rank: int, world: int, workdir: str) -> None:
             mets.append(_host(m))
             states.append(_host(TT.unshard_train_state(st, fs, hp)))
         out[name] = {"metrics": mets, "states": states,
-                     "local_h": st.h.numel(), "collectives": counts,
+                     "local_h": sum(x.numel() for x in tree_leaves(st.h)),
+                     "collectives": counts,
                      "param_shapes": _shapes(st.params),
                      "param_storage": _storage_bytes(st.params),
                      "launches": {k: f.launches for k, f in counted.items()}}
+        if undo is not None:
+            undo()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _block_local_selection():
+    """Makes the pytree plane's per-leaf selections wrong on purpose, for
+    the test that must catch it: the wire's per-leaf max is not completed
+    over the axes that cut the leaf, and top-k selects within the rank's
+    block. Returns the undo."""
+    from repro_torch.distributed.sharding import TreeSharding
+    complete, whole = TreeSharding.complete, TreeSharding.on_whole_worker
+
+    def block_complete(self, parts, specs, op="sum"):
+        return list(parts) if op == "max" else complete(self, parts, specs,
+                                                        op)
+
+    TreeSharding.complete = block_complete
+    TreeSharding.on_whole_worker = lambda self, f, tree: f(tree)
+
+    def undo():
+        TreeSharding.complete = complete
+        TreeSharding.on_whole_worker = whole
+    return undo
 
 
 def run_launcher(rank: int, world: int, workdir: str) -> None:

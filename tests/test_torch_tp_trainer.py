@@ -15,7 +15,14 @@ for laq, whose quantized LHS runs higher). Cases:
     over the column group); topk on ``state_fsdp_axes=("data",)``;
   * the multi-pod mesh (pod=2, data=1, model=2): cada2 with ``fsdp=True``
     over ``fsdp_axes=("data", "pod")`` (the FSDP dim over the pods, which
-    are the workers).
+    are the workers);
+  * cada2 with ``fsdp=True`` at a c where one worker uploads and the
+    other skips, so that the two workers' stale iterates differ at the
+    next step: each rank's second evaluation must be at its own worker's
+    point, whose FSDP dim the worker axis cuts in the ring
+    (``FlatSharding.worker_points``); and the same with ``group_evals``,
+    where every rank evaluates every occupied ring row (each
+    evaluation's FSDP gathers span the other worker's ranks).
 
 Each step starts from the reference's state of that step (reloaded, so
 a near-threshold gate flip cannot snowball), and both sides take the
@@ -23,8 +30,8 @@ same batch. Contract, as ``test_torch_trainer_lockstep.py``'s: upload
 masks, staleness and cada2's slots and ring versions exact, except for a
 worker whose reference-side margin |LHS − RHS| is within MARGIN_BAND ·
 RHS (that step's floats are then not compared); θ's update, h, v̂, ∇, the
-worker plane, the ring, the loss and ‖Δθ‖² within STATE_TOL of each
-array's scale, a b-bit or top-k wire's differences checked and counted
+worker plane, the ring, the finite LHS, the loss and ‖Δθ‖² within
+STATE_TOL of each array's scale, a b-bit or top-k wire's differences checked and counted
 (``lockstep_wire.py``), an error-feedback residual at the wire's scale.
 θ's update is held to UPDATE_TOL: AMSGrad's normalized step divides a
 gradient entry by a root near √ε, which takes the gradients' gap to about
@@ -76,7 +83,15 @@ CASES = {
     "cada2-pod-fsdp": (dict(kind="cada2", c=20.0),
                        dict(fsdp=True, fsdp_axes=("data", "pod")), {},
                        POD_MODEL),
+    "cada2-fsdp-skew": (dict(kind="cada2", c=16.0), dict(fsdp=True), {},
+                        DATA_MODEL),
+    "cada2-fsdp-skew-grouped": (dict(kind="cada2", c=16.0),
+                                dict(fsdp=True, group_evals=True), {},
+                                DATA_MODEL),
 }
+# a case's seed, where it is not its place in CASES: the one at which the
+# skew cases' workers upload apart at step 1
+SEEDS = {"cada2-fsdp-skew": 4, "cada2-fsdp-skew-grouped": 4}
 INT_EXTRAS = ("slot", "ring_version")
 
 
@@ -97,6 +112,7 @@ def runs(tmp_path_factory):
     jcfg0, tcfg0 = JC.get_smoke_config(ARCH), TC.get_smoke_config(ARCH)
     cases, refs = [], {}
     for i, (name, (rule, hp_kw, change, mesh)) in enumerate(CASES.items()):
+        i = SEEDS.get(name, i)
         jcfg, tcfg = jcfg0.with_(**change), tcfg0.with_(**change)
         hp = TT.TrainHParams(rule=CommRule(**rule, **RULE), lr=LR, **hp_kw)
         shards = TT.flat_state_shards(tcfg, _Stub(*mesh), hp)
@@ -189,8 +205,12 @@ def test_mesh_steps_match_the_reference(runs, name):
         d_ref = _np(layout.pack(j.params)) - theta
         d_port = _np(layout.pack(t.params)) - theta
         spacing = np.spacing(np.abs(theta + d_ref))
+        finite = np.isfinite(jm["lhs"])
+        assert np.array_equal(finite, np.isfinite(mm["lhs"].numpy()))
         pairs = [("params update", d_ref, d_port, "col")] + _float_pairs(
-            j, t) + [("loss", jm["loss"], mm["loss"], None)]
+            j, t) + [("loss", jm["loss"], mm["loss"], None),
+                     ("lhs", jm["lhs"][finite], mm["lhs"].numpy()[finite],
+                      None)]
         for key, a, b, where in pairs:
             a, b = _np(a), _np(b)
             assert a.shape == b.shape, key
@@ -215,6 +235,9 @@ def test_mesh_steps_match_the_reference(runs, name):
     assert flips <= 1 and uploads > 0
     if hp.rule.kind != "topk":
         assert skips > 0, "the gate never skipped: the test is vacuous"
+    if name in SEEDS:
+        assert any(jm["upload_mask"][0] != jm["upload_mask"][1]
+                   for jm in j_mets[:-1]), "the workers never uploaded apart"
 
 
 def test_ranks_hold_their_parameter_shards(runs):
@@ -248,12 +271,28 @@ def test_rank_parameters_own_their_storage(runs, name):
                                    dict(fused=False, fsdp=True)],
                          ids=["pytree", "pytree-fsdp"])
 def test_remaining_refusals_raise_by_name(hp_kw):
-    """The pytree plane on the mesh stays refused by name, with or without
-    FSDP; the FSDP knobs and a model axis are accepted."""
+    """The pytree plane on the mesh, refused until the per-leaf sharded
+    state was ported, now builds with or without FSDP and is honoured: on
+    a one-rank mesh its step is the mesh-free pytree step bit for bit, and
+    its state specs are the per-leaf ones. The flat plane's FSDP knobs
+    build as before."""
     cfg = TC.get_smoke_config(ARCH)
     mesh = Mesh((1, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="fused=False"):
-        TT.jit_train_step(cfg, mesh, TT.TrainHParams(**hp_kw))
+    hp = TT.TrainHParams(rule=CommRule(kind="cada2", c=20.0, **RULE),
+                         lr=LR, **hp_kw)
+    make, specs, m = TT.jit_train_step(cfg, mesh, hp)
+    assert m == 1 and isinstance(specs.h, dict)
+    batch = TT.worker_split({"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 9))).long()}, 1)
+    whole = TT.init_train_state(cfg, hp, 1, 0, "cpu")
+    ts = TT.state_sharding(cfg, mesh, hp)
+    got, gm = make(batch)(TT.shard_train_state(whole, ts, hp), batch)
+    want, wm = TT.make_train_step(cfg, hp, 1)(whole, batch)
+    got = TT.unshard_train_state(got, ts, hp)
+    for a, b in zip(tree_leaves(got.params) + tree_leaves(got.h),
+                    tree_leaves(want.params) + tree_leaves(want.h)):
+        assert torch.equal(a, b)
+    assert torch.equal(gm["dtheta_sq"], wm["dtheta_sq"])
     make, specs, m = TT.jit_train_step(cfg, mesh, TT.TrainHParams(
         fsdp=True, fsdp_axes=("data", "pod")))
     assert m == 1 and callable(make)

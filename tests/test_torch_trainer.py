@@ -1,7 +1,7 @@
 """The port's LM trainer on its own: the JAX package's trainer properties
 (``tests/test_trainer_distributed.py``), the port's engine against its
 trainer per iteration (as ``tests/test_parity_engine_trainer.py`` pins for
-the reference), the refused hyper-parameters, the CLI and its token
+the reference), the hyper-parameters once refused, the CLI and its token
 stream, and the example's end-to-end run with its own loss-decrease
 check.
 
@@ -30,7 +30,7 @@ from repro_torch.core.engine import CADAEngine
 from repro_torch.core.rules import RULES, CommRule
 from repro_torch.distributed.trainer import (
     DistTrainState, TrainHParams, init_train_state, jit_train_step,
-    make_train_step, worker_split)
+    make_train_step, train_state_specs, worker_split)
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as TM
@@ -139,22 +139,28 @@ def test_state_follows_the_hyper_parameters():
     ("fsdp", True), ("fsdp_axes", ("data", "pod")),
     ("state_fsdp_axes", ("data",)), ("shard_cada_state", True)])
 def test_unported_hyper_parameters_are_refused_by_name(field, value):
-    """What the port leaves to a later slice is refused by name:
-    ZeRO-sharded state on the pytree plane (the state knobs with
-    ``fused=False``; on the flat plane they run on the mesh runtime and
-    the mesh-free step ignores them) and the pytree plane on the mesh.
-    Parameter FSDP (``fsdp``, ``fsdp_axes``) is ported: the mesh-free step
-    builds with it (one process holds whole parameters), and the mesh
-    runtime refuses it only on the pytree plane."""
-    pytree = field in ("state_fsdp_axes", "shard_cada_state")
-    if pytree:
-        with pytest.raises(NotImplementedError, match=field):
-            TrainHParams(**{field: value}, fused=False)
-    else:
-        with pytest.raises(NotImplementedError, match="fused=False"):
-            jit_train_step(CFG, Mesh((1, 1), ("data", "model")),
-                           TrainHParams(**{field: value}, fused=False))
+    """The hyper-parameters once refused on the pytree plane (the state
+    knobs with ``fused=False``, and the pytree plane on the mesh) are
+    ported: each builds with ``fused=False``, the mesh-free step ignores
+    it (one process holds the whole state, as in the reference), the mesh
+    runtime builds with it, and its state specs honour it: the
+    parameters cut as on the flat plane, the moments over the state
+    axes, ∇ over "data" under ``shard_cada_state``."""
+    hp = TrainHParams(**{field: value}, fused=False)
+    make_train_step(CFG, hp, 2)
     make_train_step(CFG, TrainHParams(**{field: value}), 2)
+    make, specs, m = jit_train_step(CFG, Mesh((1, 1), ("data", "model")), hp)
+    assert m == 1 and callable(make) and isinstance(specs.h, dict)
+    stub = type("Stub", (), {"shape": {"data": 2, "model": 2}})()
+    got = train_state_specs(CFG, stub, hp)
+    plain = train_state_specs(CFG, stub, TrainHParams(fused=False))
+    assert got.params == train_state_specs(
+        CFG, stub, TrainHParams(**{field: value})).params
+    changed = {"fsdp": got.params != plain.params,
+               "fsdp_axes": got.params == plain.params,
+               "state_fsdp_axes": got.h != plain.h,
+               "shard_cada_state": got.comm.nabla != plain.comm.nabla}
+    assert changed[field], field
 
 
 # ------------------------------------------------ engine against trainer

@@ -1,4 +1,4 @@
-"""Per-rank bytes of the trainer's state on a mesh, reckoned from the flat
+"""Per-rank bytes of the trainer's state on a mesh, reckoned from the
 layout and the sharding tables (computed, not measured: nothing is
 allocated; the state's tensors lie on the ``meta`` device).
 
@@ -6,29 +6,41 @@ allocated; the state's tensors lie on the ``meta`` device).
         --mesh data=4 --state-fsdp-axes data --rule cada2
     PYTHONPATH=src python3 tools/mesh_state_bytes.py --arch falcon-mamba-7b \\
         --layers 2 --mesh data=2,model=2 --fsdp on --dtype float32
+    PYTHONPATH=src python3 tools/mesh_state_bytes.py --arch stablelm-1.6b \\
+        --layers 2 --mesh data=2,model=2 --pytree --shard-cada-state
+    PYTHONPATH=src python3 tools/mesh_state_bytes.py --arch yi-34b \\
+        --mesh data=16,model=16 --policy
 
-Each entry of ``abstract_train_state`` is divided by the product of the
-sizes of the mesh axes its ``train_state_specs`` shards it over, which is
-what a rank of ``trainer.jit_train_step`` holds at rest: its server slice
-of h, v̂ and ∇, its worker's row of the (M, n_flat) planes (cut to its
-column slice), and its blocks of the parameters and of the rule's
+The reckoning is the dry run's (``repro_torch.launch.dryrun.state_bytes``),
+so the two cannot disagree: each entry of ``abstract_train_state`` is
+divided by the product of the sizes of the mesh axes its
+``train_state_specs`` shards it over, which is what a rank of
+``trainer.jit_train_step`` holds at rest. On the flat plane: its server
+slice of h, v̂ and ∇, its worker's row of the (M, n_flat) planes (cut to
+its column slice), and its blocks of the parameters and of the rule's
 parameter-shaped extras (cada2's stale-iterate ring) by ``param_pspecs``:
 over the model axis, and over the FSDP axes where FSDP is on (``--fsdp
-auto`` resolves it by ``wants_fsdp``, as the trainer does). Printed
-beside the one-process trainer's state for the same M, with the bytes of
-one whole (n_flat,) fp32 plane (a step's transient unit: the packed θ, a
-worker's packed gradient), and one JSON line of every number last.
+auto`` resolves it by ``wants_fsdp``, as the trainer does). On the pytree
+plane (``--pytree``, ``fused=False``): every leaf by its spec tree, the
+moments over ``--state-fsdp-axes``, ∇ and the worker trees over "data"
+with ``--shard-cada-state``. Printed beside the one-process trainer's
+state for the same M, with the bytes of one whole (n_flat,) fp32 plane (a
+step's transient unit: the packed θ, a worker's packed gradient), and one
+JSON line of every number last. ``--policy`` takes
+``train_policy``'s hyper-parameters for the whole config on the mesh (the
+dry run's, ``python -m repro_torch.launch.dryrun``) in place of the
+flags.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import math
 
 from repro_torch import configs as C
 from repro_torch.core.rules import CommRule
 from repro_torch.distributed import trainer as T
-from repro_torch.utils.trees import tree_leaves, tree_paths
+from repro_torch.launch.dryrun import state_bytes
+from repro_torch.launch.policy import train_policy
 
 
 class Shape:
@@ -36,34 +48,6 @@ class Shape:
 
     def __init__(self, shape: dict):
         self.shape = shape
-
-
-def _entries(state, specs) -> dict:
-    """{name: (tensor, spec)} of every tensor of the state."""
-    out = {"h": (state.h, specs.h), "vhat": (state.vhat, specs.vhat)}
-    out.update({"params/" + "/".join(p): (t, sp) for p, t, sp in zip(
-        tree_paths(state.params), tree_leaves(state.params),
-        tree_leaves(specs.params))})
-    if state.comm is not None:
-        for field in ("nabla", "worker_grads", "staleness", "diff_hist"):
-            out[field] = (getattr(state.comm, field),
-                          getattr(specs.comm, field))
-        for key, v in state.comm.extras.items():
-            sp = specs.comm.extras[key]
-            if isinstance(v, dict):
-                out.update({f"{key}/" + "/".join(p): (t, s) for p, t, s in
-                            zip(tree_paths(v), tree_leaves(v),
-                                tree_leaves(sp))})
-            else:
-                out[key] = (v, sp)
-    return out
-
-
-def _share(spec, mesh) -> int:
-    """How many ranks one entry's bytes are split over."""
-    axes = [a for d in spec if d is not None
-            for a in (d if isinstance(d, tuple) else (d,))]
-    return math.prod(mesh.shape[a] for a in axes)
 
 
 def main(argv=None) -> dict:
@@ -78,6 +62,12 @@ def main(argv=None) -> dict:
     p.add_argument("--dtype", default="",
                    help="the parameters' dtype (default: the config's)")
     p.add_argument("--rule", default="cada2")
+    p.add_argument("--pytree", action="store_true",
+                   help="the pytree plane (fused=False)")
+    p.add_argument("--shard-cada-state", action="store_true")
+    p.add_argument("--policy", action="store_true",
+                   help="launch.policy.train_policy's hyper-parameters for "
+                        "the whole config on the mesh (the dry run's)")
     args = p.parse_args(argv)
     cfg = C.get_config(args.arch)
     if args.layers:
@@ -92,35 +82,32 @@ def main(argv=None) -> dict:
                               "off": False}[args.fsdp],
                         fsdp_axes=tuple(args.fsdp_axes.split(",")),
                         state_fsdp_axes=tuple(
-                            a for a in args.state_fsdp_axes.split(",") if a))
-    m = mesh.shape[T.worker_axis_name(mesh)]
-    shards = T.flat_state_shards(cfg, mesh, hp)
-    state = T.abstract_train_state(cfg, hp, m, shards=shards)
-    specs = T.train_state_specs(cfg, mesh, hp)
-    groups: dict = {}
-    total = whole = 0
-    for name, (t, sp) in _entries(state, specs).items():
-        nbytes = t.numel() * t.element_size()
-        mine = nbytes // _share(sp, mesh)
-        group = name.split("/")[0]
-        groups[group] = groups.get(group, 0) + mine
-        total += mine
-        whole += nbytes
-    print(f"{cfg.name}, {cfg.n_layers} layers, n_flat "
-          f"{state.h.numel():,}; mesh {mesh.shape}, M = {m}, rule "
-          f"{args.rule}, state axes {T.flat_state_axes(cfg, mesh, hp)} "
-          "(computed from the layout, not measured):")
-    for group, nbytes in groups.items():
+                            a for a in args.state_fsdp_axes.split(",") if a),
+                        shard_cada_state=args.shard_cada_state,
+                        fused=not args.pytree)
+    if args.policy:
+        hp = train_policy(C.get_config(args.arch), mesh, args.rule)
+    got = state_bytes(cfg, mesh, hp)
+    m, n_flat = got["m"], got["n_flat"]
+    plane_kind = "the flat plane" if hp.fused else "the pytree plane"
+    print(f"{cfg.name}, {cfg.n_layers} layers, n_flat {n_flat:,}; mesh "
+          f"{mesh.shape}, M = {m}, rule {args.rule}, {plane_kind}, state "
+          f"axes {T.flat_state_axes(cfg, mesh, hp)} (computed from the "
+          "layout, not measured):")
+    for group, nbytes in got["by_entry"].items():
         print(f"  {group:14s} {nbytes / 1e9:10.3f} GB a rank")
-    print(f"  total          {total / 1e9:10.3f} GB a rank at rest; the "
-          f"one-process trainer's state for M = {m}: {whole / 1e9:.3f} GB")
-    plane = state.h.numel() * 4
+    print(f"  total          {got['per_rank'] / 1e9:10.3f} GB a rank at "
+          f"rest; the one-process trainer's state for M = {m}: "
+          f"{got['one_process'] / 1e9:.3f} GB")
+    plane = n_flat * 4
     print(f"  one (n_flat,) fp32 plane: {plane / 1e9:.3f} GB")
-    row = {"arch": cfg.name, "layers": cfg.n_layers,
-           "n_flat": state.h.numel(), "mesh": mesh.shape, "m": m,
-           "fsdp": args.fsdp, "dtype": cfg.dtype,
-           "per_rank_bytes": total, "one_process_bytes": whole,
-           "plane_bytes": plane, "by_entry": groups}
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "n_flat": n_flat,
+           "mesh": mesh.shape, "m": m,
+           "fsdp": "policy" if args.policy else args.fsdp,
+           "dtype": cfg.dtype, "fused": hp.fused,
+           "per_rank_bytes": got["per_rank"],
+           "one_process_bytes": got["one_process"], "plane_bytes": plane,
+           "by_entry": got["by_entry"]}
     print(json.dumps(row))
     return row
 
