@@ -201,7 +201,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
         ``adapt_for_shape(cfg, SHAPES["long_500k"])`` (window 8192):
         prefill 1 x 12,288 and 32 greedy steps on the ring cache, one
         windowed flash launch per layer; the windowed kernel at that
-        prefill's shape against its plain version, and the fp32 prefill's
+        prefill's shape against its plain version, timed beside
+        scaled_dot_product_attention with an explicit window mask, and
+        the fp32 prefill's
         last logits with the kernels against ``impl="plain"``;
      c. every kind on the paper MLP (M = 10, 20 rounds) with
         ``CADAEngine(fused=False)`` in lockstep with ``fused=True``: masks
@@ -277,12 +279,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
      collectives a step by kind.
 Phase 3 also holds the selective scan and flash attention against their
 plain versions at the serving path's shapes, with their times beside
-their device times before their redesign, their bounds and, for flash,
-the library call's time: the scan in the served form (Mamba2's A, a
+their device times before their latest redesign (for flash, the
+mma.sync kernel at hd 80), their bounds and, for flash, the library
+call's time: the scan in the served form (Mamba2's A, a
 stride-0 view on N: one decay per channel; h_final bit-equal to the same
 call with A materialised) and untimed with a general A, also at
 falcon-mamba-7b's widths (device time printed); flash in bf16 on the
-tensor cores, at a GQA shape and with a window, and in fp32 and bf16 at hd
+tensor cores (the wgmma kernel fed by TMA, at hd 64, 80 and 128; hd 16
+and 32 zero-padded to 64), at a GQA shape and with a window, and in fp32 and bf16 at hd
 16 and 64 and zero-padded at hd 48 and 96 (and, in phase 11b, timed at
 qwen2-vl's hd 128 with GQA 12/2). Then it prints one JSON line
 with every kernel, and last the line
@@ -392,7 +396,8 @@ LIBRARY_NOTE = {
                       "N) trajectory the kernel exists to avoid",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=Hq != Hkv) on "
-                       "(B, H, S, hd), timed here",
+                       "(B, H, S, hd), timed here; with a window, an "
+                       "explicit boolean window mask instead of is_causal",
     "eq3_row_mean": "plane.float().sum(0) * rcp (torch.sum over the rows), "
                     "timed here; not bit-equal to the kernel: torch.sum "
                     "adds the rows in an order of its own, and the fixed "
@@ -410,10 +415,11 @@ FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP below |o| = 1;
 #   neighbour, so an element outside this band must be a single rounding
 #   flip: within one bf16 ULP of the plain result computed in fp32
 #   (flash_bf16_gaps; PERF.md §6 has the measured counts)
-# the two redesigned kernels' device times at the served shapes before
-# their redesign (the per-state scan and the CUDA-core flash kernel;
-# PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 1.990,
+# the redesigned kernels' device times at the served shapes before their
+# latest redesign: the per-state scan, and the mma.sync flash kernel that
+# the wgmma kernel replaced (PERF.md §6, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 0.3337,
                      # the CADA server step and one-operand norm before
                      # their one-launch redesign (PR 15, run b)
                      "amsgrad": 0.00380, "batched_sq": 0.00455}
@@ -1395,11 +1401,15 @@ def flash_bf16_gaps(out, want, want32) -> tuple[float, int, float]:
 
 
 def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
-                rates, gen, timed: bool, dtype=torch.bfloat16) -> dict:
+                rates, gen, timed: bool, dtype=torch.bfloat16,
+                earlier_ms: float | None = None) -> dict:
     """The flash kernel against its plain version, bf16 (the tensor-core
-    instance) or fp32 operands; an hd that is not a compiled instance runs
+    kernels) or fp32 operands; an hd that is not a compiled instance runs
     zero-padded on the next one. When ``timed``, also its times, its bound
-    and the library call's time."""
+    and the library call's time (scaled_dot_product_attention, with an
+    explicit boolean window mask when ``window`` > 0, since is_causal
+    ignores a window), and ``earlier_ms``, an earlier kernel's device time
+    at this shape, beside them."""
     dev = "cuda"
     q, k, v = (torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
@@ -1408,10 +1418,11 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
     again = fa_kernel.flash_attention(q, k, v, window=window)
     want = ref.flash_attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
-    inst = fa_kernel.instance_for(hd)
+    inst = fa_kernel.instance_for(hd, dtype)
     label = (f"  flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd}"
              + ("" if inst == hd else f" (padded to {inst})")
-             + f" window={window} {_short(dtype)}")
+             + f" window={window} {_short(dtype)}, "
+             + fa_kernel.kernel_for(dtype))
     if fa_kernel.flash_attention.launches != before + 2:
         raise RuntimeError(f"{label}: the kernel did not launch")
     if out.shape != q.shape or out.dtype != dtype:
@@ -1448,6 +1459,11 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
     bound = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = None
+    if window:
+        pos = torch.arange(s, device=dev)
+        rel = pos[:, None] - pos[None, :]
+        mask = (rel >= 0) & (rel < window)
 
     def kernel():
         return fa_kernel.flash_attention(q, k, v, window=window)
@@ -1456,8 +1472,11 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
         return ref.flash_attention_ref(q, k, v, window=window)
 
     def library():
+        if mask is None:
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
+            qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv)
 
     lib_err = _rel_err(library().transpose(1, 2), want)
     ms = time_ms(kernel, calls=10, repeats=3)
@@ -1466,8 +1485,10 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
     dev_ms = device_ms(kernel, ("flash_fwd_kernel",), calls=5)
     plain_dev = device_ms(plain, calls=2)
     lib_dev = device_ms(library, calls=5)
-    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}; before "
-          f"the redesign {EARLIER_DEVICE_MS['flash_attention']} ms, PERF.md), "
+    earlier = ("" if earlier_ms is None else
+               f"; the mma.sync kernel {earlier_ms} ms at this shape, "
+               "PERF.md")
+    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}{earlier}), "
           f"plain "
           f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), "
           f"scaled_dot_product_attention {lib_ms:.4f} ms/call (device "
@@ -1499,7 +1520,8 @@ def phase_lm_kernels(rates) -> dict:
                timed=False, per_channel=False)
     main["flash_attention"] = check_flash(
         SERVE_BATCH, SERVE_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
-        rates, gen, timed=True)
+        rates, gen, timed=True,
+        earlier_ms=EARLIER_DEVICE_MS["flash_attention"])
     check_flash(SERVE_BATCH, SERVE_SEQ, 32, 8, 128, 0, rates, gen,
                 timed=False)
     check_flash(SERVE_BATCH, 512, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 100,
@@ -4229,7 +4251,7 @@ def phase_long_window(card: str, rates) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     flash = check_flash(1, LONG_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        w, rates, gen, timed=False)
+                        w, rates, gen, timed=True)
     cfg32 = cfg.with_(dtype="float32")
     params32 = _upcast(params)
     del params

@@ -6,12 +6,18 @@ the launch failed. ``flash_attention.launches`` counts its launches, so a
 run can show that it went through the kernel. The library is built and
 loaded at the first launch, never on import.
 
-The kernel is compiled for the head dims in ``HEAD_DIMS``, which hold every
-head dim of the repo's configs. Any other hd up to the largest is served by
-the next larger instance (:func:`instance_for`): q, k and v are zero-padded
-to it and the output is cut back, which is exact (zero columns add nothing
-to q·k, and padded V columns fill only output columns that are dropped);
-the softmax scale stays 1/√hd of the true hd.
+The source holds one kernel per dtype (:func:`kernel_for`): bf16 runs on
+``flash_fwd_kernel_wgmma`` (Hopper's wgmma fed by TMA, a producer warp and
+two consumer warpgroups, persistent over (batch, head, query tile)), fp32
+on ``flash_fwd_kernel`` (CUDA cores).
+
+The fp32 kernel is compiled for the head dims in ``HEAD_DIMS``, which hold
+every head dim of the repo's configs; the bf16 one for those in
+``BF16_HEAD_DIMS``, every full-size config's. Any other hd up to the largest
+is served by the next larger instance of its dtype (:func:`instance_for`):
+q, k and v are zero-padded to it and the output is cut back, which is exact
+(zero columns add nothing to q·k, and padded V columns fill only output
+columns that are dropped); the softmax scale stays 1/√hd of the true hd.
 """
 from __future__ import annotations
 
@@ -24,13 +30,14 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (16, 32, 64, 80, 128)   # compiled instances
+HEAD_DIMS = (16, 32, 64, 80, 128)   # compiled fp32 instances
+BF16_HEAD_DIMS = (64, 80, 128)      # compiled bf16 (wgmma) instances
 MAX_ROWS = 65535                # B * Hq: the grid's second dimension
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/flash_attention.cu`` on ``lib``, a
+    library built from it (or from another source of the same interface)."""
     lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _I, ctypes.c_float, _I, _P]
     lib.flash_attention_fwd.restype = _I
@@ -39,16 +46,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def instance_for(hd: int) -> int:
-    """The compiled head dim that serves ``hd``: hd itself, or the next
-    larger one, to which the operands are zero-padded. Raises for hd above
-    the largest."""
-    for inst in HEAD_DIMS:
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("flash_attention"))
+
+
+def instance_for(hd: int, dtype: torch.dtype = torch.float32) -> int:
+    """The compiled head dim that serves ``hd`` for operands of ``dtype``:
+    hd itself, or the next larger one, to which the operands are
+    zero-padded. Raises for hd above the largest."""
+    dims = BF16_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+    for inst in dims:
         if hd <= inst:
             return inst
     raise ValueError(f"flash_attention: head dim {hd} above "
-                     f"{HEAD_DIMS[-1]}: no compiled instance takes it "
-                     f"(compiled: {HEAD_DIMS})")
+                     f"{dims[-1]}: no compiled instance takes it "
+                     f"(compiled: {dims})")
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that serves operands of
+    ``dtype``."""
+    if dtype == torch.float32:
+        return "flash_fwd_kernel"
+    if dtype == torch.bfloat16:
+        return "flash_fwd_kernel_wgmma"
+    raise ValueError(f"flash_attention: fp32 or bf16 operands, got {dtype}")
 
 
 def flash_attention(q, k, v, *, window: int = 0):
@@ -57,7 +80,8 @@ def flash_attention(q, k, v, *, window: int = 0):
     q (B, S, Hq, hd), k/v (B, S, Hkv, hd), all contiguous and all fp32 or
     all bf16 (bf16: on the tensor cores, each operand 16-byte aligned);
     Hq a multiple of Hkv; hd at most ``HEAD_DIMS[-1]`` (zero-padded to
-    the next compiled instance where it is not one); ``window`` 0 (full causal)
+    the next compiled instance of its dtype where it is not one);
+    ``window`` 0 (full causal)
     or the number of positions a query sees, itself included. Returns
     (B, S, Hq, hd) in q's dtype.
     """
@@ -90,7 +114,7 @@ def flash_attention(q, k, v, *, window: int = 0):
     if hq % hkv:
         raise ValueError(f"{name}: Hq = {hq} is not a multiple of Hkv = "
                          f"{hkv}")
-    inst = instance_for(hd)
+    inst = instance_for(hd, q.dtype)
     if b * hq > MAX_ROWS:
         raise ValueError(f"{name}: B * Hq = {b * hq} exceeds {MAX_ROWS}")
     window = int(window)
@@ -102,7 +126,7 @@ def flash_attention(q, k, v, *, window: int = 0):
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError(f"{name}: bf16 q, k and v must be 16-byte aligned "
-                         "(the kernel copies 16-byte chunks)")
+                         "(TMA needs 16-byte-aligned bases)")
     lib = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

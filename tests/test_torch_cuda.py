@@ -674,12 +674,15 @@ def test_scan_kernel_mamba2_form_matches_materialised(gen, shape, lowp):
     _within_scale(h, hp, 1e-5)
 
 
-@pytest.mark.parametrize("s", [1, 63, 65, 333, 2048])
+@pytest.mark.parametrize("s", [1, 63, 65, 333, 2048, 127, 128, 129, 255,
+                               257])
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
-@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("window", [0, 100, 127, 129])
 def test_flash_bf16_tensor_core_kernel_matches_plain(gen, s, hd, window):
-    """The bf16 instance (tensor cores) at lengths below, at and around
-    the 64-row tiles, GQA 8/2, with and without a window of 100."""
+    """The bf16 kernel (wgmma on the tensor cores; hd 16 and 32 zero-padded
+    to 64) at lengths below, at and around its 64-key tiles and 128-row
+    work items, GQA 8/2, without a window and with windows of 100 and of
+    127 and 129 (one key inside and past a tile)."""
     b = 1 if s == 2048 else 2
     q = torch.randn(b, s, 8, hd, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, s, 2, hd, generator=gen, device="cuda").bfloat16()
@@ -713,6 +716,38 @@ def test_flash_kernel_matches_plain(gen, hd, hq, hkv, window, dtype):
     else:
         want = ops.flash_attention(q, k, v, window=window, impl="plain")
         _within(out, want, 1e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("window", [0, 17])
+def test_flash_bf16_with_fewer_work_items_than_sms(gen, hd, window):
+    """One (batch, head) of 64 rows: a single work item, so the persistent
+    grid is one block, whose one 128-row item is half past S."""
+    q, k, v = (torch.randn(1, 64, 1, hd, generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    before = tfa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    assert tfa.flash_attention.launches == before + 1
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=window))
+    _within_bf16_flash(out, q, k, v, window)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_bf16_with_one_work_item_more_than_sms(gen, hd):
+    """One work item more than the card has SMs (one 128-row tile of each
+    of SMs + 1 heads): the grid is one block per SM, and in the second
+    round every block but one draws an item index past the last and must
+    skip it, in the producer and the consumers alike."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q = torch.randn(1, 128, sms + 1, hd, generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn(1, 128, 1, hd, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    before = tfa.flash_attention.launches
+    out = ops.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before + 1
+    assert torch.equal(out, ops.flash_attention(q, k, v))
+    _within_bf16_flash(out, q, k, v, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

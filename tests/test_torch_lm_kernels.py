@@ -124,21 +124,39 @@ def _attn_inputs(rng, b, s, hq, hkv, hd):
     return q, k, v
 
 
-@pytest.mark.parametrize("hd", [16, 48, 64, 80, 128])
-@pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
-def test_plain_flash_matches_pallas(hq, hkv, window, hd):
-    rng = np.random.default_rng(hq * 1000 + hkv * 100 + window + hd)
-    q, k, v = _attn_inputs(rng, 2, 256, hq, hkv, hd)
+def _plain_flash_against_pallas(seed, b, s, hq, hkv, hd, window, blk):
+    rng = np.random.default_rng(seed)
+    q, k, v = _attn_inputs(rng, b, s, hq, hkv, hd)
     want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), window=window,
-                                interpret=True, q_blk=64, kv_blk=64)
+                                interpret=True, q_blk=blk, kv_blk=blk)
     before = tfa.flash_attention.launches
     got = ops.flash_attention(*(tensor_from_numpy(t, "cpu")
                                 for t in (q, k, v)), window=window)
     assert tfa.flash_attention.launches == before
     assert got.dtype == torch.float32
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 64, 80, 128])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+def test_plain_flash_matches_pallas(hq, hkv, window, hd):
+    _plain_flash_against_pallas(hq * 1000 + hkv * 100 + window + hd, 2, 256,
+                                hq, hkv, hd, window, 64)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("window", [0, 127, 128, 129])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+def test_plain_flash_matches_pallas_at_its_128_blocks(hq, hkv, window, hd):
+    """The Pallas kernel at its own 128-row blocks (``DEFAULT_BLK``, the
+    tile of the card's wgmma kernel) over three of them (S = 384), with
+    windows that end one key inside a block, at its edge and one past it:
+    the plain version, which the card holds that kernel against, agrees
+    at the new tile's edges."""
+    _plain_flash_against_pallas(hq * 1000 + hkv * 100 + window + hd + 7, 1,
+                                384, hq, hkv, hd, window, 128)
 
 
 def test_plain_flash_bf16_output_in_q_dtype():
@@ -181,6 +199,25 @@ def test_every_config_head_dim_has_a_flash_instance(arch):
         inst = tfa.instance_for(cfg.hd)
         assert inst in tfa.HEAD_DIMS and cfg.hd <= inst
         assert cfg.hd in tfa.HEAD_DIMS, (arch, cfg.hd)
+
+
+@pytest.mark.parametrize("arch", JC.list_archs())
+def test_every_full_size_head_dim_takes_the_wgmma_kernel(arch):
+    """bf16 at every full-size config's head dim goes to the Hopper kernel
+    (wgmma fed by TMA) at its own instance, unpadded; the smoke configs'
+    small head dims run on it zero-padded to 64, and fp32 on the CUDA-core
+    kernel at every config's own head dim."""
+    cfg = JC.get_config(arch)
+    if cfg.n_heads == 0:              # no attention layer (falcon-mamba)
+        return
+    assert tfa.instance_for(cfg.hd, torch.bfloat16) == cfg.hd
+    assert tfa.kernel_for(torch.bfloat16) == "flash_fwd_kernel_wgmma"
+    assert tfa.kernel_for(torch.float32) == "flash_fwd_kernel"
+    for hd in (16, 32):
+        assert tfa.instance_for(hd, torch.bfloat16) == 64
+        assert tfa.instance_for(hd, torch.float32) == hd
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tfa.kernel_for(torch.float16)
 
 
 @pytest.mark.parametrize("hd,inst", [(1, 16), (16, 16), (17, 32), (40, 64),
