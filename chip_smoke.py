@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      The AMSGrad step is bit-equal to its plain version for θ and g in fp32
      and bf16 and moments in fp32 and bf16, also on views that start off
      16 bytes (bit-equal to aligned copies); every CADA kernel runs as one
-     launch per call (profiler). The server step and the one-operand norm
+     launch per call (profiler; where its windows record nothing, the
+     nodes of one call captured as a CUDA graph). The server step and the one-operand norm
      are also timed at LM widths (n = 2^28; (10, 2^24)), where bytes bound
      them. Eq. (3)'s order-fixed row mean is bit-equal to its plain version
      at (10, 101,776) and (1, 101,776), an odd n, a view off 16 bytes, and
@@ -40,8 +41,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
      the shared attention block 9 times, 2,340,715,680 bf16 parameters
      drawn on the card from a seed) through ``repro_torch.launch.serve``:
      prefill of 2 random prompts of 2048 tokens, then 32 greedy decode
-     steps. Exactly 54 scan and 9 flash launches per prefill and none per
-     decode step; prefill ms, decode tokens/s and peak memory; a profile
+     steps. Exactly 54 launches of the per-head scan (Mamba2's form on the
+     tensor cores), none of the general scan, and 9 flash launches per
+     prefill, and none per decode step; prefill ms, decode tokens/s and peak memory; a profile
      of a warm prefill and of decode steps; full-depth logits finite, and
      prefill(S-1) -> decode(1) against prefill(S). Then the first stage (6
      Mamba2 layers and the shared block, full width) run with the kernels
@@ -194,9 +196,11 @@ Phases, each of which raises on failure (the exit code is then not 0):
         max_seq 2048 + 32, 10 requests (prompt lengths 256–2048, max_new
         8–32, from a numpy seed), one stopped by an eos_id: every
         request's tokens equal a direct prefill + greedy decode_step loop
-        over its round's padded batch; 54 scan and 9 flash launches per
-        round's prefill, none in decode; tokens/s, slot utilization, peak
-        memory;
+        over its round's padded batch; 54 per-head scan and 9 flash
+        launches per round's prefill, none in decode; tokens/s, slot
+        utilization, peak memory; the per-head scan held against its plain
+        version at each round's shape, timed beside the general kernel's
+        per-channel form on the same operands;
      b. internlm2-1.8b at full width and depth through
         ``adapt_for_shape(cfg, SHAPES["long_500k"])`` (window 8192):
         prefill 1 x 12,288 and 32 greedy steps on the ring cache, one
@@ -238,7 +242,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      16 decode steps teacher-forced on the one-process greedy tokens (run
      by this process first, on the same params and prompts). The driven
      run is bf16 (counts set to 0 just before and read just after: per
-     rank 54 scans at 2560 of 5120 channels and 9 flash launches at 16 of
+     rank 54 per-head scans at 40 of 80 heads and 9 flash launches at 16 of
      32 heads per zamba2 prefill, 24 at 8/4 of 16/8 heads per granite-moe
      prefill, none per decode step); a second prefill times it warm (a
      MoE model's must be bit-equal to the first). Then the same in fp32
@@ -248,8 +252,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      TP_BF16_FLOORS times bf16's own distance from fp32; the first step
      at which the greedy tokens differ. Per rank: parameter bytes against
      one process's, prefill ms, decode tokens/s, peak memory, each
-     collective's count and median/max ms; flash and scan against their
-     plain versions at the rank's shapes, timed. A rank that fails fails
+     collective's count and median/max ms; flash and both scans against
+     their plain versions at the rank's shapes, timed. A rank that fails fails
      the phase.
  15. the mesh trainer with a model axis and parameter FSDP
      (``trainer.jit_train_step``): 4 ranks spawned on the one card over
@@ -277,11 +281,15 @@ Phases, each of which raises on failure (the exit code is then not 0):
      no kernel launched, masks equal to one process's and to 15a's,
      within 15a's fp32 bands; a rank's step ms, peak memory and
      collectives a step by kind.
-Phase 3 also holds the selective scan and flash attention against their
+Phase 3 also holds the selective scans and flash attention against their
 plain versions at the serving path's shapes, with their times beside
 their device times before their latest redesign (for flash, the
 mma.sync kernel at hd 80), their bounds and, for flash, the library
-call's time: the scan in the served form (Mamba2's A, a
+call's time: Mamba2's per-head scan (``ssm_scan_kernel_ssd``, chunked
+products on the tensor cores fed by TMA) at the served shape, timed
+beside the general kernel's per-channel form on the same operands, and
+untimed at the smoke config's widths in bf16 and fp32; the general
+kernel (``ssm_scan_kernel``) in the per-channel form (Mamba2's A, a
 stride-0 view on N: one decay per channel; h_final bit-equal to the same
 call with A materialised) and untimed with a general A, also at
 falcon-mamba-7b's widths (device time printed); flash in bf16 on the
@@ -394,6 +402,8 @@ LIBRARY_NOTE = {
                       "torch has no linear-recurrence (associative) scan, "
                       "and cumsum/cumprod forms materialise the (G, S, D, "
                       "N) trajectory the kernel exists to avoid",
+    "selective_scan_heads": "no single PyTorch call computes a selective "
+                            "scan (see selective_scan)",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=Hq != Hkv) on "
                        "(B, H, S, hd), timed here; with a window, an "
@@ -416,10 +426,11 @@ FLASH_RTOL_BF16 = 2.0 ** -8   # bf16 output: one bf16 ULP below |o| = 1;
 #   flip: within one bf16 ULP of the plain result computed in fp32
 #   (flash_bf16_gaps; PERF.md §6 has the measured counts)
 # the redesigned kernels' device times at the served shapes before their
-# latest redesign: the per-state scan, and the mma.sync flash kernel that
-# the wgmma kernel replaced (PERF.md §6, NVIDIA H100 80GB
+# latest redesign: the general scan kernel's per-channel form, which
+# zamba2's prefill took before the per-head kernel, and the mma.sync flash
+# kernel that the wgmma kernel replaced (PERF.md §6, NVIDIA H100 80GB
 # HBM3, 700.00 W)
-EARLIER_DEVICE_MS = {"selective_scan": 1.895, "flash_attention": 0.3337,
+EARLIER_DEVICE_MS = {"selective_scan": 0.5440, "flash_attention": 0.3337,
                      # the CADA server step and one-operand norm before
                      # their one-launch redesign (PR 15, run b)
                      "amsgrad": 0.00380, "batched_sq": 0.00455}
@@ -805,15 +816,110 @@ def _bound(nbytes: int, flops: int, rates) -> tuple[float, str]:
                                        else "operations")
 
 
-def one_launch(fn, kernel: str, label: str, calls: int = 5) -> None:
+def _libcuda():
+    """libcuda's graph-inspection calls, each with its signature."""
+    import ctypes
+    vp, sz = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    name, kind = (ctypes.POINTER(ctypes.c_char_p),
+                  ctypes.POINTER(ctypes.c_int))
+    cu = ctypes.CDLL("libcuda.so.1")
+    for fn, args in (("cuGraphGetNodes", [vp, vp, sz]),
+                     ("cuGraphNodeGetType", [vp, kind]),
+                     ("cuGraphKernelNodeGetParams_v2", [vp, vp]),
+                     ("cuFuncGetName", [name, vp]),
+                     ("cuKernelGetName", [name, vp])):
+        getattr(cu, fn).argtypes = args
+        getattr(cu, fn).restype = ctypes.c_int
+
+    def call(fn, *args):
+        err = getattr(cu, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn}: libcuda error {err}")
+    return call
+
+
+def graph_nodes(fn) -> list[str]:
+    """The nodes of a CUDA graph captured from one call of ``fn``: a
+    kernel node by its function's (mangled) name, any other node as
+    ``<node type T>``. Launches are read from the graph, not from the
+    profiler, so nothing can be missed; the graph is never instantiated.
+    ``fn`` runs once more before, on the capture stream."""
+    import ctypes
+    call = _libcuda()
+    stream = torch.cuda.Stream()
+    # one call first on the capture stream, so that a wrapper's once-per-
+    # stream set-up (a zeroed workspace) is not captured
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=stream,
+                          capture_error_mode="thread_local"):
+        fn()
+    try:
+        if not g.raw_cuda_graph():  # nothing was captured
+            return []
+        graph = ctypes.c_void_p(g.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", graph, None, ctypes.byref(count))
+        nodes = (ctypes.c_void_p * max(count.value, 1))()
+        call("cuGraphGetNodes", graph, nodes, ctypes.byref(count))
+        out = []
+        for node in nodes[:count.value]:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                out.append(f"<node type {kind.value}>")
+                continue
+            # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes): func at word 0, kern
+            # (a CUkernel, where func is null) at word 7
+            params = (ctypes.c_void_p * 16)()
+            call("cuGraphKernelNodeGetParams_v2", node, params)
+            name = ctypes.c_char_p()
+            if params[0]:
+                call("cuFuncGetName", ctypes.byref(name), params[0])
+            else:
+                call("cuKernelGetName", ctypes.byref(name), params[7])
+            out.append((name.value or b"?").decode())
+        return out
+    finally:
+        del g
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def check_graph_route(n: int, gen) -> None:
+    """``one_launch``'s route where the profiler records nothing, held on
+    the row mean: one call must capture one kernel node, two calls two,
+    and a zero-fill beside the call a second node."""
+    plane = torch.randn(M, n, generator=gen, device="cuda")
+
+    def mean():
+        return cada_update.eq3_row_mean_flat(plane, M)
+
+    got = [graph_nodes(mean), graph_nodes(lambda: (mean(), mean())),
+           graph_nodes(lambda: (torch.zeros(n, device="cuda"), mean()))]
+    if ([len(g) for g in got] != [1, 2, 2]
+            or not all("row_mean_kernel" in g[-1] for g in got)):
+        raise RuntimeError(f"one call's CUDA graph: {got}")
+    print(f"  one_launch's graph route: one row-mean call captures one node "
+          f"({got[0][0]}), two calls two, a zero-fill beside it a second")
+
+
+def one_launch(fn, kernel: str, label: str, calls: int = 5,
+               windows: int = 8) -> None:
     """Raises unless ``calls`` calls of ``fn`` launched ``kernel`` and no
     other CUDA kernel, at most once per call (profiler events, which may
     miss a launch at the profiler's start but never add one): no second
-    pass, no per-call zeroing of the workspace."""
+    pass, no per-call zeroing of the workspace. Where ``windows`` profiler
+    windows in a row recorded nothing at all, one call is captured as a
+    CUDA graph instead, which must hold exactly one node: ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
     # a window that recorded nothing says nothing: CUPTI has been seen to
-    # return three empty windows in a row on a call that launched each time
-    for attempt in range(8):
+    # return eight empty windows in a row on a call that launched each time
+    names = []
+    for attempt in range(windows):
         if attempt:
             time.sleep(0.2)
         torch.cuda.synchronize()
@@ -825,6 +931,15 @@ def one_launch(fn, kernel: str, label: str, calls: int = 5) -> None:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
+    if not names:
+        nodes = graph_nodes(fn)
+        if len(nodes) != 1 or kernel not in nodes[0]:
+            raise RuntimeError(f"{label}: the profiler recorded nothing in "
+                               f"{windows} windows, and one call's CUDA "
+                               f"graph holds {nodes}")
+        print(f"  {label}: the profiler recorded nothing in {windows} "
+              f"windows; one call's CUDA graph holds one node, {nodes[0]}")
+        return
     if not 1 <= len(names) <= calls or not all(kernel in nm
                                                for nm in names):
         raise RuntimeError(f"{label}: {calls} calls launched {names}")
@@ -1231,6 +1346,7 @@ def phase_kernels(rates, layout) -> dict:
         check_eq3(M, n_flat, dtype, rates, gen, timed=False, offset=1)
         check_eq3(M, n_flat, dtype, rates, gen, timed=False,
                   zero_rows=(1, 4, 5, 9))
+    check_graph_route(n_flat, gen)
     check_wire(layout, gen)
     # the two redesigned kernels at LM widths, where bytes bound them
     print(f"  at LM widths (n = {LM_N}; ({M}, {LM_ROW_N}) planes):")
@@ -1357,9 +1473,8 @@ def check_scan(g: int, s: int, d: int, n: int, headdim: int, rates, gen,
         mat_dev = device_ms(materialised, ("ssm_scan_kernel",), calls=5)
         extra = (f"; the same call with A materialised (general form) "
                  f"device {_ms(mat_dev)}")
-    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}; before "
-          f"the redesign {EARLIER_DEVICE_MS['selective_scan']} ms, PERF.md), "
-          f"plain "
+    print(f"{head}; kernel {ms:.3f} ms/call (device {_ms(dev_ms)}; "
+          f"{EARLIER_DEVICE_MS['selective_scan']} ms in PERF.md), plain "
           f"{plain_ms:.3f} ms/call (device {_ms(plain_dev)}), bound "
           f"{bound:.4f} ms by {bound_by} (bytes {t_bytes * 1e3:.4f}, fp32 "
           f"ops {t_flops * 1e3:.4f}, {n_exp:.3g} exp {t_exp * 1e3:.4f} ms)"
@@ -1367,6 +1482,114 @@ def check_scan(g: int, s: int, d: int, n: int, headdim: int, rates, gen,
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev_ms, "plain_device_ms": plain_dev,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+SSD_CHUNK = 64   # the per-head kernel's steps a chunk
+
+
+def _ssd_work(g: int, s: int, heads: int, p: int, n: int) -> tuple[int, int]:
+    """(bf16 tensor-core flops, exponentials) of the per-head kernel's
+    chunked form on bf16 x/B/C: per (batch row, head, chunk of L steps)
+    C·Bᵀ (2L²N), M'·X (2L²P), C·h_prevᵀ and the state's Wᵀ·X (2LNP
+    each), the last three twice, as the fp32 factors M', h_prev and W
+    enter as two bf16 halves; the exponentials of M''s lower triangle
+    and of each step's two factors."""
+    lc, chunks = SSD_CHUNK, -(-s // SSD_CHUNK)
+    per_chunk = 2 * lc * lc * n + 4 * lc * lc * p + 8 * lc * n * p
+    n_exp = lc * (lc + 1) // 2 + 2 * lc + 1
+    return chunks * g * heads * per_chunk, chunks * g * heads * n_exp
+
+
+def check_scan_heads(g: int, s: int, heads: int, p: int, n: int, rates,
+                     gen, timed: bool, time_plain: bool = True,
+                     dtype=torch.bfloat16) -> dict:
+    """Mamba2's per-head kernel (``ssm_scan_kernel_ssd``) against its plain
+    version on per-head operands: dt fp32 (G, S, H), A one value per head
+    as the model draws it, x/B/C in ``dtype``. y and h_final within
+    SCAN_RTOL of each array's scale, two identical calls bit-equal, one
+    launch a call. Timed (bf16 operands): its call and device time beside
+    the general kernel's per-channel form on the same operands repeated
+    per channel (the route zamba2 took before), in this call, and the
+    bound; the plain version's times with ``time_plain``."""
+    dev = "cuda"
+    d = heads * p
+    dt = (0.1 * torch.randn(g, s, heads, generator=gen, device=dev)).abs()
+    x = torch.randn(g, s, d, generator=gen, device=dev).to(dtype)
+    a_h = -(1.0 + 15.0 * torch.rand(heads, generator=gen, device=dev))
+    b = torch.randn(g, s, n, generator=gen, device=dev).to(dtype)
+    c = torch.randn(g, s, n, generator=gen, device=dev).to(dtype)
+    shape = (g, s, heads, p, n)
+    before = scan_kernel.selective_scan_heads.launches
+    y, h = scan_kernel.selective_scan_heads(dt, x, a_h, b, c)
+    y2, h2 = scan_kernel.selective_scan_heads(dt, x, a_h, b, c)
+    launched = scan_kernel.selective_scan_heads.launches - before
+    yp, hp = ref.selective_scan_heads_ref(dt, x, a_h, b, c)
+    torch.cuda.synchronize()
+    if launched != 2:
+        raise RuntimeError(f"scan heads {shape}: two calls counted "
+                           f"{launched} launches")
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise RuntimeError(f"scan heads {shape}: two identical calls "
+                           "differ")
+    err = max(_scale_err(y, yp), _scale_err(h, hp))
+    if err > SCAN_RTOL:
+        raise RuntimeError(f"scan heads {shape}: error {err} > "
+                           f"{SCAN_RTOL}")
+    abs_err = float(max((y - yp).abs().max(), (h - hp).abs().max()))
+    head = (f"  selective_scan_heads (G,S,H,P,N)={shape}, x/B/C "
+            f"{_short(dtype)}: max err {err:.3g} of the plain arrays' "
+            f"scale (y {_scale_err(y, yp):.3g}, h_final "
+            f"{_scale_err(h, hp):.3g}), run-to-run identical, one launch a "
+            "call")
+    del y2, h2, yp, hp
+
+    def kernel():
+        return scan_kernel.selective_scan_heads(dt, x, a_h, b, c)
+
+    if not timed:
+        dev_ms = device_ms(kernel, ("ssm_scan_kernel_ssd",), calls=5)
+        print(f"{head}; kernel device {_ms(dev_ms)}")
+        return {"max_abs_err": abs_err, "device_ms": dev_ms}
+    dt_e = torch.repeat_interleave(dt, p, dim=-1)
+    a_e = torch.repeat_interleave(a_h, p)[None, :, None].expand(g, d, n)
+
+    def per_channel():
+        return scan_kernel.selective_scan(dt_e, x, a_e, b, c)
+
+    def plain():
+        return ref.selective_scan_heads_ref(dt, x, a_h, b, c)
+
+    # dt fp32 per head, x, A per head, B/C; y and h_final fp32
+    nbytes = (4 * g * s * heads + x.element_size() * g * s * d + 4 * heads
+              + 2 * b.element_size() * g * s * n + 4 * g * s * d
+              + 4 * g * d * n)
+    flops, n_exp = _ssd_work(g, s, heads, p, n)
+    t_bytes, t_ops, t_exp = (nbytes / rates[0], flops / BF16_TC_FLOPS,
+                             n_exp / SFU_RATE)
+    bound = max(t_bytes, t_ops, t_exp) * 1e3
+    bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+    ms = time_ms(kernel, calls=10, repeats=3)
+    dev_ms = device_ms(kernel, ("ssm_scan_kernel_ssd",), calls=5)
+    pc_ms = time_ms(per_channel, calls=10, repeats=3)
+    pc_dev = device_ms(per_channel, ("ssm_scan_kernel",), calls=5)
+    out = {"max_abs_err": abs_err, "ms": ms, "device_ms": dev_ms,
+           "per_channel_ms": pc_ms, "per_channel_device_ms": pc_dev,
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    plain_note = ""
+    if time_plain:
+        # CUDA events only: a profiled plain loop records ~16k launches
+        # a call, and the profiler then recorded nothing in phase 8e
+        out["plain_ms"] = time_ms(plain, calls=1, repeats=3, warmup=1)
+        plain_note = f", plain {out['plain_ms']:.3f} ms/call"
+    share = "" if dev_ms is None else f", {100 * bound / dev_ms:.1f}%"
+    print(f"{head}; kernel {ms:.4f} ms/call (device {_ms(dev_ms)}"
+          f"{share} of the bound), the general kernel's per-channel form on "
+          f"the same operands {pc_ms:.4f} ms/call (device {_ms(pc_dev)}; "
+          f"{EARLIER_DEVICE_MS['selective_scan']} ms in PERF.md){plain_note}"
+          f", bound {bound:.4f} ms by {bound_by} (bytes {t_bytes * 1e3:.4f},"
+          f" {flops / 1e9:.2f} GFLOP bf16 tensor {t_ops * 1e3:.4f}, "
+          f"{n_exp:.3g} exp {t_exp * 1e3:.4f} ms)")
+    return out
 
 
 def _live_pairs(s: int, window: int) -> int:
@@ -1502,15 +1725,28 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
 
 def phase_lm_kernels(rates) -> dict:
     """The scan and flash kernels at the serving path's shapes (zamba2-2.7b,
-    B = 2, S = 2048: scan G = 2, D = 5120, N = 64 with Mamba2's A; flash 32
-    heads of 80), then at shapes off that path: the scan with a general A,
-    also at falcon-mamba-7b's widths (G = 2, S = 512, D = 8192, N = 16)."""
+    B = 2, S = 2048: the per-head scan at 80 heads of 64, N = 64, timed
+    beside the general kernel's per-channel form, and untimed at the smoke
+    config's widths in bf16 and fp32 and at full width in fp32; the
+    general kernel at G = 2, D = 5120, N = 64 with Mamba2's A; flash 32
+    heads of 80), then at shapes off that path: the general scan with a
+    general A, also at falcon-mamba-7b's widths (G = 2, S = 512, D = 8192,
+    N = 16)."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2)
     hdim = cfg.mamba_headdim
-    main = {"selective_scan": check_scan(
+    main = {"selective_scan_heads": check_scan_heads(
+        SERVE_BATCH, SERVE_SEQ, cfg.ssm_heads, hdim, cfg.ssm_state, rates,
+        gen, timed=True)}
+    smoke = lm_configs.get_smoke_config(SERVE_ARCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_scan_heads(3, 333, 9, smoke.mamba_headdim, smoke.ssm_state,
+                         rates, gen, timed=False, dtype=dtype)
+    check_scan_heads(1, 2048, cfg.ssm_heads, hdim, cfg.ssm_state, rates, gen,
+                     timed=False, dtype=torch.float32)
+    main["selective_scan"] = check_scan(
         SERVE_BATCH, SERVE_SEQ, cfg.d_inner, cfg.ssm_state, hdim, rates, gen,
-        timed=True, per_channel=True)}
+        timed=True, per_channel=True)
     check_scan(3, 333, 520, 16, hdim, rates, gen, timed=False,
                per_channel=False)
     check_scan(3, 333, 520, 16, hdim, rates, gen, timed=False,
@@ -1834,6 +2070,7 @@ def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
 # ----------------------------------------------------------- serving path
 
 LM_WRAPPERS = {"selective_scan": scan_kernel.selective_scan,
+               "selective_scan_heads": scan_kernel.selective_scan_heads,
                "flash_attention": fa_kernel.flash_attention}
 
 
@@ -1892,7 +2129,7 @@ def phase_serve(card: str) -> dict:
     """zamba2-2.7b at full width and depth through the serving entry
     point, B = 2 prompts of S = 2048 random tokens, 32 greedy steps. All
     kernel counts are set to 0 just before and read just after: exactly
-    54 scans and 9 flash launches (one prefill), nothing else."""
+    54 per-head scans and 9 flash launches (one prefill), nothing else."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     b, s, steps = SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS
     torch.cuda.reset_peak_memory_stats()
@@ -1907,7 +2144,8 @@ def phase_serve(card: str) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
     n_attn = cfg.n_layers // cfg.attn_every
-    want = {"selective_scan": cfg.n_layers, "flash_attention": n_attn}
+    want = {"selective_scan": 0, "selective_scan_heads": cfg.n_layers,
+            "flash_attention": n_attn}
 
     torch.cuda.synchronize()
     _reset_all_counts()
@@ -1930,8 +2168,9 @@ def phase_serve(card: str) -> dict:
     print(f"  prefill {b}x{s} (first call): {out['prefill_s'] * 1e3:.2f} ms; "
           f"{steps} greedy decode steps in {out['decode_s'] * 1e3:.2f} ms "
           f"({steps * b / out['decode_s']:.2f} tokens/s); peak memory "
-          f"{peak / 2**30:.3f} GiB; launches scan {got['selective_scan']}, "
-          f"flash {got['flash_attention']} (others 0) on {card}")
+          f"{peak / 2**30:.3f} GiB; launches per-head scan "
+          f"{got['selective_scan_heads']}, flash {got['flash_attention']} "
+          f"(others 0) on {card}")
     print(f"  logits finite, |max| {float(logits.float().abs().max()):.4f}; "
           f"tokens[0][:8] {toks[0][:8].tolist()}")
 
@@ -2800,16 +3039,22 @@ def profile_cohort(eng, p: dict, rounds: int, row_bytes: int,
     their bytes over the measured PCIe rates, and how much of the copy
     time overlaps a kernel."""
     from torch.profiler import ProfilerActivity, profile
-    state, pool = eng.init_cohort(p["params"])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run_cohort(state, pool, p["batches"][:rounds],
-                       p["cohorts"][:rounds], pipeline=True)
+    # a window that recorded nothing at all says nothing (see one_launch)
+    for attempt in range(3):
+        if attempt:
+            time.sleep(0.5)
+        state, pool = eng.init_cohort(p["params"])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_cohort(state, pool, p["batches"][:rounds],
+                           p["cohorts"][:rounds], pipeline=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
     h2d = _intervals(evs, lambda n: "HtoD" in n)
     d2h = _intervals(evs, lambda n: "DtoH" in n)
     kern = _merge(_intervals(evs, lambda n: "Memcpy" not in n
@@ -3882,7 +4127,8 @@ def phase_moe_serve(card: str, label: str, rates) -> dict:
     prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
     positions = (frontends.mrope_positions(b, s, MROPE_GRID) if cfg.mrope
                  else None)
-    want = {"flash_attention": cfg.n_layers, "selective_scan": 0}
+    want = {"flash_attention": cfg.n_layers, "selective_scan": 0,
+            "selective_scan_heads": 0}
 
     torch.cuda.synchronize()
     _reset_all_counts()
@@ -4081,11 +4327,12 @@ def phase_scheduler(card: str, rates) -> dict:
     padded batch through a direct ``prefill`` + greedy ``decode_step``
     loop at the same max_seq; request SCHED_EOS_UID's third token is its
     eos_id. Then the counts set to 0 just before and read just after the
-    scheduler's run: one prefill a round, 54 scans and 9 flash launches
-    each, nothing in decode. Every request's tokens equal the direct
+    scheduler's run: one prefill a round, 54 per-head scans and 9 flash
+    launches each, nothing in decode. Every request's tokens equal the direct
     loop's, cut at its max_new or its eos. The direct loop runs the same
-    kernels, so last the scan and flash kernels are held against their
-    plain versions at each round's padded prefill shape. Returns the
+    kernels, so last the per-head scan and flash kernels are held against
+    their plain versions at each round's padded prefill shape, the scan
+    timed beside the general kernel's per-channel form. Returns the
     launches."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     gc.collect()
@@ -4139,8 +4386,8 @@ def phase_scheduler(card: str, rates) -> dict:
 
     for r in requests(eos):
         sched.submit(r)
-    want = {**dict.fromkeys(WRAPPERS, 0),
-            "selective_scan": cfg.n_layers * len(rounds),
+    want = {**dict.fromkeys(WRAPPERS, 0), "selective_scan": 0,
+            "selective_scan_heads": cfg.n_layers * len(rounds),
             "flash_attention": cfg.n_layers // cfg.attn_every * len(rounds)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4174,7 +4421,7 @@ def phase_scheduler(card: str, rates) -> dict:
           f"{direct_s:.2f} s); {tokens} tokens in {secs:.2f} s "
           f"({tokens / secs:.2f} tokens/s), slot utilization "
           f"{sched.utilization():.4f}; peak memory {peak / 2**30:.3f} GiB; "
-          f"launches scan {got['selective_scan']}, flash "
+          f"launches per-head scan {got['selective_scan_heads']}, flash "
           f"{got['flash_attention']} ({cfg.n_layers} and "
           f"{cfg.n_layers // cfg.attn_every} a round's prefill, none in "
           f"decode), others 0 on {card}")
@@ -4184,12 +4431,12 @@ def phase_scheduler(card: str, rates) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(12)
     for shape in sorted({(SCHED_SLOTS, max(len(r.prompt) for r in batch))
                          for batch in rounds}):
-        check_scan(*shape, cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim,
-                   rates, gen, timed=False, per_channel=True)
+        check_scan_heads(*shape, cfg.ssm_heads, cfg.mamba_headdim,
+                         cfg.ssm_state, rates, gen, timed=True,
+                         time_plain=False)
         check_flash(*shape, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0, rates,
                     gen, timed=False)
-    return {"selective_scan": got["selective_scan"],
-            "flash_attention": got["flash_attention"]}
+    return {name: got[name] for name in LM_WRAPPERS}
 
 
 def phase_long_window(card: str, rates) -> dict:
@@ -4218,7 +4465,7 @@ def phase_long_window(card: str, rates) -> dict:
                          device="cuda")
     max_seq = LONG_PROMPT + LONG_STEPS
     want = {**dict.fromkeys(WRAPPERS, 0), "selective_scan": 0,
-            "flash_attention": cfg.n_layers}
+            "selective_scan_heads": 0, "flash_attention": cfg.n_layers}
     torch.cuda.synchronize()
     _reset_all_counts()
     out = serve.generate(cfg, params, toks, LONG_STEPS)
@@ -5056,8 +5303,8 @@ def tp_rank_run(rank: int, label: str, mesh, rates) -> dict:
     first one's bits); then the same in fp32 on the upcast weights. Rank 0
     holds each run against the one-process runs (TP_BAND_F32; bf16 within
     TP_BF16_FLOORS of bf16's own distance from fp32). Then, one rank
-    after the other (the card to itself), the flash and scan kernels at
-    the rank's shapes against their plain versions, timed."""
+    after the other (the card to itself), the flash kernel and both scan
+    kernels at the rank's shapes against their plain versions, timed."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import shard_params
     arch, b, s, steps = TP_SERVE[label]
@@ -5159,6 +5406,10 @@ def tp_rank_run(rank: int, label: str, mesh, rates) -> dict:
                 b, s, shapes["heads"], shapes["kv_heads"], cfg.hd,
                 cfg.sliding_window, rates, gen, timed=True)
             if cfg.block == "mamba2":
+                out["selective_scan_heads"] = check_scan_heads(
+                    b, s, shapes["d_inner"] // cfg.mamba_headdim,
+                    cfg.mamba_headdim, cfg.ssm_state, rates, gen,
+                    timed=True)
                 out["selective_scan"] = check_scan(
                     b, s, shapes["d_inner"], cfg.ssm_state,
                     cfg.mamba_headdim, rates, gen, timed=True,
@@ -5244,8 +5495,8 @@ def phase_tp(card: str) -> tuple[dict, dict]:
                   else cfg.n_layers)
         want = {**dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0),
                 "flash_attention": n_attn,
-                "selective_scan": cfg.n_layers if cfg.block == "mamba2"
-                else 0}
+                "selective_scan_heads": cfg.n_layers
+                if cfg.block == "mamba2" else 0}
         first = results[0][label]
         print(f"  {label} {cfg.name} at full width and depth, {b} x {s} "
               f"prompts, {steps} decode steps teacher-forced on the "
@@ -5266,8 +5517,9 @@ def phase_tp(card: str) -> tuple[dict, dict]:
                   f"{res['param_bytes']:,} parameter bytes "
                   f"({res['param_bytes'] / one[label]['param_bytes']:.4f} of "
                   f"one process); launches per prefill flash "
-                  f"{res['per_prefill']['flash_attention']}, scan "
-                  f"{res['per_prefill']['selective_scan']}, 0 in decode; "
+                  f"{res['per_prefill']['flash_attention']}, per-head scan "
+                  f"{res['per_prefill']['selective_scan_heads']}, 0 in "
+                  f"decode; "
                   f"bf16 prefill {res['prefill_ms']:.2f} ms first call (host"
                   f" clock), {res['warm_prefill_ms']:.2f} ms warm (CUDA "
                   f"events), a second prefill bit-equal "
@@ -5858,6 +6110,7 @@ def main() -> None:
               "batched_sq": "cada_update.cu", "diff_sq": "cada_update.cu",
               "eq3_row_mean": "cada_update.cu",
               "selective_scan": "ssm_scan.cu",
+              "selective_scan_heads": "ssm_scan.cu",
               "flash_attention": "flash_attention.cu"}
     replaces = {"amsgrad": "src/repro/kernels/cada_update.py:34",
                 "batched_diff_sq": "src/repro/kernels/cada_update.py:106",
@@ -5865,9 +6118,13 @@ def main() -> None:
                 "diff_sq": "src/repro/kernels/cada_update.py:174",
                 "eq3_row_mean": "src/repro/kernels/ops.py:126",
                 "selective_scan": "src/repro/kernels/ssm_scan.py:39",
+                "selective_scan_heads": "src/repro/kernels/ssm_scan.py:39",
                 "flash_attention": "src/repro/kernels/flash_attention.py:33"}
     notes = {"eq3_row_mean": "a fori_loop in the JAX package, not Pallas: "
-                             "its row order is the bit contract"}
+                             "its row order is the bit contract",
+             "selective_scan": "the general form (any A, Mamba1's); "
+                               "Mamba2's prefills take selective_scan_heads",
+             "selective_scan_heads": "Mamba2's form: dt and A per head"}
     kernels = [{"name": name, "route": "cuda", "source": csrc + source[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "library_ms": None, **main_shape[name],

@@ -229,6 +229,26 @@ def selective_scan(dt, x, a, b, c, *, impl=None):
     return _ref.selective_scan_ref(dt, x, a, b, c)
 
 
+def selective_scan_heads(dt_h, x, a_h, b, c, *, impl=None):
+    """Mamba2's per-head selective scan from a zero state: dt_h (G, S, H),
+    x (G, S, H·P), a_h (H,), b/c (G, S, N); returns exactly what
+    :func:`selective_scan` returns for dt and A repeated over each head's
+    P channels: (y (G, S, H·P) fp32 without the D·x skip or the gate,
+    h_final (G, H·P, N) fp32). The plain version repeats them and runs the
+    plain loop; the kernel (``ssm_scan_kernel_ssd``) takes them per head.
+    On ``meta`` tensors the outputs' shapes and dtypes alone, and the same
+    6·G·S·D·N operations as :func:`selective_scan`, under its name."""
+    if dt_h.device.type == "meta":
+        g, s, d = x.shape
+        n = b.shape[-1]
+        count_meta_ops("selective_scan", 6 * g * s * d * n)
+        return (torch.empty((g, s, d), dtype=torch.float32, device="meta"),
+                torch.empty((g, d, n), dtype=torch.float32, device="meta"))
+    if use_kernel(dt_h, impl):
+        return _ss.selective_scan_heads(dt_h, x, a_h, b, c)
+    return _ref.selective_scan_heads_ref(dt_h, x, a_h, b, c)
+
+
 def flash_attention(q, k, v, *, window: int = 0, impl=None):
     """Causal (optionally windowed) self-attention, q (B, S, Hq, hd), k/v
     (B, S, Hkv, hd), GQA by a head-index map; output in q's dtype. On

@@ -82,6 +82,18 @@ def selective_scan_ref(dt, x, a, b, c, h0=None):
     return y, h
 
 
+def selective_scan_heads_ref(dt_h, x, a_h, b, c):
+    """Mamba2's per-head scan as the plain loop: dt_h (G, S, H) and a_h
+    (H,) repeated over each head's P = D / H channels (A as a view with
+    stride 0 on N and over G, as ``models/ssm.py`` repeats them for the
+    general scan), then :func:`selective_scan_ref` from a zero state."""
+    g, s, hn = dt_h.shape
+    p, n = x.shape[-1] // hn, b.shape[-1]
+    dt = torch.repeat_interleave(dt_h.float(), p, dim=-1)
+    a = torch.repeat_interleave(a_h.float(), p)[:, None].expand(-1, n)
+    return selective_scan_ref(dt, x, a[None].expand(g, *a.shape), b, c)
+
+
 FLASH_NEG = -1e30   # the masked score, finite as in the Pallas kernel
 
 

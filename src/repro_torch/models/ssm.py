@@ -9,9 +9,12 @@ h_t = exp(Δ_t A) h + (Δ_t x_t)⊗B_t.
 
 Where the scan runs: two routes.
   * Serving (``train=False``, prefill and forward): a scan on the card
-    from a zero state is always the CUDA kernel; on the CPU it is the
-    plain loop over time. Every caller on this route passes ``h0=None``;
-    a start state on the card raises, since the kernel starts from zero.
+    from a zero state is always a CUDA kernel; on the CPU it is the
+    plain loop over time. Mamba1 takes ``ops.selective_scan``; Mamba2
+    takes ``ops.selective_scan_heads`` with Δ and A per head (the
+    tensor-core kernel; its plain version repeats them and runs the same
+    loop as before). Every caller on this route passes ``h0=None``; a
+    start state on the card raises, since the kernels start from zero.
   * Training (``train=True``, the trainer's forward and backward):
     :func:`selective_scan_chunked`, the reference's chunked
     ``selective_scan_jnp`` as PyTorch code under autograd, on every
@@ -222,14 +225,20 @@ def _own_heads(params, dt_raw, tp):
     return dt_raw[..., tp.index * h:(tp.index + 1) * h]
 
 
+def _mamba2_heads(params, dt_raw):
+    """Per-head Δ (B, S, H) and A (H,) fp32 from the rank's dt_raw."""
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    return dt, -torch.exp(params["A_log"].float())
+
+
 def _mamba2_scan_inputs(params, cfg: ModelConfig, dt_raw):
-    """Per-head Δ/A repeated across head_dim onto the flat channel axis.
-    A (di, N) is a view with stride 0 on N, never materialised: the scan
-    kernel reads that stride and computes one decay per channel."""
+    """Per-head Δ/A repeated across head_dim onto the flat channel axis
+    (the training route and a start state's). A (di, N) is a view with
+    stride 0 on N, never materialised: the general scan kernel reads that
+    stride and computes one decay per channel."""
     hd, n = cfg.mamba_headdim, cfg.ssm_state
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])       # (B,S,H)
+    dt, a_h = _mamba2_heads(params, dt_raw)
     dt_e = torch.repeat_interleave(dt, hd, dim=-1)             # (B,S,di)
-    a_h = -torch.exp(params["A_log"].float())                  # (H,)
     a_e = torch.repeat_interleave(a_h, hd)[:, None].expand(-1, n)
     return dt_e, a_e
 
@@ -239,14 +248,21 @@ def mamba2_inner(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
                  train=False, tp=None):
     """xc (B,S,di) post-conv+silu. h0/h_final: (B, H, hd, N). Under ``tp``
     xc, z and the state are the rank's block of d_inner and of the heads;
-    the gated norm and ``out_proj`` complete over the model axis."""
+    the gated norm and ``out_proj`` complete over the model axis. Serving
+    from a zero state takes the per-head scan (``ops.selective_scan_heads``);
+    training and a start state the repeated Δ/A of the generic scan."""
     bsz, s, di = xc.shape
     hd, n = cfg.mamba_headdim, cfg.ssm_state
     split = tp is not None and di != cfg.d_inner
-    dt_e, a_e = _mamba2_scan_inputs(params, cfg, _own_heads(params, dt_raw,
-                                                            tp))
-    h0_flat = None if h0 is None else h0.reshape(bsz, di, n)
-    y, h_final = _scan(dt_e, xc, a_e, b_ssm, c_ssm, h0_flat, impl, train)
+    dt_raw = _own_heads(params, dt_raw, tp)
+    if not train and h0 is None:
+        dt_h, a_h = _mamba2_heads(params, dt_raw)
+        y, h_final = ops.selective_scan_heads(dt_h, xc, a_h, b_ssm, c_ssm,
+                                              impl=impl)
+    else:
+        dt_e, a_e = _mamba2_scan_inputs(params, cfg, dt_raw)
+        h0_flat = None if h0 is None else h0.reshape(bsz, di, n)
+        y, h_final = _scan(dt_e, xc, a_e, b_ssm, c_ssm, h0_flat, impl, train)
     y = y + torch.repeat_interleave(params["D"].float(), hd) * xc.float()
     y = (y * F.silu(z.float())).to(xc.dtype)
     y = rmsnorm(y, params["out_norm"], cfg.norm_eps, tp if split else None)

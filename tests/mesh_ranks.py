@@ -315,7 +315,8 @@ def run_serving(rank: int, world: int, workdir: str) -> None:
     device = (torch.device("cuda", torch.cuda.current_device())
               if job.get("device") == "cuda" else torch.device("cpu"))
     kernels = {"flash_attention": flash_attention.flash_attention,
-               "selective_scan": ssm_scan.selective_scan}
+               "selective_scan": ssm_scan.selective_scan,
+               "selective_scan_heads": ssm_scan.selective_scan_heads}
 
     def on_device(inputs):
         return {k: torch.as_tensor(v).to(device) for k, v in inputs.items()}

@@ -21,6 +21,9 @@ PyTorch on both devices and must give the same bits on the card as on the
 CPU. The selective scan: within 1e-5 of each array's scale, max |plain|
 (fp32 on both sides; y_t's N-sum runs in another order, and its rounding
 scales with the terms summed, not with y_t, which can cancel to near 0).
+Mamba2's per-head scan (chunked products on the tensor cores) in the same
+band: its sums run in chunks, and its fp32 factors enter the bf16
+products as two halves of about 16 bits each.
 fp32 flash attention within 1e-5 of max(1, |plain|) per element (sums
 over hd and over keys in other orders); bf16 flash attention (the
 tensor-core kernel) within 2⁻⁸ · max(1, |plain|) per element, or else a
@@ -674,6 +677,109 @@ def test_scan_kernel_mamba2_form_matches_materialised(gen, shape, lowp):
     _within_scale(h, hp, 1e-5)
 
 
+def _heads_operands(gen, g, s, hn, p, n, lowp):
+    """Mamba2's per-head operands: dt_h (G, S, H), x (G, S, H·P), a_h (H,)
+    as the model draws -exp(A_log), b, c (G, S, N); x/b/c in bf16 or
+    fp32."""
+    dev = "cuda"
+    dt = (0.1 * torch.randn(g, s, hn, generator=gen, device=dev)).abs()
+    x = torch.randn(g, s, hn * p, generator=gen, device=dev)
+    a = -(1.0 + 15.0 * torch.rand(hn, generator=gen, device=dev))
+    b = torch.randn(g, s, n, generator=gen, device=dev)
+    c = torch.randn(g, s, n, generator=gen, device=dev)
+    if lowp:
+        x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    return dt, x, a, b, c
+
+
+def _heads_case(gen, g, s, hn, p, n, lowp):
+    ops_ = _heads_operands(gen, g, s, hn, p, n, lowp)
+    before = ssm_scan.selective_scan_heads.launches
+    y, h = ops.selective_scan_heads(*ops_)
+    assert ssm_scan.selective_scan_heads.launches == before + 1
+    y2, h2 = ops.selective_scan_heads(*ops_)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yp, hp = ops.selective_scan_heads(*ops_, impl="plain")
+    assert ssm_scan.selective_scan_heads.launches == before + 2
+    assert y.shape == yp.shape and h.shape == hp.shape
+    _within_scale(y, yp, 1e-5)
+    _within_scale(h, hp, 1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 333, 2048])
+@pytest.mark.parametrize("g,hn", [(1, 1), (4, 9), (1, 40), (4, 80)])
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 64)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_scan_heads_kernel_matches_plain(gen, s, g, hn, p, n, lowp):
+    """Mamba2's per-head kernel (wgmma on the tensor cores, TMA) against
+    its plain version at lengths below, at and around its 64-step chunks,
+    one to 80 heads (a rank's 40 and zamba2-2.7b's 80), at zamba2-2.7b's
+    widths (P 64, N 64) and its smoke config's (P 32, N 16); x/B/C in
+    bf16 (the served path) and fp32 (cut into three bf16 pieces). One
+    launch a call, the same bits run to run, y and h_final within 1e-5 of
+    the plain arrays' scale."""
+    _heads_case(gen, g, s, hn, p, n, lowp)
+
+
+@pytest.mark.parametrize("p,n", [(32, 64), (64, 16), (8, 8), (24, 40)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_scan_heads_kernel_other_widths_match_plain(gen, p, n, lowp):
+    """The other widths the kernel takes (multiples of 8 up to 64), each
+    padded to 64 in shared memory by TMA's zero fill."""
+    _heads_case(gen, 2, 333, 5, p, n, lowp)
+
+
+def test_scan_heads_kernel_mixed_operand_types(gen):
+    """x in fp32 with B/C in bf16, and the other way round."""
+    for xd, bd in ((torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.float32)):
+        dt, x, a, b, c = _heads_operands(gen, 2, 200, 6, 64, 64, False)
+        x, b, c = x.to(xd), b.to(bd), c.to(bd)
+        y, h = ops.selective_scan_heads(dt, x, a, b, c)
+        yp, hp = ops.selective_scan_heads(dt, x, a, b, c, impl="plain")
+        _within_scale(y, yp, 1e-5)
+        _within_scale(h, hp, 1e-5)
+
+
+def test_scan_heads_kernel_refuses_what_it_does_not_take(gen):
+    dt, x, a, b, c = _heads_operands(gen, 2, 70, 4, 64, 16, True)
+    ops.selective_scan_heads(dt, x, a, b, c)
+    for i in (0, 1, 3, 4):                 # dt, x, b, c: contiguous only
+        args = [dt, x, a, b, c]
+        args[i] = args[i].transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.selective_scan_heads(*args)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.selective_scan_heads(dt.bfloat16(), x, a, b, c)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.selective_scan_heads(dt, x, a.double(), b, c)
+    with pytest.raises(ValueError, match="x must be fp32 or bf16"):
+        ops.selective_scan_heads(dt, x.half(), a, b, c)
+    with pytest.raises(ValueError, match="b and c"):
+        ops.selective_scan_heads(dt, x, a, b.float(), c)
+    with pytest.raises(ValueError, match="x must be"):
+        ops.selective_scan_heads(dt, x[:, :, :-1].contiguous(), a, b, c)
+    with pytest.raises(ValueError, match="b and c must be"):
+        ops.selective_scan_heads(dt, x, a, b[:, :-1].contiguous(),
+                                 c[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="a_h"):
+        ops.selective_scan_heads(dt, x, a[:3].contiguous(), b, c)
+    for hn, p, n, what in ((2, 128, 16, "head_dim P = 128"),
+                           (8, 12, 16, "head_dim P = 12"),
+                           (4, 64, 128, "state N = 128"),
+                           (4, 64, 4, "state N = 4")):
+        dt2, x2, a2, b2, c2 = _heads_operands(gen, 1, 16, hn, p, n, True)
+        with pytest.raises(ValueError, match=what):
+            ops.selective_scan_heads(dt2, x2, a2, b2, c2)
+    off = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view(x.shape)
+    off.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.selective_scan_heads(dt, off, a, b, c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm_scan.selective_scan_heads(dt, x.cpu(), a, b, c)
+
+
 @pytest.mark.parametrize("s", [1, 63, 65, 333, 2048, 127, 128, 129, 255,
                                257])
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
@@ -841,28 +947,32 @@ def test_prefill_launches_the_kernels_and_decode_none(gen, arch):
     kw = {"tokens" if cfg.embed_input else "embeds": toks}
     if cfg.mrope:
         kw["positions"] = tfront.mrope_positions(2, 40, (4, 4))
+    # Mamba1 takes the general scan, Mamba2 the per-head one
+    scan = (ssm_scan.selective_scan_heads if cfg.block == "mamba2"
+            else ssm_scan.selective_scan)
+    other = (ssm_scan.selective_scan if cfg.block == "mamba2"
+             else ssm_scan.selective_scan_heads)
     n_ssm = cfg.n_layers if cfg.block in ("mamba1", "mamba2") else 0
     n_attn = TM._n_attn_layers(cfg)
-    before = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
+    before = (scan.launches, tfa.flash_attention.launches, other.launches)
     logits, cache = TM.prefill(cfg, params, max_seq=48, **kw)
-    assert (ssm_scan.selective_scan.launches - before[0],
-            tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
+    assert (scan.launches - before[0], tfa.flash_attention.launches
+            - before[1], other.launches - before[2]) == (n_ssm, n_attn, 0)
     plain, pcache = TM.prefill(cfg, params, max_seq=48, impl="plain", **kw)
-    assert (ssm_scan.selective_scan.launches - before[0],
+    assert (scan.launches - before[0],
             tfa.flash_attention.launches - before[1]) == (n_ssm, n_attn)
     _within(logits, plain, 1e-4)
     for f in ("k", "v", "conv", "ssm"):
         if getattr(cache, f) is not None:
             _within(getattr(cache, f), getattr(pcache, f), 1e-4)
-    mid = (ssm_scan.selective_scan.launches, tfa.flash_attention.launches)
+    mid = (scan.launches, tfa.flash_attention.launches)
     if cfg.embed_input:
         out, _ = TM.decode_step(cfg, params, cache, torch.argmax(logits, -1))
     else:
         out, _ = TM.decode_step(cfg, params, cache,
                                 embeds=torch.zeros(2, 1, cfg.d_model,
                                                    device="cuda"))
-    assert (ssm_scan.selective_scan.launches,
-            tfa.flash_attention.launches) == mid
+    assert (scan.launches, tfa.flash_attention.launches) == mid
     assert bool(torch.isfinite(out).all())
 
 
@@ -891,6 +1001,7 @@ def test_trainer_step_launches_the_kernels_and_matches_plain(gen, kind,
                     cada_update.batched_diff_sq_norm_flat,
                 "batched_sq_norm_flat": cada_update.batched_sq_norm_flat,
                 "scan": ssm_scan.selective_scan,
+                "scan_heads": ssm_scan.selective_scan_heads,
                 "flash": tfa.flash_attention}
     before = {k: f.launches for k, f in counters.items()}
     new, mets = make_train_step(cfg, hp, 2)(state, batch)
@@ -1258,9 +1369,11 @@ def test_tp_serving_two_ranks_on_one_card_equal_one_process(gen, tmp_path):
     for r in ranks:
         got = r["zamba2"]
         assert got["launches"] == ({"flash_attention": 1,
-                                    "selective_scan": 2},
+                                    "selective_scan": 0,
+                                    "selective_scan_heads": 2},
                                    {"flash_attention": 0,
-                                    "selective_scan": 0})
+                                    "selective_scan": 0,
+                                    "selective_scan_heads": 0})
         assert got["param_shapes"]["blocks/in_x"] == (2, 128, 128)
         assert share(got["prefill_logits"], want["prefill"]) <= TP_BAND
         for f, ref in want["cache"].items():

@@ -117,6 +117,135 @@ def test_mamba2_scan_inputs_give_a_as_a_stride0_view_on_n():
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
+def _heads_inputs(rng, g, s, hn, p, n, lowp):
+    """Mamba2's per-head operands: dt_h (G, S, H), x (G, S, H·P), a_h (H,),
+    b, c (G, S, N)."""
+    dt = np.abs(rng.normal(size=(g, s, hn)) * 0.1).astype(np.float32)
+    x = rng.normal(size=(g, s, hn * p)).astype(np.float32)
+    a = -(1.0 + 15.0 * rng.random(hn)).astype(np.float32)
+    b = rng.normal(size=(g, s, n)).astype(np.float32)
+    c = rng.normal(size=(g, s, n)).astype(np.float32)
+    if lowp:   # x, B, C stored in bf16 (rounded once, on the JAX side)
+        x, b, c = (np.asarray(jnp.asarray(t).astype(jnp.bfloat16))
+                   for t in (x, b, c))
+    return dt, x, a, b, c
+
+
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 64), (32, 64), (64, 16)])
+@pytest.mark.parametrize("s,chunk", [(65, 13), (100, 25)])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_plain_heads_scan_matches_pallas(p, n, s, chunk, lowp):
+    """``ops.selective_scan_heads`` on per-head operands against the JAX
+    package's Pallas scan (interpret mode) on the same operands repeated
+    over each head's P channels, A broadcast per head as the reference's
+    docstring maps Mamba2 onto the kernel. S is no multiple of the card
+    kernel's 64-step chunks; P and N are zamba2-2.7b's and its smoke
+    config's widths."""
+    rng = np.random.default_rng(p * 1000 + n * 10 + s + lowp)
+    g, hn = 2, 3
+    dt, x, a, b, c = _heads_inputs(rng, g, s, hn, p, n, lowp)
+    dt_e = np.repeat(dt, p, axis=-1)
+    a_e = np.broadcast_to(np.repeat(a, p)[None, :, None],
+                          (g, hn * p, n)).astype(np.float32)
+    y_j, h_j = jops.selective_scan(*(jnp.asarray(t) for t in
+                                     (dt_e, x, a_e, b, c)),
+                                   chunk=chunk, dblk=p, interpret=True)
+    before = ssm_scan.selective_scan_heads.launches
+    y_t, h_t = ops.selective_scan_heads(*(tensor_from_numpy(t, "cpu")
+                                          for t in (dt, x, a, b, c)))
+    assert ssm_scan.selective_scan_heads.launches == before
+    assert y_t.dtype == h_t.dtype == torch.float32
+    assert y_t.shape == (g, s, hn * p) and h_t.shape == (g, hn * p, n)
+    _close(y_t.numpy(), y_j)
+    _close(h_t.numpy(), h_j)
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+def test_plain_heads_scan_gives_the_expand_routes_bits(lowp):
+    """The per-head entry's plain route is the general scan on Δ and A
+    repeated as ``_mamba2_scan_inputs`` repeats them: the same bits, so
+    the CPU mamba2 serving route did not move."""
+    cfg = TC.get_smoke_config("zamba2-2.7b")
+    rng = np.random.default_rng(17)
+    hn, n = cfg.ssm_heads, cfg.ssm_state
+    params = {k: tensor_from_numpy(rng.normal(size=hn).astype(np.float32),
+                                   "cpu") for k in ("A_log", "dt_bias")}
+    dt_raw = tensor_from_numpy(
+        rng.normal(size=(2, 70, hn)).astype(np.float32), "cpu")
+    _, x, _, b, c = (tensor_from_numpy(t, "cpu") for t in _heads_inputs(
+        rng, 2, 70, hn, cfg.mamba_headdim, n, lowp))
+    dt_e, a_e = tssm._mamba2_scan_inputs(params, cfg, dt_raw)
+    y1, h1 = ops.selective_scan(dt_e, x, a_e.expand(2, *a_e.shape), b, c)
+    dt_h, a_h = tssm._mamba2_heads(params, dt_raw)
+    y2, h2 = ops.selective_scan_heads(dt_h, x, a_h, b, c)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_meta_heads_scan_counts_the_general_scans_operations():
+    """On ``meta`` tensors the per-head entry returns the shapes and
+    dtypes alone and counts the general scan's 6·G·S·D·N operations under
+    its name, so the dry run's rows do not move."""
+    g, s, hn, p, n = 2, 4096, 80, 64, 64
+    meta = {"device": "meta"}
+    dt_h = torch.empty(g, s, hn, **meta)
+    x = torch.empty(g, s, hn * p, dtype=torch.bfloat16, **meta)
+    b = torch.empty(g, s, n, dtype=torch.bfloat16, **meta)
+    with ops.counting_meta_ops() as heads:
+        y, h = ops.selective_scan_heads(dt_h, x, torch.empty(hn, **meta), b,
+                                        b)
+    with ops.counting_meta_ops() as general:
+        ops.selective_scan(torch.empty(g, s, hn * p, **meta), x,
+                           torch.empty(g, hn * p, n, **meta), b, b)
+    assert heads == general == {"selective_scan": 6 * g * s * hn * p * n}
+    assert (y.shape, h.shape) == ((g, s, hn * p), (g, hn * p, n))
+    assert y.dtype == h.dtype == torch.float32 and y.is_meta
+
+
+@pytest.mark.parametrize("train,h0,route", [(False, False, "heads"),
+                                            (True, False, "chunked"),
+                                            (False, True, "general")])
+def test_mamba2_inner_takes_the_heads_scan_when_serving(monkeypatch, train,
+                                                        h0, route):
+    """``mamba2_inner`` sends a serving scan from a zero state to
+    ``ops.selective_scan_heads``; training takes the chunked scan and a
+    start state the general scan on the repeated Δ/A, neither of them the
+    per-head entry."""
+    from repro_torch.models import model as TM
+    cfg = TC.get_smoke_config("zamba2-2.7b")
+    params = {k: v[0] for k, v in TM.init_params(cfg, 0, "cpu")[
+        "blocks"].items() if torch.is_tensor(v)}
+    calls = []
+
+    def spy(name, f):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return f(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ops, "selective_scan_heads",
+                        spy("heads", ops.selective_scan_heads))
+    monkeypatch.setattr(tssm, "selective_scan_chunked",
+                        spy("chunked", tssm.selective_scan_chunked))
+    monkeypatch.setattr(tssm.ref, "selective_scan_ref",
+                        spy("general", tssm.ref.selective_scan_ref))
+    rng = np.random.default_rng(23)
+    bsz, s, di, n = 2, 16, cfg.d_inner, cfg.ssm_state
+    xc, z = (tensor_from_numpy(rng.normal(size=(bsz, s, di)).astype(
+        np.float32), "cpu") for _ in range(2))
+    b_ssm, c_ssm = (tensor_from_numpy(rng.normal(size=(bsz, s, n)).astype(
+        np.float32), "cpu") for _ in range(2))
+    dt_raw = tensor_from_numpy(rng.normal(size=(bsz, s, cfg.ssm_heads))
+                               .astype(np.float32), "cpu")
+    start = (torch.zeros(bsz, cfg.ssm_heads, cfg.mamba_headdim, n) if h0
+             else None)
+    out, h_final = tssm.mamba2_inner(params, cfg, xc, z, b_ssm, c_ssm,
+                                     dt_raw, h0=start, return_state=True,
+                                     train=train)
+    assert calls[0] == route and calls.count("heads") == (route == "heads")
+    assert out.shape == (bsz, s, cfg.d_model)
+    assert h_final.shape == (bsz, cfg.ssm_heads, cfg.mamba_headdim, n)
+
+
 def _attn_inputs(rng, b, s, hq, hkv, hd):
     q = rng.normal(size=(b, s, hq, hd)).astype(np.float32)
     k = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
@@ -183,6 +312,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         ssm_scan.selective_scan(dt, dt, torch.zeros(1, 16, 4),
                                 torch.zeros(1, 8, 4), torch.zeros(1, 8, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm_scan.selective_scan_heads(torch.zeros(1, 8, 2), dt,
+                                      torch.zeros(2), torch.zeros(1, 8, 16),
+                                      torch.zeros(1, 8, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.selective_scan_heads(torch.zeros(1, 8, 2), dt, torch.zeros(2),
+                                 torch.zeros(1, 8, 16),
+                                 torch.zeros(1, 8, 16), impl="kernel")
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.flash_attention(x, x, x, impl="kernel")
 
