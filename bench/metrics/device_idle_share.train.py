@@ -1,0 +1,9 @@
+"""device_idle_share.train: the share of the traced sub-window in which no
+operation ran on the card (the union of the device intervals,
+``devtrace.Trace.busy_s``)."""
+
+
+def read(rec):
+    if rec.kind != "train" or rec.trace is None:
+        return None
+    return 100.0 * (1.0 - rec.trace.busy_s / rec.trace.window_s)
