@@ -417,22 +417,25 @@ def flat_comm_state_specs(strategy, param_spec, worker_param_spec,
 # ------------------------------------------------------------ two-point eval
 
 def stacked_two_point_eval(layout: FlatLayout, params, pts, batch, m: int,
-                           vgrad_per):
+                           vgrad_per, trace=None):
     """Fresh and second gradients from ONE vmapped call: the 2-way eval axis
     is an outer vmap level over which the batch is broadcast, not copied.
     Returns (losses, fresh, second) with the planes packed."""
-    stacked = tree_map(
-        lambda p, w: torch.stack([p.expand((m,) + p.shape), w.to(p.dtype)]),
-        params, pts)
-    losses2, grads2 = torch.func.vmap(vgrad_per, in_dims=(0, None))(
-        stacked, batch)
-    fresh = layout.pack_worker(tree_map(lambda g: g[0], grads2))
-    second = layout.pack_worker(tree_map(lambda g: g[1], grads2))
+    trace = as_tracer(trace)
+    with trace.span("train.grads", "train"):
+        stacked = tree_map(
+            lambda p, w: torch.stack([p.expand((m,) + p.shape),
+                                      w.to(p.dtype)]), params, pts)
+        losses2, grads2 = torch.func.vmap(vgrad_per, in_dims=(0, None))(
+            stacked, batch)
+    with trace.span("cada.pack", "cada"):
+        fresh = layout.pack_worker(tree_map(lambda g: g[0], grads2))
+        second = layout.pack_worker(tree_map(lambda g: g[1], grads2))
     return losses2[0], fresh, second
 
 
 def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
-                         vgrad, every=None) -> torch.Tensor:
+                         vgrad, every=None, trace=None) -> torch.Tensor:
     """The grouped second evaluation: one broadcast-point ``vgrad`` per
     OCCUPIED ring row, placed into the (M, n_flat) fp32 second plane by
     each worker's slot. Every worker still evaluates its own sample; only
@@ -446,6 +449,7 @@ def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
     every worker, where ``slot`` holds the rank's rows) gives the rows to
     evaluate, the same on every rank, since an evaluation's collectives
     span the ranks of other workers."""
+    trace = as_tracer(trace)
     rr = tree_leaves(ring)[0].shape[0]
     occupied = torch.bincount((slot if every is None else every).long(),
                               minlength=rr).tolist()
@@ -453,16 +457,18 @@ def grouped_second_plane(layout: FlatLayout, ring, slot, batch, m: int,
                         device=slot.device)
     for r in range(rr):
         if occupied[r]:
-            _, g = vgrad(tree_map(lambda x: x[r], ring), batch)
-            plane = torch.where((slot == r)[:, None], layout.pack_worker(g),
-                                plane)
+            with trace.span("train.grads", "train"):
+                _, g = vgrad(tree_map(lambda x: x[r], ring), batch)
+            with trace.span("cada.pack", "cada"):
+                plane = torch.where((slot == r)[:, None],
+                                    layout.pack_worker(g), plane)
     return plane
 
 
 def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
                    batch, m: int, *, vgrad, vgrad_per=None,
                    fuse_evals: bool = False, group_evals: bool = False,
-                   cohort=None, shard=None):
+                   cohort=None, shard=None, trace=None):
     """The two-point eval dispatch, shared by :func:`flat_comm_round`,
     :func:`flat_cohort_round` and the async sim's gate
     (``repro_torch.sim.runtime``). Returns ``(losses, fresh, second)``
@@ -488,15 +494,23 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     the rank's column slice as soon as it is packed, and a per-worker
     second point is the rank's worker's own stale iterate
     (``shard.worker_points``).
+
+    ``trace`` records a ``train.grads`` span around each evaluation, a
+    ``cada.pack`` span around the packing of its gradients, and a
+    ``cada.points`` span around the gather of the second points.
     """
+    trace = as_tracer(trace)
+
     def _packed_eval(f, point):
         """(losses, the packed fp32 plane of one evaluation, cut to the
         rank's columns on the mesh)."""
-        losses, tree = f(point, batch)
-        plane = layout.pack_worker(tree)
-        del tree
-        return losses, (plane if shard is None
-                        else shard.cut_cols(plane, layout))
+        with trace.span("train.grads", "train"):
+            losses, tree = f(point, batch)
+        with trace.span("cada.pack", "cada"):
+            plane = layout.pack_worker(tree)
+            del tree
+            return losses, (plane if shard is None
+                            else shard.cut_cols(plane, layout))
 
     indexed = strategy.second_eval_indexed(extras)
     if indexed is None:
@@ -520,14 +534,16 @@ def eval_two_point(strategy, layout: FlatLayout, extras: dict, params,
     if group_evals:
         losses, fresh = _packed_eval(vgrad, params)
         second = grouped_second_plane(layout, ring, slot, batch, m, vgrad,
-                                      None if shard is None else every)
+                                      None if shard is None else every,
+                                      trace=trace)
         return (losses, fresh, second if shard is None
                 else shard.cut_cols(second, layout))
-    idx = slot.long()
-    pts = tree_map(lambda x: x.index_select(0, idx), ring)
+    with trace.span("cada.points", "cada"):
+        idx = slot.long()
+        pts = tree_map(lambda x: x.index_select(0, idx), ring)
     if fuse_evals:
         losses, fresh, second = stacked_two_point_eval(
-            layout, params, pts, batch, m, vgrad_per)
+            layout, params, pts, batch, m, vgrad_per, trace=trace)
         if shard is not None:
             fresh, second = (shard.cut_cols(p, layout)
                              for p in (fresh, second))
@@ -543,7 +559,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                     vgrad_per: Callable | None = None,
                     fuse_evals: bool = True, group_evals: bool = False,
                     impl=None, shard=None, participation=None,
-                    local_steps=None) -> FlatCommRoundResult:
+                    local_steps=None, trace=None) -> FlatCommRoundResult:
     """One communication round of Algorithm 1 (lines 4-15) on flat buffers.
 
     ``fuse_evals`` and ``group_evals`` pick the form of the rule's second
@@ -571,7 +587,15 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     θ^k − θ_m^(h) in place of a fresh gradient; the batch leads with H
     where :func:`batch_has_local_axis` says so. Such a round always
     uploads (LHS +∞), and its grad evals are Σ_active h_w.
+
+    ``trace`` (an ``obs.Tracer``) records the round's phases: the
+    evaluations' spans (:func:`eval_two_point`; a delta rule's local steps
+    as ``train.grads``), ``cada.lhs`` (the rule's LHS and the upload
+    decision), ``cada.wire`` (the innovation and its wire; then the worker
+    plane, staleness, the rule's post-upload state and the metrics) and
+    ``cada.eq3`` (eq. (3) and ∇'s update).
     """
+    trace = as_tracer(trace)
     r = strategy.rule
     m = comm.staleness.shape[0]
     if local_steps is not None and not strategy.delta_payload:
@@ -596,9 +620,10 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
                    else batch_map(lambda x: x[None], batch))
         h_steps = local_steps_vector(m, batch_h, local_steps,
                                      device=params_flat.device)
-        losses, fresh, cache = strategy.flat_local_payload(
-            layout, extras, params_flat, batch_h, m_rows, vgrad_per,
-            h_steps if rows is None else h_steps[rows], shard=shard)
+        with trace.span("train.grads", "train"):
+            losses, fresh, cache = strategy.flat_local_payload(
+                layout, extras, params_flat, batch_h, m_rows, vgrad_per,
+                h_steps if rows is None else h_steps[rows], shard=shard)
         second = None
     else:
         h_steps = None
@@ -607,7 +632,7 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
         losses, fresh, second = eval_two_point(
             strategy, layout, extras, params, batch, m_rows, vgrad=vgrad,
             vgrad_per=vgrad_per, fuse_evals=fuse_evals,
-            group_evals=group_evals, cohort=rows, shard=shard)
+            group_evals=group_evals, cohort=rows, shard=shard, trace=trace)
     if shard is not None:
         losses = shard.rows_sum(losses, (shard.waxis,), m)
     ctx = FlatCommContext(layout=layout, params=params, fresh=fresh,
@@ -617,16 +642,17 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
 
     # Lines 7/9: rule LHS vs the shared recent-progress RHS; a delta round
     # always uploads (the "skip" axis is folded into h_w).
-    if strategy.delta_payload:
-        lhs = torch.full((m,), torch.inf, dtype=torch.float32,
-                         device=fresh.device)
-    else:
-        lhs, cache = strategy.flat_lhs(ctx, extras)
-    rhs = r.rhs(comm.diff_hist)
-    # Line 10: upload if the condition is VIOLATED or staleness capped.
-    upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
-    if participation is not None:
-        upload = upload & participation
+    with trace.span("cada.lhs", "cada"):
+        if strategy.delta_payload:
+            lhs = torch.full((m,), torch.inf, dtype=torch.float32,
+                             device=fresh.device)
+        else:
+            lhs, cache = strategy.flat_lhs(ctx, extras)
+        rhs = r.rhs(comm.diff_hist)
+        # Line 10: upload if the condition is VIOLATED or staleness capped.
+        upload = (lhs > rhs) | (comm.staleness >= r.max_delay)
+        if participation is not None:
+            upload = upload & participation
 
     # Eq. (3): innovation delta, wire format, masked aggregation, whole
     # planes. At an LM's width each plane is gigabytes, so each goes as
@@ -634,71 +660,76 @@ def flat_comm_round(strategy, layout: FlatLayout, comm: FlatCommState,
     # after the LHS or ctx.fresh after the wire).
     ctx = ctx._replace(second=None)
     del second
-    up_rows = ctx.plane_rows(upload)
-    wg32 = comm.worker_grads.float()
-    delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
-    sparse = strategy.flat_sparse_wire(ctx, extras, cache, delta)
-    ctx = ctx._replace(fresh=None)
-    del fresh
-    if sparse is not None:
-        # True sparse wire: the (M, K) value/index pair is the payload; the
-        # dense plane is rebuilt server-side. Values are masked and cast as
-        # the dense wire is, so the two paths agree bit for bit.
-        vals, idx = sparse
-        vals = torch.where(up_rows[:, None], vals, 0.0).to(
-            comm.worker_grads.dtype)
-        wire = sparse_rows_to_dense(idx, vals, delta.shape[1])
-    else:
-        wire = torch.where(up_rows[:, None], delta, 0.0).to(
-            comm.worker_grads.dtype)
-    del delta, sparse
+    with trace.span("cada.wire", "cada"):
+        up_rows = ctx.plane_rows(upload)
+        wg32 = comm.worker_grads.float()
+        delta = strategy.flat_wire_delta(ctx, extras, cache, fresh - wg32)
+        sparse = strategy.flat_sparse_wire(ctx, extras, cache, delta)
+        ctx = ctx._replace(fresh=None)
+        del fresh
+        if sparse is not None:
+            # True sparse wire: the (M, K) value/index pair is the payload;
+            # the dense plane is rebuilt server-side. Values are masked and
+            # cast as the dense wire is, so the two paths agree bit for bit.
+            vals, idx = sparse
+            vals = torch.where(up_rows[:, None], vals, 0.0).to(
+                comm.worker_grads.dtype)
+            wire = sparse_rows_to_dense(idx, vals, delta.shape[1])
+        else:
+            wire = torch.where(up_rows[:, None], delta, 0.0).to(
+                comm.worker_grads.dtype)
+        del delta, sparse
     # Order-fixed row accumulation: masked zero rows are exact no-ops. On
     # the mesh a round in which no worker uploads adds the same +0.0
     # without the collective.
-    if shard is None:
-        inc = kops.eq3_row_mean(wire, m, impl=impl)
-    elif bool(upload.any()):
-        inc = shard.cols_to_server(
-            kops.eq3_row_mean(wire, m, impl=impl, shard=shard), layout)
-    else:
-        inc = torch.zeros(comm.nabla.shape, dtype=torch.float32,
-                          device=comm.nabla.device)
-    nabla = (comm.nabla.float() + inc).to(comm.nabla.dtype)
-    worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
-    del wire, wg32
+    with trace.span("cada.eq3", "cada"):
+        if shard is None:
+            inc = kops.eq3_row_mean(wire, m, impl=impl)
+        elif bool(upload.any()):
+            inc = shard.cols_to_server(
+                kops.eq3_row_mean(wire, m, impl=impl, shard=shard), layout)
+        else:
+            inc = torch.zeros(comm.nabla.shape, dtype=torch.float32,
+                              device=comm.nabla.device)
+        nabla = (comm.nabla.float() + inc).to(comm.nabla.dtype)
+    with trace.span("cada.wire", "cada"):
+        worker_grads = (wg32 + wire.float()).to(comm.worker_grads.dtype)
+        del wire, wg32
 
-    staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)
-    extras = strategy.flat_post_upload(extras, cache, upload, ctx)
+        staleness = torch.where(upload, 1, comm.staleness + 1).to(torch.int32)
+        extras = strategy.flat_post_upload(extras, cache, upload, ctx)
 
-    uploads = upload.sum(dtype=torch.int32)
-    # offline workers evaluate nothing — charge grad evals to participants
-    n_active = (torch.tensor(m, dtype=torch.int32, device=upload.device)
-                if participation is None
-                else participation.sum(dtype=torch.int32))
-    if strategy.delta_payload:
-        # one eval per local step: Σ_active h_w
-        grad_evals = (h_steps if participation is None
-                      else torch.where(participation, h_steps, 0)
-                      ).sum(dtype=torch.int32)
-    else:
-        grad_evals = n_active * strategy.grad_evals_per_iter
-    metrics = {
-        "uploads": uploads,
-        "skip_rate": 1.0 - uploads.float() / n_active,
-        "upload_mask": upload,
-        "staleness": staleness,
-        "rhs": rhs,
-        "lhs": lhs,
-        "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
-        "max_staleness": staleness.max(),
-        "grad_evals": grad_evals,
-        "bytes_up": uploads.float() * strategy.bytes_per_upload(layout.n),
-    }
-    new_comm = FlatCommState(nabla=nabla, worker_grads=worker_grads,
-                             staleness=staleness, diff_hist=comm.diff_hist,
-                             extras=extras)
-    return FlatCommRoundResult(losses=losses, comm=new_comm, upload=upload,
-                               metrics=metrics)
+        uploads = upload.sum(dtype=torch.int32)
+        # offline workers evaluate nothing: charge grad evals to the
+        # participants
+        n_active = (torch.tensor(m, dtype=torch.int32, device=upload.device)
+                    if participation is None
+                    else participation.sum(dtype=torch.int32))
+        if strategy.delta_payload:
+            # one eval per local step: Σ_active h_w
+            grad_evals = (h_steps if participation is None
+                          else torch.where(participation, h_steps, 0)
+                          ).sum(dtype=torch.int32)
+        else:
+            grad_evals = n_active * strategy.grad_evals_per_iter
+        metrics = {
+            "uploads": uploads,
+            "skip_rate": 1.0 - uploads.float() / n_active,
+            "upload_mask": upload,
+            "staleness": staleness,
+            "rhs": rhs,
+            "lhs": lhs,
+            "mean_lhs": torch.where(torch.isfinite(lhs), lhs, 0.0).mean(),
+            "max_staleness": staleness.max(),
+            "grad_evals": grad_evals,
+            "bytes_up": (uploads.float()
+                         * strategy.bytes_per_upload(layout.n)),
+        }
+        new_comm = FlatCommState(nabla=nabla, worker_grads=worker_grads,
+                                 staleness=staleness,
+                                 diff_hist=comm.diff_hist, extras=extras)
+        return FlatCommRoundResult(losses=losses, comm=new_comm,
+                                   upload=upload, metrics=metrics)
 
 
 def record_progress(comm: FlatCommState, dtheta_sq, k: int) -> FlatCommState:

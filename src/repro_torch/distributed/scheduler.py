@@ -13,6 +13,16 @@ package has.
 Slot state lives on the host (the requests' outputs, the active mask);
 the device holds the slotted ``DecodeCache``. On the card a round's
 prefill runs the scan and flash kernels (``models/model.py``).
+
+``run_round(trace=)`` records the round on the ``"sched"`` track: a
+``sched.round`` span (its requests' uids, the slots and the padded length
+in ``args``) around ``sched.batch`` (taking the queue, padding the
+prompts on the host, the copy to the device), ``sched.prefill`` (the
+prefill's dispatch, whose own spans it passes on) and
+``sched.first_token`` (sampling and the read of the first tokens to the
+host, the wait for the device); and the counters
+``sched.prompt_tokens`` and ``sched.padded_tokens`` (slots × padded
+length), host integers.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, prefill
+from repro_torch.obs.trace import as_tracer
 from repro_torch.utils.trees import tree_leaves
 
 
@@ -80,29 +91,58 @@ class DecodeScheduler:
             toks[i, len(r.prompt):] = r.prompt[-1] if len(r.prompt) else 0
         return toks
 
-    def run_round(self, generator: torch.Generator | None = None
-                  ) -> list[Request]:
+    def run_round(self, generator: torch.Generator | None = None,
+                  trace=None) -> list[Request]:
         """Serve one round: fill all slots, decode until every request in
         the round finishes (or hits max_new). Returns the round's
-        requests."""
-        batch = self._next_batch()
-        if not batch:
+        requests. ``trace``: an ``obs.Tracer`` (module docstring)."""
+        if not self.queue:
             return []
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        toks = torch.as_tensor(self.padded_tokens(batch), dtype=torch.long,
-                               device=self.device)
-        logits, cache = prefill(self.cfg, self.params, tokens=toks,
-                                max_seq=self.max_seq)
+        trace = as_tracer(trace)
+        with trace.span("sched.round", "sched",
+                        args=self._round_args() if trace else None):
+            with trace.span("sched.batch", "sched"):
+                batch = self._next_batch()
+                if generator is None:
+                    generator = torch.Generator(
+                        device=self.device).manual_seed(0)
+                padded = self.padded_tokens(batch)
+                toks = torch.as_tensor(padded, dtype=torch.long,
+                                       device=self.device)
+            if trace:
+                trace.counter("sched.prompt_tokens", None,
+                              sum(len(r.prompt) for r in batch),
+                              track="sched")
+                trace.counter("sched.padded_tokens", None, padded.size,
+                              track="sched")
+            with trace.span("sched.prefill", "sched"):
+                logits, cache = prefill(self.cfg, self.params, tokens=toks,
+                                        max_seq=self.max_seq, trace=trace)
+            self._decode(batch, logits, cache, generator, trace)
+        return batch
 
+    def _round_args(self) -> dict:
+        """The ``sched.round`` span's arguments: the requests the round
+        takes from the queue, the slots, the padded length."""
+        batch = self.queue[:self.n_slots]
+        return {"uids": [r.uid for r in batch], "slots": self.n_slots,
+                "padded": max(len(r.prompt) for r in batch)}
+
+    def _decode(self, batch: list[Request], logits, cache, generator,
+                trace) -> None:
+        """Sample the round's tokens, one decode step after the other, and
+        finish its requests."""
         active = np.array([True] * len(batch)
                           + [False] * (self.n_slots - len(batch)))
         remaining = np.array([r.max_new for r in batch]
                              + [0] * (self.n_slots - len(batch)))
-        nxt = self._sample(logits, generator)
+        longest = max(r.max_new for r in batch)
+        with trace.span("sched.first_token", "sched"):
+            nxt = self._sample(logits, generator)
+            # the first tokens on the host: the wait for the prefill
+            nxt_np = nxt.cpu().numpy() if longest > 0 else None
         steps = 0
-        while active.any() and steps < max(r.max_new for r in batch):
-            nxt_np = nxt.cpu().numpy()
+        while active.any() and steps < longest:
             for i, r in enumerate(batch):
                 if active[i]:
                     r.out.append(int(nxt_np[i]))
@@ -116,11 +156,11 @@ class DecodeScheduler:
             logits, cache = decode_step(self.cfg, self.params, cache,
                                         tokens=nxt)
             nxt = self._sample(logits, generator)
+            nxt_np = nxt.cpu().numpy()
             steps += 1
         for r in batch:
             r.done = True
             self.finished.append(r)
-        return batch
 
     def run(self, generator: torch.Generator | None = None
             ) -> list[Request]:

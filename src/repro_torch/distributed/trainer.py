@@ -118,6 +118,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import DATA, POD
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import abstract_params, init_params, lm_loss
+from repro_torch.obs.trace import as_tracer
 from repro_torch.utils.trees import (tree_add, tree_leaves, tree_map,
                                      tree_paths, tree_sq_norm,
                                      tree_unflatten, tree_zeros_like)
@@ -354,12 +355,15 @@ def _always_metrics(losses, m: int, dsq) -> dict:
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
                     impl=None, shards: int = 1):
-    """``step(state, batch) -> (state, metrics)``: one round of Algorithm 1
-    on the LM. ``batch`` leaves carry an (M,)-leading worker axis, or
-    (H, M) for a delta-payload rule with H local steps
+    """``step(state, batch, trace=None) -> (state, metrics)``: one round of
+    Algorithm 1 on the LM. ``batch`` leaves carry an (M,)-leading worker
+    axis, or (H, M) for a delta-payload rule with H local steps
     (:func:`worker_split`). ``impl`` is the dispatch override of
     ``kernels/ops.py`` (None on the main path). The state is not updated in
     place. With ``hp.fused`` False the step runs the pytree plane.
+    ``trace`` (an ``obs.Tracer``) records the step's ``train.step`` span
+    and, on the flat plane, its phases (``obs`` names them); the work is
+    the same with it or without.
     ``shards`` is the state's pad divisor (:func:`init_train_state`).
     One process holds whole parameters: the FSDP knobs shape only the
     mesh runtime."""
@@ -378,37 +382,56 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, m: int, *,
 
     # stateless rules (always ⇒ distributed AMSGrad): no innovation state
     if strategy.stateless:
-        def step_always(state: DistTrainState, batch):
-            layout = F.layout_of(state.params, shards=shards)
-            losses, fresh = vgrad(state.params, batch)
-            grad_flat = torch.mean(layout.pack_worker(fresh), dim=0)
-            params, h, vhat, dsq = fused_update(
-                layout, layout.pack(state.params), state.h, state.vhat,
-                grad_flat)
-            new_state = state._replace(step=state.step + 1, params=params,
-                                       h=h, vhat=vhat)
-            return new_state, _always_metrics(losses, m, dsq)
+        def step_always(state: DistTrainState, batch, trace=None):
+            trace = as_tracer(trace)
+            with trace.span("train.step", "train",
+                            args=_step_args(state, trace)):
+                layout = F.layout_of(state.params, shards=shards)
+                with trace.span("train.grads", "train"):
+                    losses, fresh = vgrad(state.params, batch)
+                with trace.span("cada.pack", "cada"):
+                    plane = layout.pack_worker(fresh)
+                with trace.span("cada.eq3", "cada"):
+                    grad_flat = torch.mean(plane, dim=0)
+                    del plane
+                with trace.span("cada.pack", "cada"):
+                    pflat = layout.pack(state.params)
+                with trace.span("cada.server", "cada"):
+                    params, h, vhat, dsq = fused_update(
+                        layout, pflat, state.h, state.vhat, grad_flat)
+                new_state = state._replace(step=state.step + 1,
+                                           params=params, h=h, vhat=vhat)
+                return new_state, _always_metrics(losses, m, dsq)
         return step_always
 
     # rules with innovation state: the shared Algorithm-1 core drives the
     # round; this function only applies the server update
-    def step_flat(state: DistTrainState, batch):
+    def step_flat(state: DistTrainState, batch, trace=None):
+        trace = as_tracer(trace)
         k = state.step
-        layout = F.layout_of(state.params, shards=shards)
-        pflat = layout.pack(state.params)
-        out = F.flat_comm_round(
-            strategy, layout, state.comm, state.params, pflat, batch, k,
-            vgrad=vgrad, vgrad_per=vgrad_per, fuse_evals=False,
-            group_evals=hp.group_evals, impl=impl)
-        params, h, vhat, dsq = fused_update(layout, pflat, state.h,
-                                            state.vhat, F.nabla_f32(out.comm))
-        comm = F.record_progress(out.comm, dsq, k)
-        new_state = DistTrainState(step=k + 1, params=params, h=h,
-                                   vhat=vhat, comm=comm)
-        return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
-                           **out.metrics}
+        with trace.span("train.step", "train", args=_step_args(state, trace)):
+            layout = F.layout_of(state.params, shards=shards)
+            with trace.span("cada.pack", "cada"):
+                pflat = layout.pack(state.params)
+            out = F.flat_comm_round(
+                strategy, layout, state.comm, state.params, pflat, batch, k,
+                vgrad=vgrad, vgrad_per=vgrad_per, fuse_evals=False,
+                group_evals=hp.group_evals, impl=impl, trace=trace)
+            with trace.span("cada.server", "cada"):
+                params, h, vhat, dsq = fused_update(
+                    layout, pflat, state.h, state.vhat, F.nabla_f32(out.comm))
+                comm = F.record_progress(out.comm, dsq, k)
+            new_state = DistTrainState(step=k + 1, params=params, h=h,
+                                       vhat=vhat, comm=comm)
+            return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                               **out.metrics}
 
     return step_flat
+
+
+def _step_args(state: DistTrainState, trace):
+    """The ``train.step`` span's arguments (none when not tracing)."""
+    return {"step": int(state.step)} if trace else None
 
 
 def _make_pytree_step(strategy, hp: TrainHParams, m: int, vgrad,
@@ -416,27 +439,32 @@ def _make_pytree_step(strategy, hp: TrainHParams, m: int, vgrad,
     """The pytree plane's step (``fused=False``): the per-leaf round and
     :func:`_amsgrad_apply`."""
     if strategy.stateless:
-        def step_always(state: DistTrainState, batch):
-            losses, fresh = vgrad(state.params, batch)
-            grad = tree_map(lambda g: torch.mean(g, dim=0), fresh)
-            params, h, vhat, dsq = _amsgrad_apply(
-                state.params, state.h, state.vhat, grad, hp)
-            new_state = state._replace(step=state.step + 1, params=params,
-                                       h=h, vhat=vhat)
-            return new_state, _always_metrics(losses, m, dsq)
+        def step_always(state: DistTrainState, batch, trace=None):
+            trace = as_tracer(trace)
+            with trace.span("train.step", "train",
+                            args=_step_args(state, trace)):
+                losses, fresh = vgrad(state.params, batch)
+                grad = tree_map(lambda g: torch.mean(g, dim=0), fresh)
+                params, h, vhat, dsq = _amsgrad_apply(
+                    state.params, state.h, state.vhat, grad, hp)
+                new_state = state._replace(step=state.step + 1,
+                                           params=params, h=h, vhat=vhat)
+                return new_state, _always_metrics(losses, m, dsq)
         return step_always
 
-    def step(state: DistTrainState, batch):
+    def step(state: DistTrainState, batch, trace=None):
+        trace = as_tracer(trace)
         k = state.step
-        out = comm_round(strategy, state.comm, state.params, batch, k,
-                         vgrad=vgrad, vgrad_per=vgrad_per)
-        params, h, vhat, dsq = _amsgrad_apply(
-            state.params, state.h, state.vhat, nabla_f32(out.comm), hp)
-        comm = record_progress(out.comm, dsq, k)
-        new_state = DistTrainState(step=k + 1, params=params, h=h,
-                                   vhat=vhat, comm=comm)
-        return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
-                           **out.metrics}
+        with trace.span("train.step", "train", args=_step_args(state, trace)):
+            out = comm_round(strategy, state.comm, state.params, batch, k,
+                             vgrad=vgrad, vgrad_per=vgrad_per)
+            params, h, vhat, dsq = _amsgrad_apply(
+                state.params, state.h, state.vhat, nabla_f32(out.comm), hp)
+            comm = record_progress(out.comm, dsq, k)
+            new_state = DistTrainState(step=k + 1, params=params, h=h,
+                                       vhat=vhat, comm=comm)
+            return new_state, {"loss": out.losses.mean(), "dtheta_sq": dsq,
+                               **out.metrics}
 
     return step
 

@@ -387,9 +387,10 @@ def main(argv=None) -> list[dict]:
             return state.params
         return uncut_tree(state.params, fs.pspecs, mesh)
 
-    # telemetry: a train_step span per step on the wall clock, and a comm
-    # ledger fed from the steps' metrics, fetched every --metrics-every
-    # steps
+    # telemetry: a span per step on the wall clock (on one process the
+    # step's own train.step with its phases inside it, across ranks the
+    # launcher's train_step), and a comm ledger fed from the steps'
+    # metrics, fetched every --metrics-every steps
     obs_on = lead and bool(args.trace or args.metrics_out
                            or args.metrics_prom)
     tracer = Tracer() if (args.trace and lead) else None
@@ -410,8 +411,11 @@ def main(argv=None) -> list[dict]:
         tokens = torch.from_numpy(batches[i]).to(device=device,
                                                   dtype=torch.long)
         batch = worker_split({"tokens": tokens}, m, local_steps=h)
-        with tr.span("train_step", track="train", args={"step": i}):
-            state, mets = step(state, batch)
+        if ranked:
+            with tr.span("train_step", track="train", args={"step": i}):
+                state, mets = step(state, batch)
+        else:
+            state, mets = step(state, batch, trace=tracer)
         if obs_on:
             obs_buf.append(mets)
             if len(obs_buf) >= max(1, args.metrics_every):

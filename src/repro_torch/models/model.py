@@ -70,6 +70,7 @@ from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv1d, ffn, rmsnorm
 from repro_torch.models.moe import moe_ffn
+from repro_torch.obs.trace import NULL, as_tracer
 
 INIT_STD = 0.02
 
@@ -221,20 +222,24 @@ def _heads_tp(cfg: ModelConfig, q, tp):
 
 
 def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
-                    train=False, tp=None):
+                    train=False, tp=None, trace=NULL):
     """Pre-norm attention + MLP over the full sequence; also returns the
     roped K and V (the decode cache's entries: the rank's KV heads, or all
-    of them where ``wk``/``wv`` are replicated) and the MLP's aux loss."""
-    h = rmsnorm(x, params["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv(params["attn"], cfg, h, tp)
-    q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
-    k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
-    kq, vq = attn.local_kv(k, v, cfg, q.shape[-2], tp)
-    a = attn.causal_attention(q, kq, vq, window=cfg.sliding_window,
-                              dtype=x.dtype, impl=impl, train=train)
-    x = x + attn.out_proj(params["attn"], a, _heads_tp(cfg, q, tp))
-    y, aux = _mlp(params, cfg, rmsnorm(x, params["ln2"], cfg.norm_eps), tp)
-    return x + y, k, v, aux
+    of them where ``wk``/``wv`` are replicated) and the MLP's aux loss.
+    ``trace``: prefill's tracer (``prefill.attn``, ``prefill.mlp``)."""
+    with trace.span("prefill.attn", "prefill"):
+        h = rmsnorm(x, params["ln1"], cfg.norm_eps)
+        q, k, v = attn.qkv(params["attn"], cfg, h, tp)
+        q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
+        k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
+        kq, vq = attn.local_kv(k, v, cfg, q.shape[-2], tp)
+        a = attn.causal_attention(q, kq, vq, window=cfg.sliding_window,
+                                  dtype=x.dtype, impl=impl, train=train)
+        x = x + attn.out_proj(params["attn"], a, _heads_tp(cfg, q, tp))
+    with trace.span("prefill.mlp", "prefill"):
+        y, aux = _mlp(params, cfg, rmsnorm(x, params["ln2"], cfg.norm_eps),
+                      tp)
+        return x + y, k, v, aux
 
 
 def _rope_tables(cfg: ModelConfig, positions, batch: int, seq: int, device):
@@ -294,22 +299,25 @@ def _ssm_block_cached(lp, cfg: ModelConfig, x, impl=None, tp=None):
 
 
 def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
-                positions=None, tp=None):
+                positions=None, tp=None, trace=NULL):
     """Every layer over the full sequence, in the reference's order (a
     hybrid's shared block after each stage of ``attn_every`` SSM layers).
     Returns x, the per-layer cache entries: lists of (K, V) for the
     attention layers and, where ``cached`` (prefill), of (conv tail, SSM
     state) for the SSM layers (the forward pass runs the plain
     ``mamba*_block`` instead, as the reference's does), and the aux loss
-    summed over the layers. ``tp``: the rank's shards (``TPContext``)."""
-    cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
-                            x.device)
+    summed over the layers. ``tp``: the rank's shards (``TPContext``).
+    ``trace``: prefill's tracer (the rotary tables in ``prefill.embed``,
+    each SSM layer in ``prefill.ssm``)."""
+    with trace.span("prefill.embed", "prefill"):
+        cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
+                                x.device)
     kv, states = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x, k, v, a = _attn_mlp_block(layer(params["blocks"], i), cfg, x,
-                                         cos, sin, impl, tp=tp)
+                                         cos, sin, impl, tp=tp, trace=trace)
             kv.append((k, v))
             aux = aux + a
         return x, kv, states, aux
@@ -318,13 +326,15 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
     for i in range(cfg.n_layers):
         lp = layer(params["blocks"], i)
         if cached:
-            x, conv_tail, h_final = _ssm_block_cached(lp, cfg, x, impl, tp)
+            with trace.span("prefill.ssm", "prefill"):
+                x, conv_tail, h_final = _ssm_block_cached(lp, cfg, x, impl,
+                                                          tp)
             states.append((conv_tail, h_final))
         else:
             x = ssm_block(lp, cfg, x, impl)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             x, k, v, a = _attn_mlp_block(params["shared"], cfg, x, cos, sin,
-                                         impl, tp=tp)
+                                         impl, tp=tp, trace=trace)
             kv.append((k, v))
             aux = aux + a
     return x, kv, states, aux
@@ -601,20 +611,27 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
 
 def prefill(cfg: ModelConfig, params, tokens=None,
             max_seq: int | None = None, impl=None, *, embeds=None,
-            positions=None, tp=None):
+            positions=None, tp=None, trace=None):
     """Full-sequence forward that also builds the decode cache, from
     tokens (B, S) or ``embeds`` (B, S, d); ``positions`` shape the rotary
     tables. With ``tp`` the params are the rank's shards, the cache is
     built in the rank's shapes (:func:`init_cache`) and the logits come
-    back whole.
+    back whole. ``trace`` (an ``obs.Tracer``) records the phases on the
+    ``"prefill"`` track: ``prefill.embed`` (the lookup, the rotary
+    tables), ``prefill.cache`` (the cache's zeroed tensors; the layers'
+    entries copied in), ``prefill.attn`` and ``prefill.mlp`` each layer
+    (``prefill.ssm`` an SSM layer) and ``prefill.head``.
 
     Returns (last-token logits (B, V), DecodeCache primed at index = S).
     """
-    x = _embed(cfg, params, tokens, embeds, tp)
+    trace = as_tracer(trace)
+    with trace.span("prefill.embed", "prefill"):
+        x = _embed(cfg, params, tokens, embeds, tp)
     b, s = x.shape[:2]
     device = x.device
     max_seq = max_seq or s
-    cache = init_cache(cfg, b, max_seq, device=device, tp=tp)
+    with trace.span("prefill.cache", "prefill"):
+        cache = init_cache(cfg, b, max_seq, device=device, tp=tp)
     w = cache.slot_pos.shape[0]
     # the rank's slots where the ring is sharded over W
     lo, w_own = 0, w if cache.k is None else cache.k.shape[2]
@@ -630,18 +647,21 @@ def prefill(cfg: ModelConfig, params, tokens=None,
         return ring[:, lo:lo + w_own]
 
     x, kv, states, _ = _run_layers(cfg, params, x, impl,
-                                   positions=positions, tp=tp)
-    for j, (k, v) in enumerate(kv):
-        cache.k[j] = to_ring(k)
-        cache.v[j] = to_ring(v)
-    for i, (conv_tail, h_final) in enumerate(states):
-        cache.conv[i] = conv_tail
-        cache.ssm[i] = h_final
-    filled = torch.arange(max(s - w, 0), s, device=device)
-    slots = filled % w if s >= w else torch.arange(min(s, w), device=device)
-    cache.slot_pos[slots] = filled.to(torch.int32)
+                                   positions=positions, tp=tp, trace=trace)
+    with trace.span("prefill.cache", "prefill"):
+        for j, (k, v) in enumerate(kv):
+            cache.k[j] = to_ring(k)
+            cache.v[j] = to_ring(v)
+        for i, (conv_tail, h_final) in enumerate(states):
+            cache.conv[i] = conv_tail
+            cache.ssm[i] = h_final
+        filled = torch.arange(max(s - w, 0), s, device=device)
+        slots = (filled % w if s >= w
+                 else torch.arange(min(s, w), device=device))
+        cache.slot_pos[slots] = filled.to(torch.int32)
 
-    hidden = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, hidden, tp)[:, 0]
+    with trace.span("prefill.head", "prefill"):
+        hidden = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = logits_fn(cfg, params, hidden, tp)[:, 0]
     return logits, cache._replace(index=s)
 

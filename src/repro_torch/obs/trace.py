@@ -118,8 +118,10 @@ class Tracer:
 
     enabled = True
 
-    def __init__(self) -> None:
-        self._epoch = time.perf_counter()
+    def __init__(self, epoch: float | None = None) -> None:
+        # ``epoch``: a ``time.perf_counter`` reading to count the spans
+        # from, so that they share another recorder's clock
+        self._epoch = time.perf_counter() if epoch is None else epoch
         self._events: list[tuple] = []
         self._tracks: list[str] = []
         self._track_set: set[str] = set()
@@ -154,9 +156,12 @@ class Tracer:
         self._touch(track)
         self._events.append(("i", name, track, "", float(t_s), 0.0, args))
 
-    def counter(self, name: str, t_s: float, value: float, *,
+    def counter(self, name: str, t_s: float | None, value: float, *,
                 track: str = "counters") -> None:
-        """Record one sample of a counter series (pool bytes, queue depth)."""
+        """Record one sample of a counter series (pool bytes, queue depth);
+        ``t_s`` None is now on the wall clock."""
+        if t_s is None:
+            t_s = time.perf_counter() - self._epoch
         self._touch(track)
         self._events.append(("C", name, track, "", float(t_s), 0.0,
                              {name: float(value)}))
@@ -177,12 +182,9 @@ class Tracer:
                 if e[0] == "X" and (track is None or e[2] == track)]
 
     def aggregate(self, track: str | None = None) -> dict[str, dict]:
-        """Per-name span aggregates: ``{name: {count, total_s, max_s}}``.
-
-        This is the one home for per-round phase timing: the cohort
-        driver's ``gather/step/scatter`` times are read from these
-        aggregates, not from clocks of its own.
-        """
+        """Per-name span aggregates: ``{name: {count, total_s, max_s}}``:
+        the host time of each phase (the benchmark's host-time readings
+        of the program's spans, ``bench/layers.py``)."""
         out: dict[str, dict] = {}
         for e in self._events:
             if e[0] != "X" or (track is not None and e[2] != track):

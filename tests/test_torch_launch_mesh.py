@@ -15,7 +15,8 @@ exact); parameters and losses within TOL of their scale (the trainers'
 lockstep band over 6 steps: ``tests/test_torch_trainer_lockstep.py``);
 the ledger's totals (rounds, uploads, bytes up, gradient evaluations, the
 staleness histogram) exact; the Prometheus file with the same metric
-names; one ``train_step`` span per step in a valid Chrome trace.
+names; one span per step in a valid Chrome trace (the reference's
+``train_step``, the port's own ``train.step``).
 """
 import dataclasses
 import json
@@ -138,12 +139,15 @@ def test_the_ledger_totals_match_the_reference(runs):
 
 
 def test_the_trace_has_a_span_per_step(runs):
+    """The reference's launcher spans each step ``train_step``; the port's
+    on one process hands the step its tracer, whose own ``train.step``
+    spans it."""
     ref, port, _ = runs
-    for d in (ref, port):
+    for d, name in ((ref, "train_step"), (port, "train.step")):
         trace = json.loads((d / "trace.json").read_text())
         validate_chrome_trace(trace)
         spans = [e for e in trace["traceEvents"]
-                 if e.get("ph") == "X" and e.get("name") == "train_step"]
+                 if e.get("ph") == "X" and e.get("name") == name]
         assert [e["args"]["step"] for e in spans] == list(range(STEPS))
 
 
