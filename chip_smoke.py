@@ -22,7 +22,11 @@ Phases, each of which raises on failure (the exit code is then not 0):
      them. Eq. (3)'s order-fixed row mean is bit-equal to its plain version
      at (10, 101,776) and (1, 101,776), an odd n, a view off 16 bytes, and
      with its zero rows dropped, in fp32 and bf16. The wire compressors
-     (plain PyTorch) must give the CPU's bits.
+     (plain PyTorch) must give the CPU's bits. The rotary kernel
+     (``rope_kernel``) is bit-equal to the eager expression on one layer's
+     q and k of the serving cell's rounds, (32, 7845, 16 + 8, 128) bf16,
+     and of stablelm-1.6b's partial rotary, (4, 2048, 32 + 32, 64) at 0.25,
+     each timed beside the eager expression and its bytes bound.
   4. main path: ``CADAEngine`` on the paper MLP 784→128→10 (M=10, batch 12,
      mnist_like(4096), d_max=10, max_delay=50, c=1.0), each rule at its
      reference defaults on FusedAMSGrad(lr=5e-4): 200 rounds each of always
@@ -339,6 +343,7 @@ from repro_torch.data import (covtype_like, mnist_like,  # noqa: E402
 from repro_torch.kernels import build, cada_update, ref  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import rope as rope_kernel  # noqa: E402
 from repro_torch.kernels import ssm_scan as scan_kernel  # noqa: E402
 from repro_torch.distributed import trainer  # noqa: E402
 from repro_torch.distributed.scheduler import (DecodeScheduler,  # noqa: E402
@@ -347,6 +352,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import DATA, MODEL, Mesh  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import make_token_batches  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import frontends  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
@@ -404,6 +410,8 @@ LIBRARY_NOTE = {
                       "N) trajectory the kernel exists to avoid",
     "selective_scan_heads": "no single PyTorch call computes a selective "
                             "scan (see selective_scan)",
+    "rope": "no PyTorch call computes a rotary embedding; the eager "
+            "expression (ref.rope_ref) is timed here",
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=Hq != Hkv) on "
                        "(B, H, S, hd), timed here; with a window, an "
@@ -1723,6 +1731,56 @@ def check_flash(b: int, s: int, hq: int, hkv: int, hd: int, window: int,
             "library_device_ms": lib_dev}
 
 
+def check_rope(b: int, s: int, hq: int, hkv: int, hd: int, pct: float,
+               rates, gen, label: str) -> dict:
+    """The rotary kernel on one attention layer's q and k (bf16, the
+    models' RoPE tables of (1, S, rot/2)): each bit-equal to the eager
+    expression (``ref.rope_ref``) and run to run, then both calls timed
+    beside the eager expression and the bound (x read and written once,
+    the tables read once). Returns the times."""
+    q, k = (torch.randn(b, s, h, hd, generator=gen, device="cuda")
+            .to(torch.bfloat16) for h in (hq, hkv))
+    rot = int(hd * pct)
+    cos, sin = lm_attention.rope_angles(
+        torch.arange(s, device="cuda")[None], rot, 1e6)
+    head = (f"  rope_kernel {label} (B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
+            f"rot={rot}) bf16")
+    before = rope_kernel.apply_rope.launches
+    for x in (q, k):
+        out = rope_kernel.apply_rope(x, cos, sin, pct)
+        if not torch.equal(out, ref.rope_ref(x, cos, sin, pct)):
+            raise RuntimeError(f"{head}: not bit-equal to the eager "
+                               "expression")
+        if not torch.equal(out, rope_kernel.apply_rope(x, cos, sin, pct)):
+            raise RuntimeError(f"{head}: two identical calls differ")
+        del out
+    if rope_kernel.apply_rope.launches != before + 4:
+        raise RuntimeError(f"{head}: the kernel did not launch")
+
+    def kernel():
+        rope_kernel.apply_rope(q, cos, sin, pct)
+        rope_kernel.apply_rope(k, cos, sin, pct)
+
+    def plain():
+        ref.rope_ref(q, cos, sin, pct)
+        ref.rope_ref(k, cos, sin, pct)
+
+    nbytes = 2 * 2 * (q.numel() + k.numel()) + 2 * 4 * s * (rot // 2)
+    bound, bound_by = _bound(nbytes, 0, rates)
+    ms = time_ms(kernel, calls=10, repeats=5)
+    dev = device_ms(kernel, calls=5)
+    plain_ms = time_ms(plain, calls=3, repeats=3, warmup=1)
+    plain_dev = device_ms(plain, calls=2)
+    print(f"{head}: q and k bit-equal to the eager expression, run-to-run "
+          f"identical; q + k {ms:.4f} ms/call (device {_ms(dev)}, "
+          f"{_share(bound, dev)} of the bound), eager {plain_ms:.4f} "
+          f"ms/call (device {_ms(plain_dev)}), bound {bound:.4f} ms by "
+          f"{bound_by} ({nbytes} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+            "plain_device_ms": plain_dev, "bound_ms": bound,
+            "bound_by": bound_by, "library_device_ms": None}
+
+
 def phase_lm_kernels(rates) -> dict:
     """The scan and flash kernels at the serving path's shapes (zamba2-2.7b,
     B = 2, S = 2048: the per-head scan at 80 heads of 64, N = 64, timed
@@ -1731,7 +1789,7 @@ def phase_lm_kernels(rates) -> dict:
     general kernel at G = 2, D = 5120, N = 64 with Mamba2's A; flash 32
     heads of 80), then at shapes off that path: the general scan with a
     general A, also at falcon-mamba-7b's widths (G = 2, S = 512, D = 8192,
-    N = 16)."""
+    N = 16); last the rotary kernel (:func:`check_rope`)."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2)
     hdim = cfg.mamba_headdim
@@ -1773,6 +1831,14 @@ def phase_lm_kernels(rates) -> dict:
     check_flash(2, 333, 8, 2, 48, 0, rates, gen, timed=False)
     check_flash(1, 333, 4, 4, 96, 100, rates, gen, timed=False,
                 dtype=torch.float32)
+    # the rotary kernel at one layer of the serving cell's rounds (32
+    # prompts padded to 7,845) and at stablelm-1.6b's partial rotary
+    for arch, b, s in (("internlm2-1.8b", 32, 7845),
+                       ("stablelm-1.6b", 4, 2048)):
+        c = lm_configs.get_config(arch)
+        got = check_rope(b, s, c.n_heads, c.n_kv_heads, c.hd, c.rotary_pct,
+                         rates, gen, arch)
+        main.setdefault("rope", got)
     return main
 
 
@@ -2071,7 +2137,17 @@ def phase_lockstep(kind: str, gate_c: float, params, batches) -> None:
 
 LM_WRAPPERS = {"selective_scan": scan_kernel.selective_scan,
                "selective_scan_heads": scan_kernel.selective_scan_heads,
-               "flash_attention": fa_kernel.flash_attention}
+               "flash_attention": fa_kernel.flash_attention,
+               "rope": rope_kernel.apply_rope}
+
+
+def _rope_launches(cfg, calls: int) -> int:
+    """The rotary kernel's launches in ``calls`` prefills and decode steps
+    of ``cfg``: q and k of every attention layer, none where no dim
+    rotates."""
+    if not int(cfg.hd * cfg.rotary_pct):
+        return 0
+    return 2 * lm._n_attn_layers(cfg) * calls
 
 
 def _lm_counts() -> dict:
@@ -2129,7 +2205,9 @@ def phase_serve(card: str) -> dict:
     """zamba2-2.7b at full width and depth through the serving entry
     point, B = 2 prompts of S = 2048 random tokens, 32 greedy steps. All
     kernel counts are set to 0 just before and read just after: exactly
-    54 per-head scans and 9 flash launches (one prefill), nothing else."""
+    54 per-head scans and 9 flash launches (one prefill), 18 rotary
+    launches in the prefill and 18 in each decode step (q and k of the 9
+    attention layers), nothing else."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     b, s, steps = SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS
     torch.cuda.reset_peak_memory_stats()
@@ -2145,14 +2223,15 @@ def phase_serve(card: str) -> dict:
     prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
     n_attn = cfg.n_layers // cfg.attn_every
     want = {"selective_scan": 0, "selective_scan_heads": cfg.n_layers,
-            "flash_attention": n_attn}
+            "flash_attention": n_attn, "rope": _rope_launches(cfg, 1)}
 
     torch.cuda.synchronize()
     _reset_all_counts()
     out = serve.generate(cfg, params, prompts, steps)
     torch.cuda.synchronize()
     got = {**_counts(), **_lm_counts()}
-    expect = {**dict.fromkeys(WRAPPERS, 0), **want}
+    expect = {**dict.fromkeys(WRAPPERS, 0), **want,
+              "rope": _rope_launches(cfg, 1 + steps)}
     if got != expect:
         raise RuntimeError(f"serving path: launches {got}, expected {expect}")
     peak = torch.cuda.max_memory_allocated()
@@ -2169,8 +2248,9 @@ def phase_serve(card: str) -> dict:
           f"{steps} greedy decode steps in {out['decode_s'] * 1e3:.2f} ms "
           f"({steps * b / out['decode_s']:.2f} tokens/s); peak memory "
           f"{peak / 2**30:.3f} GiB; launches per-head scan "
-          f"{got['selective_scan_heads']}, flash {got['flash_attention']} "
-          f"(others 0) on {card}")
+          f"{got['selective_scan_heads']}, flash {got['flash_attention']}, "
+          f"rope {got['rope']} ({want['rope']} a prefill or decode step), "
+          f"others 0 on {card}")
     print(f"  logits finite, |max| {float(logits.float().abs().max()):.4f}; "
           f"tokens[0][:8] {toks[0][:8].tolist()}")
 
@@ -2205,10 +2285,11 @@ def phase_serve(card: str) -> dict:
     per_prefill = _lm_counts()
     last, _ = lm.decode_step(cfg, params, short, prompts[:, -1])
     torch.cuda.synchronize()
-    if per_prefill != want or _lm_counts() != want:
+    after = {**want, "rope": _rope_launches(cfg, 2)}
+    if per_prefill != want or _lm_counts() != after:
         raise RuntimeError(f"a prefill launched {per_prefill}, a decode "
-                           f"step then {_lm_counts()}; expected {want} and "
-                           "nothing more")
+                           f"step then {_lm_counts()}; expected {want}, "
+                           f"then {after}")
     del short
     cfg32 = cfg.with_(dtype="float32")
     params32 = _upcast(params)
@@ -2235,7 +2316,8 @@ def phase_serve(card: str) -> dict:
           f"distance from the fp32 prefill({s}) logits: prefill "
           f"{float((logits.float() - full32).abs().max()):.4f}, "
           f"prefill + decode {float((last.float() - full32).abs().max()):.4f}"
-          f"; per prefill {per_prefill}, per decode step 0")
+          f"; per prefill {per_prefill}, per decode step rope "
+          f"{_rope_launches(cfg, 1)} and nothing else")
     del params, out, cache
 
     # the first stage at full width: kernels vs plain, in fp32 (the bf16
@@ -4093,7 +4175,8 @@ def phase_moe_serve(card: str, label: str, rates) -> dict:
     (token ids, or the stub frontends' embeddings), qwen2-vl's M-RoPE
     positions of an image plan, greedy decode steps. The counts set to 0
     just before and read just after: exactly one flash launch per layer
-    (the prefill's), nothing else. Then a warm prefill by CUDA events and
+    (the prefill's) and two rotary launches per layer in the prefill and
+    in each decode step, nothing else. Then a warm prefill by CUDA events and
     under the profiler; a MoE model's prefill twice, its logits and cache
     bit-equal; the flash kernel at the prefill's shape against its plain
     version. Returns the flash launches and the qwen2-vl shape's flash
@@ -4128,7 +4211,8 @@ def phase_moe_serve(card: str, label: str, rates) -> dict:
     positions = (frontends.mrope_positions(b, s, MROPE_GRID) if cfg.mrope
                  else None)
     want = {"flash_attention": cfg.n_layers, "selective_scan": 0,
-            "selective_scan_heads": 0}
+            "selective_scan_heads": 0,
+            "rope": _rope_launches(cfg, 1 + steps)}
 
     torch.cuda.synchronize()
     _reset_all_counts()
@@ -4152,8 +4236,9 @@ def phase_moe_serve(card: str, label: str, rates) -> dict:
           f"ms; {steps} greedy decode steps in "
           f"{out['decode_s'] * 1e3:.2f} ms ({steps * b / out['decode_s']:.2f}"
           f" tokens/s); peak memory {peak / 2**30:.3f} GiB; launches flash "
-          f"{got['flash_attention']} in the prefill, 0 in decode, others 0 "
-          f"on {card}")
+          f"{got['flash_attention']} in the prefill, 0 in decode, rope "
+          f"{got['rope']} ({_rope_launches(cfg, 1)} a prefill or decode "
+          f"step), others 0 on {card}")
     print(f"    logits finite, |max| {float(logits.float().abs().max()):.4f};"
           f" tokens[0][:8] {toks[0][:8].tolist()}")
     del out
@@ -4192,7 +4277,7 @@ def phase_moe_serve(card: str, label: str, rates) -> dict:
     if label == "11a":
         _profile(decode4, f"{label} decode step profile (4 steps, per step)",
                  per=4, top=4)
-    result = {"flash_attention": got["flash_attention"]}
+    result = {"flash_attention": got["flash_attention"], "rope": got["rope"]}
     del params, cache, first
     gc.collect()
     torch.cuda.empty_cache()
@@ -4308,6 +4393,7 @@ def phase_moe(card: str, rates) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         res = phase_moe_serve(card, label, rates)
         totals["flash_attention"] += res["flash_attention"]
+        totals["rope"] += res["rope"]
         if "qwen2_vl_shape" in res:
             shape = res["qwen2_vl_shape"]
         print(f"    {label} took {time.perf_counter() - t0:.1f} s")
@@ -4328,7 +4414,8 @@ def phase_scheduler(card: str, rates) -> dict:
     loop at the same max_seq; request SCHED_EOS_UID's third token is its
     eos_id. Then the counts set to 0 just before and read just after the
     scheduler's run: one prefill a round, 54 per-head scans and 9 flash
-    launches each, nothing in decode. Every request's tokens equal the direct
+    launches each, nothing in decode but 18 rotary launches a prefill and
+    a decode step. Every request's tokens equal the direct
     loop's, cut at its max_new or its eos. The direct loop runs the same
     kernels, so last the per-head scan and flash kernels are held against
     their plain versions at each round's padded prefill shape, the scan
@@ -4386,9 +4473,14 @@ def phase_scheduler(card: str, rates) -> dict:
 
     for r in requests(eos):
         sched.submit(r)
+    # a round decodes until its longest request is done: one step fewer
+    # than that request's tokens
+    steps = sum(max(0, max(len(expected(r.uid)) for r in batch) - 1)
+                for batch in rounds)
     want = {**dict.fromkeys(WRAPPERS, 0), "selective_scan": 0,
             "selective_scan_heads": cfg.n_layers * len(rounds),
-            "flash_attention": cfg.n_layers // cfg.attn_every * len(rounds)}
+            "flash_attention": cfg.n_layers // cfg.attn_every * len(rounds),
+            "rope": _rope_launches(cfg, len(rounds) + steps)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_all_counts()
@@ -4424,7 +4516,8 @@ def phase_scheduler(card: str, rates) -> dict:
           f"launches per-head scan {got['selective_scan_heads']}, flash "
           f"{got['flash_attention']} ({cfg.n_layers} and "
           f"{cfg.n_layers // cfg.attn_every} a round's prefill, none in "
-          f"decode), others 0 on {card}")
+          f"decode), rope {got['rope']} ({len(rounds)} prefills and {steps} "
+          f"decode steps), others 0 on {card}")
     del params, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -4444,7 +4537,8 @@ def phase_long_window(card: str, rates) -> dict:
     through ``adapt_for_shape(cfg, SHAPES["long_500k"])``: prefill 1 x
     LONG_PROMPT through ``serve.generate`` and LONG_STEPS greedy steps on
     the window's ring cache, counts set to 0 just before and read just
-    after (one windowed flash launch per layer, in the prefill). Then the
+    after (one windowed flash launch per layer, in the prefill; two rotary
+    launches per layer in the prefill and in each step). Then the
     windowed flash kernel at the prefill's shape against its plain
     version, and the prefill's last logits in fp32 with the kernels
     against ``impl="plain"``. Returns the launches."""
@@ -4465,7 +4559,8 @@ def phase_long_window(card: str, rates) -> dict:
                          device="cuda")
     max_seq = LONG_PROMPT + LONG_STEPS
     want = {**dict.fromkeys(WRAPPERS, 0), "selective_scan": 0,
-            "selective_scan_heads": 0, "flash_attention": cfg.n_layers}
+            "selective_scan_heads": 0, "flash_attention": cfg.n_layers,
+            "rope": _rope_launches(cfg, 1 + LONG_STEPS)}
     torch.cuda.synchronize()
     _reset_all_counts()
     out = serve.generate(cfg, params, toks, LONG_STEPS)
@@ -4492,8 +4587,8 @@ def phase_long_window(card: str, rates) -> dict:
           f"({LONG_STEPS / out['decode_s']:.2f} tokens/s) on the {w}-slot "
           f"ring (positions {int(pos.min())}..{int(pos.max())} after); "
           f"peak memory {peak / 2**30:.3f} GiB; launches flash "
-          f"{got['flash_attention']} (the prefill's, windowed), others 0 on "
-          f"{card}")
+          f"{got['flash_attention']} (the prefill's, windowed), rope "
+          f"{got['rope']}, others 0 on {card}")
     del out, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -4517,7 +4612,7 @@ def phase_long_window(card: str, rates) -> dict:
     del params32, k_logits, p_logits
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention": got["flash_attention"],
+    return {"flash_attention": got["flash_attention"], "rope": got["rope"],
             "window_shape": flash}
 
 
@@ -4817,6 +4912,7 @@ def phase_slice11(card: str, rates, params, batches, skipping_c: dict
     t0 = time.perf_counter()
     long = phase_long_window(card, rates)
     totals["flash_attention"] += long["flash_attention"]
+    totals["rope"] += long["rope"]
     print(f"    12b took {time.perf_counter() - t0:.1f} s")
     for label, fn in (("12c", lambda: phase_pytree_engine(
             card, params, batches, skipping_c)),
@@ -5237,7 +5333,7 @@ def _tp_rank(rank: int, workdir: str) -> None:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name in ("ssm_scan", "flash_attention"):
+    for name in ("ssm_scan", "flash_attention", "rope"):
         build.load(name)         # built by the parent: loaded, not built
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(workdir, "rdv"),
@@ -5496,7 +5592,9 @@ def phase_tp(card: str) -> tuple[dict, dict]:
         want = {**dict.fromkeys({**WRAPPERS, **LM_WRAPPERS}, 0),
                 "flash_attention": n_attn,
                 "selective_scan_heads": cfg.n_layers
-                if cfg.block == "mamba2" else 0}
+                if cfg.block == "mamba2" else 0,
+                "rope": _rope_launches(cfg, 1)}
+        want_all = {**want, "rope": _rope_launches(cfg, 1 + steps)}
         first = results[0][label]
         print(f"  {label} {cfg.name} at full width and depth, {b} x {s} "
               f"prompts, {steps} decode steps teacher-forced on the "
@@ -5504,11 +5602,11 @@ def phase_tp(card: str) -> tuple[dict, dict]:
               f"{one[label]['param_bytes']:,} parameter bytes, warm bf16 "
               f"prefill {one[label]['warm_ms']:.2f} ms (CUDA events)")
         for res in (r[label] for r in results):
-            if res["per_prefill"] != want or res["launches"] != want:
+            if res["per_prefill"] != want or res["launches"] != want_all:
                 raise RuntimeError(
                     f"{label} rank {res['rank']}: launches per prefill "
                     f"{res['per_prefill']}, in all {res['launches']}; "
-                    f"expected {want} in the prefill and none in decode")
+                    f"expected {want} in the prefill and {want_all} in all")
             if res["logits_sum"] != first["logits_sum"]:
                 raise RuntimeError(f"{label}: the ranks' logits differ")
             for k, v in res["launches"].items():
@@ -5519,7 +5617,8 @@ def phase_tp(card: str) -> tuple[dict, dict]:
                   f"one process); launches per prefill flash "
                   f"{res['per_prefill']['flash_attention']}, per-head scan "
                   f"{res['per_prefill']['selective_scan_heads']}, 0 in "
-                  f"decode; "
+                  f"decode, rope {res['per_prefill']['rope']} a prefill or "
+                  f"decode step; "
                   f"bf16 prefill {res['prefill_ms']:.2f} ms first call (host"
                   f" clock), {res['warm_prefill_ms']:.2f} ms warm (CUDA "
                   f"events), a second prefill bit-equal "
@@ -5551,7 +5650,8 @@ def phase_tp(card: str) -> tuple[dict, dict]:
               f"bf16 greedy tokens first differ at "
               + ("no step" if first["first_token_diff"] is None else
                  f"token {first['first_token_diff']} (0 = the prefill's)"))
-    kernels = {k: results[0]["14a"][k] for k in LM_WRAPPERS}
+    kernels = {k: results[0]["14a"][k] for k in LM_WRAPPERS
+               if k in results[0]["14a"]}
     return totals, kernels
 
 
@@ -6011,7 +6111,7 @@ def main() -> None:
           f"{SFU_RATE / 1e12:.3f} T exp/s")
     print("[2] build")
     t0 = time.perf_counter()
-    sources = ("cada_update", "ssm_scan", "flash_attention")
+    sources = ("cada_update", "ssm_scan", "flash_attention", "rope")
     build.build_all(sources)
     for name in sources:
         build.load(name)
@@ -6111,7 +6211,7 @@ def main() -> None:
               "eq3_row_mean": "cada_update.cu",
               "selective_scan": "ssm_scan.cu",
               "selective_scan_heads": "ssm_scan.cu",
-              "flash_attention": "flash_attention.cu"}
+              "flash_attention": "flash_attention.cu", "rope": "rope.cu"}
     replaces = {"amsgrad": "src/repro/kernels/cada_update.py:34",
                 "batched_diff_sq": "src/repro/kernels/cada_update.py:106",
                 "batched_sq": "src/repro/kernels/cada_update.py:144",
@@ -6119,12 +6219,15 @@ def main() -> None:
                 "eq3_row_mean": "src/repro/kernels/ops.py:126",
                 "selective_scan": "src/repro/kernels/ssm_scan.py:39",
                 "selective_scan_heads": "src/repro/kernels/ssm_scan.py:39",
-                "flash_attention": "src/repro/kernels/flash_attention.py:33"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:33",
+                "rope": "src/repro/models/attention.py:47"}
     notes = {"eq3_row_mean": "a fori_loop in the JAX package, not Pallas: "
                              "its row order is the bit contract",
              "selective_scan": "the general form (any A, Mamba1's); "
                                "Mamba2's prefills take selective_scan_heads",
-             "selective_scan_heads": "Mamba2's form: dt and A per head"}
+             "selective_scan_heads": "Mamba2's form: dt and A per head",
+             "rope": "jnp expressions in the JAX package, not Pallas; the "
+                     "port ran them as eager PyTorch (ref.rope_ref)"}
     kernels = [{"name": name, "route": "cuda", "source": csrc + source[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "library_ms": None, **main_shape[name],

@@ -2,10 +2,11 @@
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``).
 A tensor on the card goes to the CUDA kernel (``kernels/cada_update.py``,
-``kernels/ssm_scan.py``, ``kernels/flash_attention.py``), which launches or
-raises: there is no fallback. ``impl="plain"`` forces the
-plain version on any device; it exists so a comparison on the card can run
-both, and the engine's main path never passes it. ``impl="kernel"`` asks
+``kernels/ssm_scan.py``, ``kernels/flash_attention.py``,
+``kernels/rope.py``), which launches or raises: there is no fallback.
+``impl="plain"`` forces the plain version on any device; it exists so a
+comparison on the card can run both, and the engine's main path never
+passes it. ``impl="kernel"`` asks
 for the kernel and raises on a CPU tensor.
 
 The shard-local forms (``shard=``, a ``distributed.sharding.FlatSharding``
@@ -20,7 +21,8 @@ it launches no kernel.
 On the ``meta`` device (the dry run, ``launch/dryrun.py``) the two
 serving kernels take a shape-only route: their outputs' shapes and
 dtypes, with their operations counted by formula (:func:`counting_meta_ops`)
-(the plain versions' loops over time would run S small ops a layer).
+(the plain versions' loops over time would run S small ops a layer). The
+rotary embedding takes its plain version there.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from repro_torch.kernels import cada_update as _cu
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.utils.trees import tree_leaves, tree_paths, tree_unflatten
 
@@ -263,3 +266,16 @@ def flash_attention(q, k, v, *, window: int = 0, impl=None):
     if use_kernel(q, impl):
         return _fa.flash_attention(q, k, v, window=window)
     return _ref.flash_attention_ref(q, k, v, window=window)
+
+
+def apply_rope(x, cos, sin, rotary_pct: float = 1.0, *, impl=None):
+    """The rotary embedding of x (B, S, H, hd) by fp32 cos/sin tables of
+    (S, W), (1, S, W) or (B, S, W): the first ``rot = int(hd *
+    rotary_pct)`` dims rotate, the rest pass through; x itself where rot
+    is 0. The kernel gives the plain version's bits. It has no backward:
+    a caller under autograd takes ``ref.rope_ref``
+    (``models/attention.py::apply_rope``)."""
+    if (int(x.shape[-1] * rotary_pct) and x.device.type != "meta"
+            and use_kernel(x, impl)):
+        return _rope.apply_rope(x, cos, sin, rotary_pct)
+    return _ref.rope_ref(x, cos, sin, rotary_pct)

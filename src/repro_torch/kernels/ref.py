@@ -121,3 +121,21 @@ def flash_attention_ref(q, k, v, window: int = 0):
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bhqd", p, vf) / denom
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def rope_ref(x, cos, sin, rotary_pct: float = 1.0):
+    """The rotary embedding as eager PyTorch: x (..., S, H, hd); cos/sin
+    (..., S, rot/2) broadcast over heads; the first ``rot = hd *
+    rotary_pct`` dims rotate, the rest pass through. The products, the
+    difference and the sum are fp32 where the tables are, then cast to
+    x's dtype."""
+    hd = x.shape[-1]
+    rot = int(hd * rotary_pct)
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    c = cos[..., None, : rot // 2]
+    s = sin[..., None, : rot // 2]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 _NEG = -1e30
@@ -68,19 +68,19 @@ def mrope_angles(positions, dim: int, theta: float, sections):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
+def apply_rope(x, cos, sin, rotary_pct: float = 1.0, impl=None):
     """x (..., S, H, hd); cos/sin (..., S, rot/2) broadcast over heads; the
-    first ``rot = hd * rotary_pct`` dims rotate, the rest pass through."""
-    hd = x.shape[-1]
-    rot = int(hd * rotary_pct)
-    if rot == 0:
-        return x
-    xr, xp = x[..., :rot], x[..., rot:]
-    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
-    c = cos[..., None, : rot // 2]
-    s = sin[..., None, : rot // 2]
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-    return torch.cat([out.to(x.dtype), xp], dim=-1)
+    first ``rot = hd * rotary_pct`` dims rotate, the rest pass through.
+
+    Where autograd would record the call (grad enabled and x, cos or sin
+    requiring grad), the eager expression ``ref.rope_ref``: the kernel has
+    no backward. Every other call goes to ``ops.apply_rope``, the one-pass
+    kernel on the card (x (B, S, H, hd) contiguous), which gives the same
+    bits."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, cos, sin)):
+        return ref.rope_ref(x, cos, sin, rotary_pct)
+    return ops.apply_rope(x, cos, sin, rotary_pct, impl=impl)
 
 
 # ------------------------------------------------------------- projections

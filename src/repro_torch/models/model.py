@@ -230,8 +230,8 @@ def _attn_mlp_block(params, cfg: ModelConfig, x, cos, sin, impl=None,
     with trace.span("prefill.attn", "prefill"):
         h = rmsnorm(x, params["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv(params["attn"], cfg, h, tp)
-        q = attn.apply_rope(q, cos, sin, cfg.rotary_pct)
-        k = attn.apply_rope(k, cos, sin, cfg.rotary_pct)
+        q = attn.apply_rope(q, cos, sin, cfg.rotary_pct, impl)
+        k = attn.apply_rope(k, cos, sin, cfg.rotary_pct, impl)
         kq, vq = attn.local_kv(k, v, cfg, q.shape[-2], tp)
         a = attn.causal_attention(q, kq, vq, window=cfg.sliding_window,
                                   dtype=x.dtype, impl=impl, train=train)
