@@ -26,7 +26,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
      (``rope_kernel``) is bit-equal to the eager expression on one layer's
      q and k of the serving cell's rounds, (32, 7845, 16 + 8, 128) bf16,
      and of stablelm-1.6b's partial rotary, (4, 2048, 32 + 32, 64) at 0.25,
-     each timed beside the eager expression and its bytes bound.
+     each timed beside the eager expression and its bytes bound. The
+     per-head scan at N = 128 (two state tiles) is timed at the hybrid
+     serving cell's layer, (32, 7845, 64 × 64, 128), beside its plain
+     version and its bound.
   4. main path: ``CADAEngine`` on the paper MLP 784→128→10 (M=10, batch 12,
      mnist_like(4096), d_max=10, max_delay=50, c=1.0), each rule at its
      reference defaults on FusedAMSGrad(lr=5e-4): 200 rounds each of always
@@ -53,6 +56,13 @@ Phases, each of which raises on failure (the exit code is then not 0):
      Mamba2 layers and the shared block, full width) run with the kernels
      and with ``impl="plain"``: last logits, SSM/conv states and KV cache
      within a stated band.
+  6b. granite-4.0-h-micro at full width and depth (36 published Mamba2
+     layers at N = 128 beside 4 NoPE attention layers, 3,191,396,096 bf16
+     parameters drawn on the card): prefill of 2 random prompts of 2048
+     tokens and 8 greedy decode steps through ``repro_torch.launch.serve``.
+     Exactly 36 per-head scans and 4 flash launches per prefill, no
+     rotary launch and nothing per decode step; prefill(S-1) -> decode(1)
+     against prefill(S) in fp32.
   7. training path: the LM trainer (``repro_torch.distributed.trainer``)
      a. stablelm-1.6b at its published width with 4 of its 24 layers (the
         one cut: the (M, n_flat) fp32 planes of the round do not fit 80 GB
@@ -423,6 +433,10 @@ LIBRARY_NOTE = {
 }
 # serving path (phase 6): zamba2-2.7b, full width and depth
 SERVE_ARCH, SERVE_BATCH, SERVE_SEQ, SERVE_TOKENS = "zamba2-2.7b", 2, 2048, 32
+# the pattern's serving path (phase 6b), and the hybrid serving cell's
+# round, 32 slots of 7,845 tokens (the per-head scan at N = 128, phase 3)
+GRANITE_ARCH, GRANITE_TOKENS = "granite-4.0-h-micro", 8
+GRANITE_ROUND = (32, 7845)
 SCAN_RTOL = 1e-5          # scan kernel vs plain, of each array's scale:
 #                           fp32; the N-sum's order (its rounding scales
 #                           with the terms, and y_t can cancel to near 0)
@@ -1789,13 +1803,21 @@ def phase_lm_kernels(rates) -> dict:
     general kernel at G = 2, D = 5120, N = 64 with Mamba2's A; flash 32
     heads of 80), then at shapes off that path: the general scan with a
     general A, also at falcon-mamba-7b's widths (G = 2, S = 512, D = 8192,
-    N = 16); last the rotary kernel (:func:`check_rope`)."""
+    N = 16); last the rotary kernel (:func:`check_rope`). The per-head
+    scan at N = 128 is timed at the hybrid serving cell's layer
+    (GRANITE_ROUND, 64 heads of 64), its entry under ``granite_shape``."""
     cfg = lm_configs.get_config(SERVE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2)
     hdim = cfg.mamba_headdim
     main = {"selective_scan_heads": check_scan_heads(
         SERVE_BATCH, SERVE_SEQ, cfg.ssm_heads, hdim, cfg.ssm_state, rates,
         gen, timed=True)}
+    gr = lm_configs.get_config(GRANITE_ARCH)
+    main["selective_scan_heads"]["granite_shape"] = check_scan_heads(
+        *GRANITE_ROUND, gr.ssm_heads, gr.mamba_headdim, gr.ssm_state, rates,
+        gen, timed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     smoke = lm_configs.get_smoke_config(SERVE_ARCH)
     for dtype in (torch.bfloat16, torch.float32):
         check_scan_heads(3, 333, 9, smoke.mamba_headdim, smoke.ssm_state,
@@ -2353,6 +2375,90 @@ def phase_serve(card: str) -> dict:
           + f" (band {STAGE_RTOL_F32:.3g}); bf16 " + ", ".join(
               f"{k} {v:.3g} (bf16 vs fp32: {fl:.3g})"
               for k, (v, fl) in bf16_shares.items()))
+    return {name: got[name] for name in LM_WRAPPERS}
+
+
+def phase_granite(card: str) -> dict:
+    """granite-4.0-h-micro at full width and depth through the serving
+    entry point, B = 2 prompts of S = 2048 random tokens, GRANITE_TOKENS
+    greedy steps. All kernel counts are set to 0 just before and read just
+    after: exactly 36 per-head scans and 4 flash launches (one prefill),
+    no rotary launch (NoPE) and nothing else; then a prefill alone
+    launches the same, and a decode step nothing. In fp32 (the bf16
+    weights upcast), prefill(S-1) -> decode(1) against prefill(S)."""
+    cfg = lm_configs.get_config(GRANITE_ARCH)
+    b, s, steps = SERVE_BATCH, SERVE_SEQ, GRANITE_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"{n_params} parameters, not {param_count(cfg)}")
+    print(f"  {cfg.name} ({cfg.source}): {n_params:,} parameters in "
+          f"{cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = serve.random_prompts(cfg, b, s, 1, "cuda")
+    want = {"selective_scan": 0, "selective_scan_heads": cfg.n_ssm_layers,
+            "flash_attention": cfg.n_attn_layers, "rope": 0}
+
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    out = serve.generate(cfg, params, prompts, steps)
+    torch.cuda.synchronize()
+    got = {**_counts(), **_lm_counts()}
+    expect = {**dict.fromkeys(WRAPPERS, 0), **want}
+    if got != expect:
+        raise RuntimeError(f"granite serving path: launches {got}, "
+                           f"expected {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    logits, toks = out["prefill_logits"], out["tokens"]
+    if logits.shape != (b, cfg.vocab) or toks.shape != (b, steps):
+        raise RuntimeError(f"shapes {tuple(logits.shape)}, "
+                           f"{tuple(toks.shape)}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(
+            torch.isfinite(out["logits"].float()).all())):
+        raise RuntimeError("non-finite logits at full depth")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise RuntimeError("decoded token ids out of range")
+    print(f"  prefill {b}x{s} (first call): {out['prefill_s'] * 1e3:.2f} ms; "
+          f"{steps} greedy decode steps in {out['decode_s'] * 1e3:.2f} ms; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per-head scan "
+          f"{got['selective_scan_heads']}, flash {got['flash_attention']}, "
+          f"rope {got['rope']}, others 0 on {card}")
+
+    _reset_all_counts()
+    _, short = lm.prefill(cfg, params, prompts[:, :-1], max_seq=s)
+    per_prefill = _lm_counts()
+    last, _ = lm.decode_step(cfg, params, short, prompts[:, -1])
+    torch.cuda.synchronize()
+    if per_prefill != want or _lm_counts() != want:
+        raise RuntimeError(f"a prefill launched {per_prefill}, a decode "
+                           f"step then {_lm_counts()}; expected {want}, "
+                           "then nothing more")
+    del short, out
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = _upcast(params)
+    full32, _ = lm.prefill(cfg32, params32, prompts, max_seq=s)
+    _, short32 = lm.prefill(cfg32, params32, prompts[:, :-1], max_seq=s)
+    last32, _ = lm.decode_step(cfg32, params32, short32, prompts[:, -1])
+    torch.cuda.synchronize()
+    del params32, short32
+    diff = (last32 - full32).abs()
+    if not bool(torch.isfinite(full32).all()) or bool(
+            (diff > DECODE_ATOL + DECODE_RTOL * full32.abs()).any()):
+        raise RuntimeError(f"fp32 prefill(S-1)+decode vs prefill(S): max "
+                           f"|diff| {float(diff.max())} outside atol "
+                           f"{DECODE_ATOL} + rtol {DECODE_RTOL}")
+    print(f"  fp32, full width and depth: prefill({s - 1}) + decode(1) vs "
+          f"prefill({s}): max |diff| {float(diff.max()):.6f} of logits "
+          f"|max| {float(full32.abs().max()):.4f} (band atol {DECODE_ATOL} "
+          f"+ rtol {DECODE_RTOL}); argmax equal "
+          f"{bool(torch.equal(last32.argmax(-1), full32.argmax(-1)))}; "
+          f"bf16 (served) pair max |diff| "
+          f"{float((last.float() - logits.float()).abs().max()):.4f}; per "
+          f"prefill {per_prefill}, per decode step nothing")
+    del params
     return {name: got[name] for name in LM_WRAPPERS}
 
 
@@ -6134,6 +6240,13 @@ def main() -> None:
     phase_lockstep("topk", skipping_c["topk"], params, batches)
     print("[6] serving path")
     launches.update(phase_serve(card))
+    print("[6b] the per-layer pattern's serving path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    for name, v in phase_granite(card).items():
+        launches[name] += v
+    print(f"    phase 6b took {time.perf_counter() - t6:.1f} s")
     print("[7] training path")
     train_launches, train_sizes = phase_train(card, rates)
     for name, v in train_launches.items():

@@ -100,23 +100,37 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
 # ------------------------------------------------------------- registry
 
 _REGISTRY: dict[str, dict] = {}
+# configurations the port has and the JAX package has not: resolved by
+# name like the others, listed apart (``list_archs`` is the reference's)
+_PORT_ONLY: dict[str, dict] = {}
 
 
-def register(name: str, config_fn, smoke_fn):
-    _REGISTRY[name] = {"config": config_fn, "smoke": smoke_fn}
+def register(name: str, config_fn, smoke_fn, port_only: bool = False):
+    table = _PORT_ONLY if port_only else _REGISTRY
+    table[name] = {"config": config_fn, "smoke": smoke_fn}
+
+
+def _entry(name: str) -> dict:
+    return _REGISTRY[name] if name in _REGISTRY else _PORT_ONLY[name]
 
 
 def get_config(name: str) -> ModelConfig:
-    return _REGISTRY[name]["config"]()
+    return _entry(name)["config"]()
 
 
 def get_smoke_config(name: str) -> ModelConfig:
     """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts."""
-    cfg = _REGISTRY[name]["smoke"]()
+    cfg = _entry(name)["smoke"]()
     if cfg.n_layers > 2 or cfg.d_model > 512 or cfg.n_experts > 4:
         raise ValueError(f"{cfg.name} is not a smoke-sized config")
     return cfg
 
 
 def list_archs() -> list[str]:
+    """The JAX package's architectures, which the port holds to it."""
     return sorted(_REGISTRY)
+
+
+def list_port_archs() -> list[str]:
+    """The port's own architectures beside them."""
+    return sorted(_PORT_ONLY)

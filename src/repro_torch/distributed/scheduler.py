@@ -22,7 +22,10 @@ prefill's dispatch, whose own spans it passes on) and
 ``sched.first_token`` (sampling and the read of the first tokens to the
 host, the wait for the device); and the counters
 ``sched.prompt_tokens`` and ``sched.padded_tokens`` (slots × padded
-length), host integers.
+length), host integers, and ``sched.kv_bytes`` and ``sched.state_bytes``,
+the bytes of the two kinds of cache the round's prefill allocates for
+the slots (K/V of the attention layers; the SSM layers' conv tails and
+states), set once as it builds them.
 """
 from __future__ import annotations
 
@@ -118,6 +121,13 @@ class DecodeScheduler:
             with trace.span("sched.prefill", "sched"):
                 logits, cache = prefill(self.cfg, self.params, tokens=toks,
                                         max_seq=self.max_seq, trace=trace)
+            if trace:
+                for name, parts in (("sched.kv_bytes", (cache.k, cache.v)),
+                                    ("sched.state_bytes",
+                                     (cache.conv, cache.ssm))):
+                    trace.counter(name, None, sum(
+                        t.nbytes for t in parts if t is not None),
+                        track="sched")
             self._decode(batch, logits, cache, generator, trace)
         return batch
 

@@ -51,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.flat import FlatLayout, spec_dim
-from repro_torch.models.config import ModelConfig, param_count
+from repro_torch.models.config import ModelConfig, PatternConfig, param_count
 from repro_torch.models.model import (DecodeCache, abstract_params,
                                       init_cache)
 from repro_torch.utils.trees import (tree_leaves, tree_map, tree_paths,
@@ -295,6 +295,11 @@ def param_pspecs(cfg: ModelConfig, mesh, fsdp: bool | None = None,
     """Dict of P matching ``init_params(cfg)``. ``fsdp_axes``: the mesh
     axes the FSDP dim shards over (("data", "pod") extends it across pods
     for the 314B/405B archs)."""
+    if isinstance(cfg, PatternConfig):
+        raise ValueError(f"{cfg.name}: a per-layer pattern of mixers "
+                         "(PatternConfig) has no sharding specs: "
+                         "tensor-parallel serving and sharded training "
+                         "take the uniform configs only")
     if fsdp is None:
         fsdp = wants_fsdp(cfg, mesh)
     msize = _axsize(mesh, "model")

@@ -418,8 +418,27 @@ cudaError_t launch_types(const void* dt, const void* x, const void* a,
 //  - Widths: P and N multiples of 8 up to 64 (a TMA row is 16-byte
 //    aligned): P 64 (zamba2-2.7b) and 32 (its smoke config), N 64 and 16.
 //    Every product runs at the full 64 on those zero columns (a smaller N
-//    costs no fewer k-steps: only the smoke config has one). The entry
-//    point refuses other widths.
+//    costs no fewer k-steps: only the smoke config has one).
+//  - N above 64, up to 128 (granite-4.0-h's 128): two 64-column state
+//    tiles (NH = 2). The state's columns n evolve apart (h_t[:, n] takes
+//    B_t[n] alone) and y_t = sum_n h_t[:, n] C_t[n] is a sum over them, so
+//    the item's state is cut in two: both consumer warpgroups take the
+//    same item, warpgroup j the state columns 64 j.., and each runs the
+//    chunk above on its half (its ring loads the boxes of B and C at
+//    column 64 j, and X for both): C B^T and C h_prev^T contract over
+//    its 64 states, h^T is its 64 x P half. The item's y is the sum of
+//    the two halves' Y: each warpgroup writes the rows it does not store
+//    to shared memory (a buffer per chunk parity), both meet at a named
+//    barrier of the 256 consumer threads, and each adds the other's rows
+//    to its own and stores them (warpgroup j the rows of rr = j: the
+//    stores split evenly). Two terms add the same in either order, so y
+//    is the same bits whichever warpgroup stores it. The CTA holds one
+//    item at a time, so an item costs about what a 64-state item does,
+//    and the grid walks G H items, not G H / 2: at granite-4.0-h's layer
+//    in its serving cell (G = 32, S = 7845, H = 64, P = 64, N = 128) the
+//    function moves 6.42 GB, 1.92 ms at 3.35 TB/s, and the kernel takes
+//    6.60 ms (PERF.md section 6), each chunk's chain of products exposed.
+//    The entry point refuses other widths.
 
 using bf16 = __nv_bfloat16;
 
@@ -433,10 +452,14 @@ constexpr int kScratchF = 5 * kL;      // floats of a warp's scratch
 constexpr int kScratchB = 4 * kScratchF * 4;   // a warpgroup's four warps
 constexpr int kSmemMax = 232448;       // a block's shared memory on sm_90
 constexpr int kBarB = 128;             // 2 warpgroups x 3 stages x 2 x 8
+// NH = 2: Y's rows a warpgroup hands the other, per chunk parity and
+// warpgroup: 16 floats a thread
+constexpr int kXchgF = 16 * 128;
 
 // NX, NB: bf16 pieces of x and of b/c (1: bf16 operands; 3: fp32 ones,
-// v = v0 + v1 + v2 exactly)
-template <int NX, int NB>
+// v = v0 + v1 + v2 exactly); NH: 64-column state tiles (1: N <= 64, 2:
+// N <= 128, one a warpgroup)
+template <int NX, int NB, int NH>
 struct SsdShape {
   // a stage: X's pieces, B's, C's
   static constexpr int kXOff = 0;
@@ -445,13 +468,16 @@ struct SsdShape {
   static constexpr int kStageB = kCOff + NB * kTileB;
   // a warpgroup's block: the ring, h_prev's hi and lo, the warps' scratch
   static constexpr int kFixedB = 2 * kTileB + kScratchB;
-  static constexpr int kFit = ((kSmemMax - 1024 - kBarB) / 2 - kFixedB) /
-                              kStageB;
+  // the two halves' exchange of Y's rows (NH = 2), after both blocks
+  static constexpr int kXchgB = NH == 2 ? 4 * kXchgF * 4 : 0;
+  static constexpr int kFit =
+      ((kSmemMax - 1024 - kBarB - kXchgB) / 2 - kFixedB) / kStageB;
   static constexpr int kStages = kFit < 3 ? kFit : 3;
   static constexpr int kHprev = kStages * kStageB;
   static constexpr int kScratch = kHprev + 2 * kTileB;
   static constexpr int kWgB = kScratch + kScratchB;
-  static constexpr int kBar = 2 * kWgB;
+  static constexpr int kXchg = 2 * kWgB;
+  static constexpr int kBar = kXchg + kXchgB;
   static constexpr int kBytes = kBar + kBarB + 1024;
   static_assert(kStages >= 1 && kBytes <= kSmemMax, "shared memory");
   static_assert(kWgB % 1024 == 0, "tiles 1024-byte aligned");
@@ -688,13 +714,44 @@ __device__ __forceinline__ int c_block(int m) {
   return (m & 1) ? 7 - m / 2 : m / 2;
 }
 
-template <int NX, int NB>
+// The item of round r of consumer warpgroup j (and of the producer warp
+// that feeds it): two items at a time a CTA with one state tile, one with
+// two (both warpgroups on the item)
+template <int NH>
+__device__ __forceinline__ long long ssd_item(int r, int j) {
+  const long long step = NH == 1 ? 2LL * r + j : r;
+  return blockIdx.x + step * static_cast<long long>(gridDim.x);
+}
+
+// Two state halves' Y (NH = 2): consumer warpgroup J hands the other its
+// accumulator rows rr = 1 - J through shared memory, meets it at named
+// barrier 3 (the 256 consumer threads), and adds the other's rows rr = J
+// to its own. J is a template argument so that yv is indexed by
+// constants: an index known only at run time puts the accumulators in
+// local memory, and ptxas then serializes the wgmmas (C7514).
+template <int J>
+__device__ __forceinline__ void exchange_rows(float (&yv)[32], float* mine,
+                                              const float* theirs) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      mine[(2 * i + c) * 128] = yv[4 * i + 2 * (1 - J) + c];
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      yv[4 * i + 2 * J + c] += theirs[(2 * i + c) * 128];
+}
+
+template <int NX, int NB, int NH>
 __global__ void __launch_bounds__(kSsdThreads, 1)
 ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
                     const float* __restrict__ dt, const float* __restrict__ a,
                     float* __restrict__ y, float* __restrict__ hfin, int S,
                     int H, int P, int N, int n_items) {
-  using Sh = SsdShape<NX, NB>;
+  using Sh = SsdShape<NX, NB, NH>;
   extern __shared__ __align__(1024) unsigned char ssd_smem[];
   const uint32_t base = (smem_addr(ssd_smem) + 1023u) & ~1023u;
   const uint32_t bars = base + Sh::kBar;
@@ -722,9 +779,9 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
     if (j < 2 && threadIdx.x % 32 == 0) {
       const uint32_t wg = base + j * Sh::kWgB;
       int t = 0;
+      const int n0 = NH == 2 ? kSsdWidth * j : 0;   // this ring's states
       for (int r = 0;; ++r) {
-        const long long idx =
-            blockIdx.x + (2LL * r + j) * static_cast<long long>(gridDim.x);
+        const long long idx = ssd_item<NH>(r, j);
         if (idx >= n_items) break;
         const int g = static_cast<int>(idx / H), h = static_cast<int>(idx % H);
         for (int k = 0; k < n_ch; ++k, ++t) {
@@ -739,12 +796,12 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
                       h, k * kL, g);
 #pragma unroll
           for (int i = 0; i < NB; ++i) {
-            tma_load3(sb + Sh::kBOff + i * kTileB, &maps.b[i], full(j, st), 0,
+            tma_load3(sb + Sh::kBOff + i * kTileB, &maps.b[i], full(j, st), n0,
                       k * kL, g);
 #pragma unroll
             for (int m = 0; m < 8; ++m)
               tma_load3(sb + Sh::kCOff + i * kTileB + m * 8 * kRowB,
-                        &maps.c[i], full(j, st), 0, k * kL + 8 * c_block(m),
+                        &maps.c[i], full(j, st), n0, k * kL + 8 * c_block(m),
                         g);
           }
         }
@@ -785,8 +842,7 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
   float hT[32] = {}, yv[32] = {}, gv[32] = {};
   uint32_t wa[4][4], wl[4][4], pa[4][4], pl[4][4];
   for (int r = 0;; ++r) {
-    const long long idx =
-        blockIdx.x + (2LL * r + j) * static_cast<long long>(gridDim.x);
+    const long long idx = ssd_item<NH>(r, j);
     if (idx >= n_items) break;
     const int g = static_cast<int>(idx / H), h = static_cast<int>(idx % H);
     const float av = a[h];
@@ -1009,6 +1065,19 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
       pin(pl);
       if (lane == 0) mbar_arrive(empty(j, st));
 
+      if constexpr (NH == 2) {
+        // the two state halves' Y added (buffers by chunk parity: the
+        // other warpgroup may still read the last chunk's)
+        float* xchg = reinterpret_cast<float*>(
+            ssd_smem + (base - smem_addr(ssd_smem)) + Sh::kXchg);
+        float* mine = xchg + (2 * (t & 1) + j) * kXchgF + tid;
+        const float* theirs = xchg + (2 * (t & 1) + 1 - j) * kXchgF + tid;
+        if (j == 0)
+          exchange_rows<0>(yv, mine, theirs);
+        else
+          exchange_rows<1>(yv, mine, theirs);
+      }
+
       // y: rows past S are not written, columns past P are not stored. A
       // full-width head takes no per-column test, and the two threads of a
       // pair swap halves, so each stores 4 neighbouring columns as one
@@ -1018,6 +1087,7 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
       const bool ev = (tq & 1) == 0;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
+        if (NH == 2 && rr != j) continue;   // the other warpgroup's rows
         const int tt = t0 + (rr ? tr1 : tr0);
         float* yrow = yg + static_cast<long long>(tt) * D;
         if (P == kSsdWidth) {
@@ -1043,11 +1113,11 @@ ssm_scan_kernel_ssd(const __grid_constant__ SsdMaps maps,
       }
     }
 
-    // h_final (g, h P + p, n) from h^T (n, p)
+    // h_final (g, h P + p, n) from h^T (n, p): this warpgroup's states
     float* hg = hfin + (static_cast<long long>(g) * D + h * P) * N;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const int n = row0 + 8 * rr;
+      const int n = row0 + 8 * rr + (NH == 2 ? kSsdWidth * j : 0);
       if (n >= N) continue;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -1152,7 +1222,7 @@ int encode_bc(CUtensorMap* map, const void* b, int G, int S, int N,
   return encode(map, b, 3, dims, 1, rows);
 }
 
-template <int NX, int NB>
+template <int NX, int NB, int NH>
 int launch_ssd(const void* dt, const void* const* x, const void* a,
                const void* const* b, const void* const* c, void* y,
                void* hfin, int G, int S, int H, int P, int N,
@@ -1172,17 +1242,31 @@ int launch_ssd(const void* dt, const void* const* x, const void* a,
   if (cerr == cudaSuccess)
     cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  constexpr int bytes = SsdShape<NX, NB>::kBytes;
-  cerr = cudaFuncSetAttribute(ssm_scan_kernel_ssd<NX, NB>,
+  constexpr int bytes = SsdShape<NX, NB, NH>::kBytes;
+  cerr = cudaFuncSetAttribute(ssm_scan_kernel_ssd<NX, NB, NH>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);
-  ssm_scan_kernel_ssd<NX, NB><<<grid, kSsdThreads, bytes, stream>>>(
+  ssm_scan_kernel_ssd<NX, NB, NH><<<grid, kSsdThreads, bytes, stream>>>(
       maps, static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<float*>(y), static_cast<float*>(hfin), S, H, P, N,
       static_cast<int>(n_items));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NH>
+int launch_pieces(const void* dt, const void* const* x, int nx,
+                  const void* a, const void* const* b, const void* const* c,
+                  int nb, void* y, void* hfin, int G, int S, int H, int P,
+                  int N, cudaStream_t st) {
+  if (nx == 3 && nb == 3)
+    return launch_ssd<3, 3, NH>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
+  if (nx == 3)
+    return launch_ssd<3, 1, NH>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
+  if (nb == 3)
+    return launch_ssd<1, 3, NH>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
+  return launch_ssd<1, 1, NH>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
 }
 
 }  // namespace
@@ -1219,28 +1303,28 @@ int ssm_scan(const void* dt, const void* x, const void* a, long long a_gs,
   return static_cast<int>(err);
 }
 
+
 // Mamba2's per-head form: dt (G, S, H) fp32, a (H,) fp32; x (G, S, H * P)
 // and b, c (G, S, N) as bf16 pieces, 1 (bf16 operands) or 3 (fp32 ones,
 // from ssm_split_bf16), in nx and nb pointers of the arrays x, b and c;
 // y (G, S, H * P) and hfin (G, H * P, N) fp32. All contiguous, the
-// pieces 16-byte aligned; P and N multiples of 8 in [8, 64].
+// pieces 16-byte aligned; P a multiple of 8 in [8, 64], N one in [8,
+// 128] (above 64: two state tiles).
 int ssm_scan_heads(const void* dt, const void* const* x, int nx,
                    const void* a, const void* const* b,
                    const void* const* c, int nb, void* y, void* hfin, int G,
                    int S, int H, int P, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || S < 1 || H < 1 || P < 8 || P > kSsdWidth || P % 8 != 0 ||
-      N < 8 || N > kSsdWidth || N % 8 != 0 ||
+      N < 8 || N > 2 * kSsdWidth || N % 8 != 0 ||
       static_cast<long long>(G) * H > 0x7fffffffLL || (nx != 1 && nx != 3) ||
       (nb != 1 && nb != 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nx == 3 && nb == 3)
-    return launch_ssd<3, 3>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
-  if (nx == 3)
-    return launch_ssd<3, 1>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
-  if (nb == 3)
-    return launch_ssd<1, 3>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
-  return launch_ssd<1, 1>(dt, x, a, b, c, y, hfin, G, S, H, P, N, st);
+  if (N > kSsdWidth)
+    return launch_pieces<2>(dt, x, nx, a, b, c, nb, y, hfin, G, S, H, P, N,
+                            st);
+  return launch_pieces<1>(dt, x, nx, a, b, c, nb, y, hfin, G, S, H, P, N,
+                          st);
 }
 
 // n fp32 values of src as three bf16 pieces, planes of n in out (the fp32

@@ -17,7 +17,8 @@ every head dim of the repo's configs; the bf16 one for those in
 is served by the next larger instance of its dtype (:func:`instance_for`):
 q, k and v are zero-padded to it and the output is cut back, which is exact
 (zero columns add nothing to q·k, and padded V columns fill only output
-columns that are dropped); the softmax scale stays 1/√hd of the true hd.
+columns that are dropped); the softmax scale stays the caller's (by
+default 1/√hd of the true hd).
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ def kernel_for(dtype: torch.dtype) -> str:
     raise ValueError(f"flash_attention: fp32 or bf16 operands, got {dtype}")
 
 
-def flash_attention(q, k, v, *, window: int = 0):
+def flash_attention(q, k, v, *, window: int = 0, scale=None):
     """Causal (optionally windowed) self-attention on the card.
 
     q (B, S, Hq, hd), k/v (B, S, Hkv, hd), all contiguous and all fp32 or
@@ -82,8 +83,9 @@ def flash_attention(q, k, v, *, window: int = 0):
     Hq a multiple of Hkv; hd at most ``HEAD_DIMS[-1]`` (zero-padded to
     the next compiled instance of its dtype where it is not one);
     ``window`` 0 (full causal)
-    or the number of positions a query sees, itself included. Returns
-    (B, S, Hq, hd) in q's dtype.
+    or the number of positions a query sees, itself included; ``scale``
+    the softmax scale (None: 1/√hd). Returns (B, S, Hq, hd) in q's
+    dtype.
     """
     name = "flash_attention"
     for key, t in (("q", q), ("k", k), ("v", v)):
@@ -133,7 +135,8 @@ def flash_attention(q, k, v, *, window: int = 0):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            hq, hkv, inst, window, 1.0 / float(hd) ** 0.5,
+            hq, hkv, inst, window,
+            1.0 / float(hd) ** 0.5 if scale is None else float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()

@@ -252,9 +252,10 @@ def selective_scan_heads(dt_h, x, a_h, b, c, *, impl=None):
     return _ref.selective_scan_heads_ref(dt_h, x, a_h, b, c)
 
 
-def flash_attention(q, k, v, *, window: int = 0, impl=None):
+def flash_attention(q, k, v, *, window: int = 0, impl=None, scale=None):
     """Causal (optionally windowed) self-attention, q (B, S, Hq, hd), k/v
-    (B, S, Hkv, hd), GQA by a head-index map; output in q's dtype. On
+    (B, S, Hkv, hd), GQA by a head-index map, softmax scale ``scale``
+    (None: 1/√hd); output in q's dtype. On
     ``meta`` tensors the output's shape and dtype alone, and the two
     products' 4·hd flops a live (query, key) pair and head counted
     (:func:`counting_meta_ops`)."""
@@ -264,8 +265,8 @@ def flash_attention(q, k, v, *, window: int = 0, impl=None):
                     * b * hq)
         return torch.empty_like(q)
     if use_kernel(q, impl):
-        return _fa.flash_attention(q, k, v, window=window)
-    return _ref.flash_attention_ref(q, k, v, window=window)
+        return _fa.flash_attention(q, k, v, window=window, scale=scale)
+    return _ref.flash_attention_ref(q, k, v, window=window, scale=scale)
 
 
 def apply_rope(x, cos, sin, rotary_pct: float = 1.0, *, impl=None):

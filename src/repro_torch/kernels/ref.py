@@ -97,17 +97,18 @@ def selective_scan_heads_ref(dt_h, x, a_h, b, c):
 FLASH_NEG = -1e30   # the masked score, finite as in the Pallas kernel
 
 
-def flash_attention_ref(q, k, v, window: int = 0):
+def flash_attention_ref(q, k, v, window: int = 0, scale=None):
     """Causal (optionally windowed) attention with the flash kernel's
     semantics, computed in one piece: q (B, S, Hq, hd), k/v (B, S, Hkv, hd);
-    q is upcast and multiplied by 1/√hd before the product, scores are
+    q is upcast and multiplied by ``scale`` (None: 1/√hd) before the
+    product, scores are
     fp32, masked scores are −1e30 (finite), the softmax denominator is
     max(l, 1e-30), and query head h reads key/value head
     h // (Hq / Hkv). Returns (B, S, Hq, hd) in q's dtype."""
     bsz, s, hq, hd = q.shape
     hkv = k.shape[2]
     head = torch.arange(hq, device=q.device) // (hq // hkv)
-    qf = q.float() * (1.0 / float(hd) ** 0.5)
+    qf = q.float() * (1.0 / float(hd) ** 0.5 if scale is None else scale)
     kf = k.float().index_select(2, head)
     vf = v.float().index_select(2, head)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)

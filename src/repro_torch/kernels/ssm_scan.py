@@ -24,7 +24,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_STATE = 128    # N: a block holds 8 states per warp, 16 warps
 MAX_GROUPS = 65535
-HEADS_WIDTH = 64   # P and N of the per-head form: one 64-column tile
+HEADS_WIDTH = 64   # P of the per-head form: one 64-column tile
+HEADS_STATE = 128  # N of the per-head form: up to two 64-column tiles
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -150,7 +151,9 @@ def selective_scan_heads(dt_h, x, a_h, b, c):
 
     dt_h (G, S, H) fp32; x (G, S, H·P) fp32 or bf16; a_h (H,) fp32; b, c
     (G, S, N), both fp32 or both bf16. All contiguous; bf16 operands
-    16-byte aligned (TMA reads them). P and N multiples of 8 up to 64.
+    16-byte aligned (TMA reads them). P a multiple of 8 up to 64, N one
+    up to 128 (above 64 the kernel carries the state as two 64-column
+    tiles, one a consumer warpgroup, and adds their y).
     fp32 x, b and c are cut into three bf16 pieces each
     (:func:`split_pieces`) before the scan."""
     name = "selective_scan_heads"
@@ -185,10 +188,11 @@ def selective_scan_heads(dt_h, x, a_h, b, c):
         raise ValueError(f"{name}: a_h must be ({hn},), got "
                          f"{tuple(a_h.shape)}")
     p, n = x.shape[2] // hn, b.shape[2]
-    for what, v in (("head_dim P", p), ("state N", n)):
-        if v % 8 or not 8 <= v <= HEADS_WIDTH:
+    for what, v, top in (("head_dim P", p, HEADS_WIDTH),
+                         ("state N", n, HEADS_STATE)):
+        if v % 8 or not 8 <= v <= top:
             raise ValueError(f"{name}: {what} = {v}; the kernel takes "
-                             f"multiples of 8 up to {HEADS_WIDTH}")
+                             f"multiples of 8 up to {top}")
     if not all(t.is_contiguous() for t in ops_.values()):
         raise ValueError(f"{name}: dt_h, x, a_h, b and c must be contiguous")
     for key, t in (("x", x), ("b", b), ("c", c)):

@@ -125,7 +125,8 @@ def random_prompts(cfg, batch: int, seq: int, seed: int, device):
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", required=True, choices=C.list_archs())
+    p.add_argument("--arch", required=True,
+                   choices=C.list_archs() + C.list_port_archs())
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=32)

@@ -134,15 +134,17 @@ def local_kv(k, v, cfg: ModelConfig, hq: int, tp):
 
 # ------------------------------------------------------------ core attention
 
-def _grouped_scores(q, k):
+def _grouped_scores(q, k, scale=None):
     """q (B,Sq,Hq,hd), k (B,Sk,Hkv,hd) -> fp32 scores (B,Hq,Sq,Sk) / √hd
-    via GQA groups."""
+    (times ``scale`` where one is given) via GQA groups."""
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.float().reshape(b, sq, hkv, hq // hkv, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
-    return scores.reshape(b, hq, sq, k.shape[1]) / torch.sqrt(
-        torch.tensor(float(hd)))
+    scores = scores.reshape(b, hq, sq, k.shape[1])
+    if scale is not None:
+        return scores * scale
+    return scores / torch.sqrt(torch.tensor(float(hd)))
 
 
 def _grouped_values(probs, v):
@@ -155,16 +157,17 @@ def _grouped_values(probs, v):
 
 
 def naive_attention(q, k, v, positions_q=None, positions_k=None,
-                    window: int = 0, dtype=torch.bfloat16):
+                    window: int = 0, dtype=torch.bfloat16, scale=None):
     """O(S²)-memory attention with explicit positions: the route of
     non-standard positions on every device, and of short training
-    sequences."""
+    sequences. ``scale``: the softmax scale (None: 1/√hd), here and in
+    the functions below."""
     sq, sk = q.shape[1], k.shape[1]
     if positions_q is None:
         positions_q = torch.arange(sq, device=q.device)
     if positions_k is None:
         positions_k = torch.arange(sk, device=q.device)
-    scores = _grouped_scores(q, k)
+    scores = _grouped_scores(q, k, scale)
     rel = positions_q[:, None] - positions_k[None, :]        # (Sq, Sk)
     mask = rel >= 0
     if window:
@@ -176,7 +179,7 @@ def naive_attention(q, k, v, positions_q=None, positions_k=None,
 
 def blockwise_attention(q, k, v, window: int = 0, dtype=torch.bfloat16,
                         q_chunk: int = FLASH_Q_CHUNK,
-                        kv_chunk: int = FLASH_KV_CHUNK):
+                        kv_chunk: int = FLASH_KV_CHUNK, scale=None):
     """Blockwise (flash-style) causal attention, O(S·chunk) memory: the
     reference's jnp ``flash_attention``, the training route's long
     self-attention.
@@ -193,7 +196,8 @@ def blockwise_attention(q, k, v, window: int = 0, dtype=torch.bfloat16,
     if s % q_chunk or q_chunk % kv_chunk:
         raise ValueError(f"blockwise attention: S={s}, q_chunk={q_chunk}, "
                          f"kv_chunk={kv_chunk} do not divide")
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
     qg = q.reshape(b, s, hkv, g, hd)
     arange_q = torch.arange(q_chunk, device=q.device)
     arange_k = torch.arange(kv_chunk, device=q.device)
@@ -232,7 +236,7 @@ def blockwise_attention(q, k, v, window: int = 0, dtype=torch.bfloat16,
 
 def causal_attention(q, k, v, positions_q=None, positions_k=None,
                      window: int = 0, dtype=torch.bfloat16, impl=None,
-                     train=False):
+                     train=False, scale=None):
     """Causal (optionally sliding-window) attention for prefill/forward
     (see the module docstring for the two routes).
 
@@ -243,27 +247,32 @@ def causal_attention(q, k, v, positions_q=None, positions_k=None,
     Training: :func:`blockwise_attention` where Sq = Sk ≥ 2048, both
     divisible by the chunk, with standard positions; else
     :func:`naive_attention` (the reference's dispatch).
+
+    ``scale``: the softmax scale on every route (None: 1/√hd).
     """
     standard = positions_q is None and positions_k is None
     if train:
         sq, sk = q.shape[1], k.shape[1]
         if (standard and sq == sk and sq >= FLASH_THRESHOLD
                 and sq % FLASH_Q_CHUNK == 0 and sk % FLASH_KV_CHUNK == 0):
-            return blockwise_attention(q, k, v, window=window, dtype=dtype)
+            return blockwise_attention(q, k, v, window=window, dtype=dtype,
+                                       scale=scale)
         return naive_attention(q, k, v, positions_q, positions_k, window,
-                               dtype)
+                               dtype, scale)
     if standard and q.shape[1] == k.shape[1]:
-        return ops.flash_attention(q, k, v, window=window,
-                                   impl=impl).to(dtype)
-    return naive_attention(q, k, v, positions_q, positions_k, window, dtype)
+        return ops.flash_attention(q, k, v, window=window, impl=impl,
+                                   scale=scale).to(dtype)
+    return naive_attention(q, k, v, positions_q, positions_k, window, dtype,
+                           scale)
 
 
 def decode_attention(q, k_cache, v_cache, valid, dtype=torch.bfloat16,
-                     tp=None):
+                     tp=None, scale=None):
     """One-token attention over a (possibly ring-buffered) cache, plain
     PyTorch on every device, as the reference's is plain jnp.
 
-    q (B,1,Hq,hd); k/v_cache (B,W,Hkv,hd); valid (B,W) bool.
+    q (B,1,Hq,hd); k/v_cache (B,W,Hkv,hd); valid (B,W) bool; ``scale``
+    the softmax scale (None: 1/√hd).
 
     With ``tp`` the ring is sharded over W (``cache_pspecs`` when the KV
     heads do not divide the model axis): the rank holds W/m of the slots
@@ -273,7 +282,7 @@ def decode_attention(q, k_cache, v_cache, valid, dtype=torch.bfloat16,
     values all-reduced (SUM, one fp32 buffer), then divided. A rank with
     no valid slot adds zeros (exp(-1e30 - max)).
     """
-    scores = _grouped_scores(q, k_cache)                     # (B,Hq,1,W)
+    scores = _grouped_scores(q, k_cache, scale)              # (B,Hq,1,W)
     scores = torch.where(valid[:, None, None, :], scores, _NEG)
     if tp is None:
         probs = torch.softmax(scores, dim=-1)

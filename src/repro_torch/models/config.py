@@ -138,6 +138,79 @@ class ModelConfig:
             need(self.n_heads > 0, "attention heads")
 
 
+LAYER_MAMBA2 = "mamba2"
+LAYER_ATTENTION = "attention"
+
+
+@dataclass(frozen=True)
+class PatternConfig(ModelConfig):
+    """A decoder whose layers each have a mixer of their own kind and
+    their own weights, in ``layer_types`` order, every mixer followed by
+    the SwiGLU MLP (granite-4.0-h: Mamba2 beside GQA attention). Its
+    Mamba2 mixer is the published one: the causal conv runs over the
+    concatenation [x, B, C] (``ssm_conv`` taps with a bias), where the
+    reference-matched ``block="mamba2"`` convolves x alone. Its attention
+    takes no rotary embedding (NoPE) and ``attn_scale`` as the softmax
+    scale (0: 1/√hd); μP multipliers scale the embedding
+    (``embedding_multiplier``), each branch before its residual add
+    (``residual_multiplier``) and divide the logits (``logits_scaling``).
+    ``n_layers`` counts every layer; ``block`` is ``"mamba2"`` (the SSM
+    layers' kind). A port-only configuration: the JAX package has none."""
+    layer_types: tuple = ()       # per layer: LAYER_MAMBA2 | LAYER_ATTENTION
+    attn_scale: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        # a JSON list (a benchmark configuration's file) becomes a tuple,
+        # so the config stays hashable
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+
+    @property
+    def has_attention(self) -> bool:
+        return LAYER_ATTENTION in self.layer_types
+
+    @property
+    def n_attn_layers(self) -> int:
+        return self.layer_types.count(LAYER_ATTENTION)
+
+    @property
+    def n_ssm_layers(self) -> int:
+        return self.layer_types.count(LAYER_MAMBA2)
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the published conv: x, B and C."""
+        return self.d_inner + 2 * self.ssm_state
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attn_scale or self.hd ** -0.5
+
+    @property
+    def subquadratic(self) -> bool:
+        return False
+
+    def validate(self) -> None:
+        def need(cond, what):
+            if not cond:
+                raise ValueError(f"{self.name}: {what}")
+        need(self.block == BLOCK_MAMBA2, "block 'mamba2' (the SSM layers)")
+        need(len(self.layer_types) == self.n_layers,
+             "one layer_types entry a layer")
+        need(set(self.layer_types) <= {LAYER_MAMBA2, LAYER_ATTENTION},
+             f"layer_types of {LAYER_MAMBA2!r} and {LAYER_ATTENTION!r}")
+        need(self.attn_every == 0, "attn_every 0 (the pattern places "
+             "attention)")
+        need(self.d_ff > 0, "an MLP after every mixer")
+        super().validate()
+        if self.has_attention:
+            need(self.n_heads > 0 and self.n_kv_heads > 0
+                 and self.n_heads % self.n_kv_heads == 0,
+                 "attention heads, n_heads a multiple of n_kv_heads")
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Analytic parameter count (for 6ND model-FLOPs and memory napkin
     math; held against the real init in the tests)."""
@@ -155,6 +228,12 @@ def param_count(cfg: ModelConfig) -> int:
         mult = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
         return mult * d * ff
 
+    if isinstance(cfg, PatternConfig):
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        mixer = (d * (2 * di + 2 * N + H) + (cfg.ssm_conv + 1) * cfg.conv_dim
+                 + 3 * H + di + di * d)     # dt_bias/A/D, gated norm, out
+        return (n + cfg.n_ssm_layers * mixer + cfg.n_attn_layers
+                * attn_params() + L * (mlp_params(cfg.d_ff) + 2 * d))
     if cfg.block == "dense":
         per = attn_params() + mlp_params(cfg.d_ff) + 2 * d
         n += L * per

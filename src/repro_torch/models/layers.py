@@ -1,6 +1,6 @@
 """Shared layer primitives: RMSNorm, the FFNs (dense and expert-stacked),
-and the causal depthwise conv of the Mamba blocks (full sequence and one
-decode step).
+the causal depthwise conv of the Mamba blocks (full sequence and one
+decode step), and a layer's view into stacked parameters.
 Each keeps the JAX package's dtype discipline (``models/layers.py``)."""
 from __future__ import annotations
 
@@ -8,6 +8,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+
+
+def layer(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: a view into every stacked tensor."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
 
 
 def rmsnorm(x, w, eps: float = 1e-5, tp=None):

@@ -51,11 +51,14 @@ gathers it again and the gathered leaf is not kept.
 Every block of the reference is ported: dense, MoE (``models/moe.py``;
 the Switch auxiliary loss of each layer is summed into the aux term),
 pure-SSM (mamba1, mamba2) and hybrid (mamba2 + one shared attention
-block). Each entry takes token ids or, for the embedding-input models
-(``embed_input=False``: qwen2-vl, musicgen; ``models/frontends.py`` draws
-their stub inputs), ``embeds`` (B, S, d); explicit ``positions`` ((B, S),
-or (3, B, S) for M-RoPE) shape only the rotary tables, as in the
-reference, so serving attention stays on the flash kernel.
+block). Beside them the port's own per-layer pattern
+(``config.PatternConfig``, granite-4.0-h), whose layers, decode step and
+cache state ``models/pattern.py`` holds. Each entry takes token ids or,
+for the embedding-input models (``embed_input=False``: qwen2-vl,
+musicgen; ``models/frontends.py`` draws their stub inputs), ``embeds``
+(B, S, d); explicit ``positions`` ((B, S), or (3, B, S) for M-RoPE) shape
+only the rotary tables, as in the reference, so serving attention stays
+on the flash kernel.
 """
 from __future__ import annotations
 
@@ -66,9 +69,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import causal_conv1d, ffn, rmsnorm
+from repro_torch.models import pattern, ssm
+from repro_torch.models.config import ModelConfig, PatternConfig
+from repro_torch.models.layers import causal_conv1d, ffn, layer, rmsnorm
 from repro_torch.models.moe import moe_ffn
 from repro_torch.obs.trace import NULL, as_tracer
 
@@ -163,6 +166,41 @@ def _block_params(cfg: ModelConfig, gen, dtype):
     raise ValueError(cfg.block)
 
 
+def _pattern_params(cfg: PatternConfig, gen, dtype):
+    """A pattern's layers (``models/pattern.py``): ``blocks`` its Mamba2
+    layers, the published mixer's conv over [x, B, C], each with its MLP;
+    ``attn_blocks`` its attention layers."""
+    L, d, dev = cfg.n_ssm_layers, cfg.d_model, gen.device
+    di, n, h, cd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_dim
+    f32 = torch.float32
+    out = {"blocks": {
+        "ln": _full((L, d), 1.0, dtype, dev),
+        "in_z": _dense(gen, (L, d, di), dtype),
+        "in_x": _dense(gen, (L, d, di), dtype),
+        "in_b": _dense(gen, (L, d, n), dtype),
+        "in_c": _dense(gen, (L, d, n), dtype),
+        "in_dt": _dense(gen, (L, d, h), dtype),
+        "conv_w": _dense(gen, (L, cfg.ssm_conv, cd), f32, 0.1),
+        "conv_b": _full((L, cd), 0.0, f32, dev),
+        "dt_bias": _full((L, h), -4.0, f32, dev),
+        "A_log": _full((L, h), 0.0, f32, dev),
+        "D": _full((L, h), 1.0, f32, dev),
+        "out_norm": _full((L, di), 1.0, dtype, dev),
+        "out_proj": _dense(gen, (L, di, d), dtype),
+        "ln2": _full((L, d), 1.0, dtype, dev),
+        "mlp": _ffn_params(cfg, gen, dtype, (L,)),
+    }}
+    la = cfg.n_attn_layers
+    if la:
+        out["attn_blocks"] = {
+            "ln1": _full((la, d), 1.0, dtype, dev),
+            "ln2": _full((la, d), 1.0, dtype, dev),
+            "attn": _attn_params(cfg, gen, dtype, (la,)),
+            "mlp": _ffn_params(cfg, gen, dtype, (la,)),
+        }
+    return out
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights by the reference's init (normal, std 0.02; the SSM's
     A_log, dt_bias = -4, D = 1, norms 1), drawn on ``device`` (None: the
@@ -183,9 +221,12 @@ def _params(cfg: ModelConfig, gen) -> dict:
     cfg.validate()
     device = gen.device
     dtype = cfg.torch_dtype
-    params = {"embed": _dense(gen, (cfg.vocab, cfg.d_model), dtype),
-              "blocks": _block_params(cfg, gen, dtype),
-              "final_norm": _full((cfg.d_model,), 1.0, dtype, device)}
+    params = {"embed": _dense(gen, (cfg.vocab, cfg.d_model), dtype)}
+    if isinstance(cfg, PatternConfig):
+        params.update(_pattern_params(cfg, gen, dtype))
+    else:
+        params["blocks"] = _block_params(cfg, gen, dtype)
+    params["final_norm"] = _full((cfg.d_model,), 1.0, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense(gen, (cfg.d_model, cfg.vocab), dtype)
     if cfg.attn_every:  # zamba2-style single shared attention+MLP block
@@ -196,12 +237,6 @@ def _params(cfg: ModelConfig, gen) -> dict:
             "mlp": _ffn_params(cfg, gen, dtype),
         }
     return params
-
-
-def layer(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view into every stacked tensor."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
 
 
 # ================================================================ forward
@@ -308,7 +343,10 @@ def _run_layers(cfg: ModelConfig, params, x, impl=None, cached=True,
     ``mamba*_block`` instead, as the reference's does), and the aux loss
     summed over the layers. ``tp``: the rank's shards (``TPContext``).
     ``trace``: prefill's tracer (the rotary tables in ``prefill.embed``,
-    each SSM layer in ``prefill.ssm``)."""
+    each SSM layer in ``prefill.ssm``). A pattern's layers:
+    ``pattern.run_layers``."""
+    if isinstance(cfg, PatternConfig):
+        return pattern.run_layers(cfg, params, x, impl, cached, trace)
     with trace.span("prefill.embed", "prefill"):
         cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
                                 x.device)
@@ -360,11 +398,14 @@ def _train_layers(cfg: ModelConfig, params, x, positions=None, tp=None):
     each dense or MoE block, each pure-SSM layer, and each SSM layer inside
     a hybrid stage (not the shared attention block). Returns x and the aux
     loss summed over the layers. Under ``tp`` a layer's FSDP leaves are
-    gathered inside its checkpointed body."""
+    gathered inside its checkpointed body. A pattern's layers:
+    ``pattern.train_layers``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(cfg, PatternConfig):
+        return pattern.train_layers(cfg, params, x), aux
     cos, sin = _rope_tables(cfg, positions, x.shape[0], x.shape[1],
                             x.device)
     blocks = params["blocks"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block in ("dense", "moe"):
         def block(h, i):
             h, _, _, a = _attn_mlp_block(_gathered(tp, layer(blocks, i)),
@@ -410,9 +451,16 @@ def logits_fn(cfg: ModelConfig, params, hidden, tp=None):
     holds a block of the vocab, the logits of the ranks' blocks are
     all-gathered over the model axis."""
     head = _head(cfg, params, tp)
-    logits = hidden @ head
+    logits = _scaled(cfg, hidden @ head)
     if tp is not None and logits.shape[-1] != cfg.vocab:
         logits = tp.all_gather(logits, dim=-1)
+    return logits
+
+
+def _scaled(cfg: ModelConfig, logits):
+    """A pattern's logits divided by ``logits_scaling``."""
+    if isinstance(cfg, PatternConfig):
+        return logits / cfg.logits_scaling
     return logits
 
 
@@ -454,7 +502,7 @@ def lm_loss(cfg: ModelConfig, params, batch, impl=None, train=False,
     if tp is not None and head.shape[-1] != cfg.vocab:
         nll = tp.vocab_nll(tp.enter(hidden) @ head, labels)
     else:
-        logp = torch.log_softmax((hidden @ head).float(), dim=-1)
+        logp = torch.log_softmax(_scaled(cfg, hidden @ head).float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss = torch.mean(nll)
     return loss + aux, {"nll": loss, "aux": aux}
@@ -481,6 +529,8 @@ def cache_width(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
+    if isinstance(cfg, PatternConfig):
+        return cfg.n_attn_layers
     if cfg.block in ("dense", "moe"):
         return cfg.n_layers
     if cfg.attn_every:
@@ -490,7 +540,8 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                device=None, tp=None) -> DecodeCache:
-    """An empty cache for ``batch_size`` sequences. With ``tp`` its fields
+    """An empty cache for ``batch_size`` sequences (a pattern's Mamba2
+    layers: ``pattern.state_shapes``). With ``tp`` its fields
     take the rank's shapes on the model axis (``cache_pspecs``: the KV
     heads, or the ring's W where they do not divide; d_inner; the SSM
     heads); ``slot_pos`` stays whole."""
@@ -500,7 +551,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     if _n_attn_layers(cfg):
         shapes["k"] = shapes["v"] = (_n_attn_layers(cfg), batch_size, w,
                                      cfg.n_kv_heads, cfg.hd)
-    if cfg.block in ("mamba1", "mamba2"):
+    if isinstance(cfg, PatternConfig):
+        shapes.update(pattern.state_shapes(cfg, batch_size))
+        dtypes["ssm"] = torch.float32
+    elif cfg.block in ("mamba1", "mamba2"):
         shapes["conv"] = (cfg.n_layers, batch_size, cfg.ssm_conv - 1,
                           cfg.d_inner)
         if cfg.block == "mamba1":
@@ -577,12 +631,14 @@ def decode_step(cfg: ModelConfig, params, cache: DecodeCache, tokens=None,
     if cfg.mrope:
         cos, sin = attn.mrope_angles(pos[None].expand(3, 1, 1), cfg.hd,
                                      cfg.rope_theta, cfg.mrope_sections_)
-    elif cfg.has_attention:
+    elif cfg.has_attention and not isinstance(cfg, PatternConfig):
         cos, sin = attn.rope_angles(pos, int(cfg.hd * cfg.rotary_pct),
                                     cfg.rope_theta)
     cache.slot_pos[slot] = idx     # as the reference, a pure SSM's 1 slot too
 
-    if cfg.block in ("dense", "moe"):
+    if isinstance(cfg, PatternConfig):
+        x = pattern.decode_layers(cfg, params, cache, x, slot)
+    elif cfg.block in ("dense", "moe"):
         for i in range(cfg.n_layers):
             x = _attn_decode_layer(layer(params["blocks"], i), cfg, x,
                                    cache.k[i], cache.v[i], slot,
@@ -620,7 +676,9 @@ def prefill(cfg: ModelConfig, params, tokens=None,
     ``"prefill"`` track: ``prefill.embed`` (the lookup, the rotary
     tables), ``prefill.cache`` (the cache's zeroed tensors; the layers'
     entries copied in), ``prefill.attn`` and ``prefill.mlp`` each layer
-    (``prefill.ssm`` an SSM layer) and ``prefill.head``.
+    (``prefill.ssm`` an SSM layer; in a pattern each mixer in
+    ``prefill.ssm`` or ``prefill.attn``, each MLP in ``prefill.mlp``, and
+    ``prefill.embed`` the lookup alone) and ``prefill.head``.
 
     Returns (last-token logits (B, V), DecodeCache primed at index = S).
     """

@@ -1,5 +1,8 @@
 """Selective-state-space blocks: Mamba1 (falcon-mamba) and Mamba2 (zamba2),
-the port of the JAX package's ``models/ssm.py``.
+the port of the JAX package's ``models/ssm.py``, and the published Mamba2
+mixer (granite-4.0-h: :func:`mamba2_mixer`, :func:`mamba2_mixer_step`),
+whose causal conv runs over [x, B, C] where the reference's convolves x
+alone.
 
 Both variants lower to one generic scan over a flattened channel axis D:
   mamba1: D = d_inner,             A: (D, N) dense matrix
@@ -294,14 +297,23 @@ def mamba2_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state,
                   tp=None):
     """x_t (B, d); ssm_state (B, H, hd, N) (the rank's heads under
     ``tp``)."""
-    bsz = x_t.shape[0]
-    hd = cfg.mamba_headdim
     xn = rmsnorm(x_t, params["ln"], cfg.norm_eps)
     z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn)
-    split = tp is not None and xi.shape[-1] != cfg.d_inner
     conv_state, xc = conv1d_step(conv_state, xi, params["conv_w"],
                                  params["conv_b"])
     xc = F.silu(xc)
+    y, ssm_state = _mamba2_step(params, cfg, xc, z, b_ssm, c_ssm, dt_raw,
+                                ssm_state, tp)
+    return x_t + y, conv_state, ssm_state
+
+
+def _mamba2_step(params, cfg: ModelConfig, xc, z, b_ssm, c_ssm, dt_raw,
+                 ssm_state, tp=None):
+    """One token's recurrence after the conv: xc (B, di) post-conv+silu;
+    returns (the mixer's output (B, d), ssm_state')."""
+    bsz = xc.shape[0]
+    hd = cfg.mamba_headdim
+    split = tp is not None and xc.shape[-1] != cfg.d_inner
     dt = F.softplus(_own_heads(params, dt_raw, tp).float()
                     + params["dt_bias"])
     a = -torch.exp(params["A_log"].float())
@@ -313,6 +325,56 @@ def mamba2_decode(params, cfg: ModelConfig, x_t, conv_state, ssm_state,
     y = torch.einsum("bhpn,bn->bhp", ssm_state, c_ssm.float())
     y = y + params["D"].float()[:, None] * xh
     y = y.reshape(bsz, -1)
-    y = (y * F.silu(z.float())).to(x_t.dtype)
+    y = (y * F.silu(z.float())).to(xc.dtype)
     y = rmsnorm(y, params["out_norm"], cfg.norm_eps, tp if split else None)
-    return x_t + _out_proj(params, cfg, y, tp), conv_state, ssm_state
+    return _out_proj(params, cfg, y, tp), ssm_state
+
+
+# ========================================================= published mamba2
+
+def _conv_xbc(params, xi, b_ssm, c_ssm):
+    """The published causal conv over the concatenation [x, B, C]
+    (``conv_w`` (K, di + 2N), ``conv_b`` (di + 2N)), then SiLU: the conv
+    is depthwise, so it is one conv of each part with its own columns of
+    the taps (the concatenation is never formed), and each part comes out
+    contiguous, as the scan takes it."""
+    di, n = xi.shape[-1], b_ssm.shape[-1]
+    w, bias = params["conv_w"], params["conv_b"]
+    return [F.silu(causal_conv1d(t, w[:, lo:lo + t.shape[-1]],
+                                 bias[lo:lo + t.shape[-1]]))
+            for lo, t in ((0, xi), (di, b_ssm), (di + n, c_ssm))]
+
+
+def mamba2_mixer(params, cfg: ModelConfig, xn, impl=None, train=False,
+                 state: bool = False):
+    """The published Mamba2 mixer over a normed sequence xn (B, S, d):
+    the projections (z, x, B, C, Δ), the causal conv over [x, B, C], the
+    per-head scan with the D skip, the gated RMSNorm of y·silu(z), and
+    ``out_proj``; no residual. Returns (out (B, S, d), conv tail, h_final):
+    with ``state`` (prefill) the conv's last K − 1 inputs [x, B, C]
+    (B, K − 1, di + 2N) and the final state (B, H, hd, N), else None."""
+    z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn)
+    xc, bc, cc = _conv_xbc(params, xi, b_ssm, c_ssm)
+    out, h_final = mamba2_inner(params, cfg, xc, z, bc, cc, dt_raw,
+                                return_state=state, impl=impl, train=train)
+    if not state:
+        return out, None, None
+    k1 = cfg.ssm_conv - 1
+    tail = torch.cat([xi[:, -k1:], b_ssm[:, -k1:], c_ssm[:, -k1:]], dim=-1)
+    return out, tail, h_final
+
+
+def mamba2_mixer_step(params, cfg: ModelConfig, xn_t, conv_state,
+                      ssm_state):
+    """One decode token of :func:`mamba2_mixer`: xn_t (B, d) normed;
+    conv_state (B, K − 1, di + 2N) holds the last inputs [x, B, C];
+    ssm_state (B, H, hd, N). Returns (out (B, d), conv', ssm')."""
+    z, xi, b_ssm, c_ssm, dt_raw = _mamba2_split(params, cfg, xn_t)
+    conv_state, xbc = conv1d_step(conv_state,
+                                  torch.cat([xi, b_ssm, c_ssm], dim=-1),
+                                  params["conv_w"], params["conv_b"])
+    xc, bc, cc = F.silu(xbc).split(
+        [xi.shape[-1], b_ssm.shape[-1], c_ssm.shape[-1]], dim=-1)
+    out, ssm_state = _mamba2_step(params, cfg, xc, z, bc, cc, dt_raw,
+                                  ssm_state)
+    return out, conv_state, ssm_state

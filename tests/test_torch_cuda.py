@@ -729,6 +729,19 @@ def test_scan_heads_kernel_other_widths_match_plain(gen, p, n, lowp):
     _heads_case(gen, 2, 333, 5, p, n, lowp)
 
 
+@pytest.mark.parametrize("g,s,hn,p,n,lowp", [
+    (32, 7845, 64, 64, 128, True), (3, 333, 64, 64, 128, True),
+    (1, 1, 64, 64, 128, True), (2, 65, 5, 64, 128, False),
+    (2, 200, 7, 32, 72, True), (2, 129, 3, 64, 96, False)])
+def test_scan_heads_kernel_two_state_tiles_match_plain(gen, g, s, hn, p, n,
+                                                        lowp):
+    """N above 64 (granite-4.0-h's 128): the state as two 64-column tiles,
+    one a consumer warpgroup, their y added. At the serving cell's layer
+    (32 prompts padded to 7,845, 64 heads of 64, N 128) and at ragged
+    lengths, widths and fp32 pieces."""
+    _heads_case(gen, g, s, hn, p, n, lowp)
+
+
 def test_scan_heads_kernel_mixed_operand_types(gen):
     """x in fp32 with B/C in bf16, and the other way round."""
     for xd, bd in ((torch.float32, torch.bfloat16),
@@ -766,7 +779,7 @@ def test_scan_heads_kernel_refuses_what_it_does_not_take(gen):
         ops.selective_scan_heads(dt, x, a[:3].contiguous(), b, c)
     for hn, p, n, what in ((2, 128, 16, "head_dim P = 128"),
                            (8, 12, 16, "head_dim P = 12"),
-                           (4, 64, 128, "state N = 128"),
+                           (4, 64, 136, "state N = 136"),
                            (4, 64, 4, "state N = 4")):
         dt2, x2, a2, b2, c2 = _heads_operands(gen, 1, 16, hn, p, n, True)
         with pytest.raises(ValueError, match=what):

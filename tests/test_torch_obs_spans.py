@@ -243,3 +243,73 @@ def test_the_cli_traces_the_step_phases(tmp_path):
     steps = [e for e in trace["traceEvents"]
              if e.get("ph") == "X" and e["name"] == "train.step"]
     assert [e["args"]["step"] for e in steps] == [0, 1]
+
+
+# ------------------------------------------------- a per-layer pattern
+
+def _pattern_counts(cfg, rounds=1):
+    """Spans a prefill of a pattern records: each Mamba2 mixer in
+    ``prefill.ssm``, each attention mixer in ``prefill.attn``, every MLP in
+    ``prefill.mlp`` (granite-4.0-h-micro: 36, 4 and 40); the embedding's
+    lookup alone (no rotary tables), the cache twice, the head once."""
+    n_attn = cfg.layer_types.count("attention")
+    return {"prefill.embed": rounds, "prefill.cache": 2 * rounds,
+            "prefill.ssm": (cfg.n_layers - n_attn) * rounds,
+            "prefill.attn": n_attn * rounds,
+            "prefill.mlp": cfg.n_layers * rounds, "prefill.head": rounds}
+
+
+def test_the_published_pattern_scales_to_36_4_40():
+    full = TC.get_config("granite-4.0-h-micro")
+    counts = _pattern_counts(full)
+    assert (counts["prefill.ssm"], counts["prefill.attn"],
+            counts["prefill.mlp"]) == (36, 4, 40)
+
+
+def test_a_traced_pattern_prefill_is_the_untraced_one():
+    cfg, params = _serving("granite-4.0-h-micro")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 12))).long()
+    tr = Tracer()
+    got = prefill(cfg, params, toks, max_seq=20, trace=tr)
+    want = prefill(cfg, params, toks, max_seq=20)
+    _equal_trees(got, want)
+    assert _counts(tr) == _pattern_counts(cfg)
+    assert tr.tracks == ["prefill"]
+
+
+@pytest.mark.parametrize("arch", ["granite-4.0-h-micro", "internlm2-1.8b",
+                                  "zamba2-2.7b"])
+def test_the_cache_counters_are_the_caches_bytes(arch):
+    """``sched.kv_bytes`` and ``sched.state_bytes``, once a round, are the
+    bytes of ``init_cache``'s K/V and of its conv tails and SSM states at
+    the scheduler's slots and ``max_seq``."""
+    from repro_torch.models.model import init_cache
+    cfg, params = _serving(arch)
+    sched = DecodeScheduler(cfg, params, n_slots=3, max_seq=24)
+    for r in _requests(cfg, [7, 12, 4, 9]):
+        sched.submit(r)
+    tr = Tracer()
+    while sched.queue:
+        sched.run_round(trace=tr)
+    cache = init_cache(cfg, 3, 24, device="cpu")
+    want = {"sched.kv_bytes": sum(t.nbytes for t in (cache.k, cache.v)
+                                  if t is not None),
+            "sched.state_bytes": sum(t.nbytes for t in (cache.conv,
+                                                        cache.ssm)
+                                     if t is not None)}
+    got: dict = {}
+    for e in tr.events:
+        if e[0] == "C" and e[1] in want:
+            assert e[2] == "sched"
+            got.setdefault(e[1], []).append(e[6][e[1]])
+    assert got == {k: [float(v)] * 2 for k, v in want.items()}
+    if arch == "granite-4.0-h-micro":
+        assert cache.k.shape[0] == 1 and cache.ssm.shape[0] == 1
+        assert cache.conv.shape[-1] == cfg.d_inner + 2 * cfg.ssm_state
+        assert cache.ssm.dtype == torch.float32 and want["sched.kv_bytes"]
+    if arch == "internlm2-1.8b":
+        assert want["sched.state_bytes"] == 0
+    counts = _counts(tr, "prefill")
+    if arch == "granite-4.0-h-micro":
+        assert counts == _pattern_counts(cfg, rounds=2)

@@ -50,9 +50,12 @@ SHAPES = {
     "round_613": (4, 613, 80, 64, 64),     # the scheduler's rounds, 12a
     "round_1299": (4, 1299, 80, 64, 64),
     "round_2000": (4, 2000, 80, 64, 64),
+    # granite-4.0-h-micro's layer at the serving cell's longest round
+    "granite": (32, 7845, 64, 64, 128),
 }
 CHECKS = [(g, s, hn, p, n, dtype) for s in (1, 63, 65, 333)
-          for (g, hn, p, n) in ((2, 9, 32, 16), (1, 4, 64, 64))
+          for (g, hn, p, n) in ((2, 9, 32, 16), (1, 4, 64, 64),
+                                (1, 4, 64, 128))
           for dtype in (torch.bfloat16, torch.float32)]
 
 
